@@ -1,0 +1,179 @@
+"""Simulated annealing driver (paper §2): V0 sequential, V1 asynchronous,
+V2 synchronous, the counterpart of ``repro.core.annealing``.
+
+Where the reference compiles the whole ladder into one XLA program, the
+port runs the paper's CUDA design: a Python loop over temperature levels,
+each level one launch of kernel B1 (the N-step Metropolis sweep of every
+chain), then the exchange and the best-so-far update through kernel B2.
+Nothing in the loop synchronises with the host; the history stays on the
+device and is copied once at the end.
+
+The sweep is counter-based (``kernels/rng.py``): level ``lvl`` draws steps
+``lvl*N .. lvl*N + N-1`` of chain ``c``'s stream under ``cfg.seed``.  The
+reference's ``sa_minimize`` draws from ``jax.random`` instead, so the two
+agree in distribution, and level by level with a composition of
+``repro.kernels.ops.metropolis_sweep`` and ``repro.core.exchange``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.core import exchange as exch
+from repro_torch.kernels import ops
+from repro_torch.kernels.reduce_min import argmin_reduce
+from repro_torch.objectives.base import Objective
+
+
+@dataclasses.dataclass(frozen=True)
+class SAConfig:
+    """Annealing schedule + parallelization configuration (paper notation).
+
+    Fields and defaults are the reference's, so a reference config round
+    trips.  ``unroll`` (the reference's cost-measurement mode) has no
+    effect here: the port's ladder is a host loop."""
+
+    T0: float = 1000.0          # initial temperature
+    T_min: float = 0.01         # target (stop) temperature
+    rho: float = 0.99           # geometric cooling factor
+    N: int = 100                # Markov chain length per level
+    n_chains: int = 16384       # w: number of parallel chains (b*g in paper)
+    exchange: str = "sync"      # 'async' (V1) | 'sync' (V2) | 'sos'
+    exchange_period: int = 1    # levels between exchanges (1 = every level)
+    seed: int = 0
+    dtype: str = "float32"      # only float32 is ported
+    use_delta_eval: bool = False  # beyond-paper O(1) delta evaluation
+    record_history: bool = True   # per-level champion trace
+    unroll: bool = False          # kept for round trips; no effect
+
+    @property
+    def n_levels(self) -> int:
+        """Number of executed temperature levels (paper's do/while loop)."""
+        return max(1, int(math.ceil(math.log(self.T_min / self.T0)
+                                    / math.log(self.rho))))
+
+    @property
+    def n_evals(self) -> int:
+        """Total objective evaluations (paper's 'function evaluations')."""
+        return self.n_levels * self.N * self.n_chains
+
+    def ladder(self) -> np.ndarray:
+        k = np.arange(self.n_levels)
+        return (self.T0 * self.rho ** k).astype(self.dtype)
+
+
+@dataclasses.dataclass
+class SAResult:
+    x_best: np.ndarray        # (dim,)
+    f_best: float
+    history_f: Optional[np.ndarray]  # per-level best-so-far objective value
+    n_evals: int
+    config: SAConfig
+    objective_name: str = ""
+
+
+@dataclasses.dataclass
+class LadderState:
+    """Chains and best-so-far between levels, all on one device."""
+
+    x: torch.Tensor          # (chains, dim)
+    fx: torch.Tensor         # (chains,)
+    best_x: torch.Tensor     # (dim,)
+    best_f: torch.Tensor     # 0-d
+    hist: Optional[torch.Tensor]  # (n_levels,) or None
+
+
+def _check_supported(objective: Objective, cfg: SAConfig) -> None:
+    """Raise on what this slice of the port does not run yet."""
+    if cfg.dtype != "float32":
+        raise NotImplementedError(
+            f"SAConfig.dtype={cfg.dtype!r} is not ported yet (float32 only)")
+    if objective.kernel_id is None:
+        raise NotImplementedError(
+            f"{objective.name} has no kernel_id: objectives outside the sweep "
+            "kernel's registry are not ported into sa_minimize yet")
+    if cfg.exchange not in exch.EXCHANGES:
+        raise ValueError(f"unknown exchange {cfg.exchange!r}; "
+                         f"expected one of {sorted(exch.EXCHANGES)}")
+
+
+def init_state(x0c: torch.Tensor, *, objective: Objective,
+               cfg: SAConfig) -> LadderState:
+    fx = objective(x0c)
+    best_x, best_f = exch.local_champion(x0c, fx)
+    hist = (torch.empty(cfg.n_levels, dtype=fx.dtype, device=fx.device)
+            if cfg.record_history else None)
+    return LadderState(x0c, fx, best_x, best_f, hist)
+
+
+def level_step(state: LadderState, lvl: int, T: float, *,
+               objective: Objective, cfg: SAConfig) -> LadderState:
+    """One temperature level: sweep of length N, exchange, best-so-far."""
+    x, fx = ops.metropolis_sweep(
+        state.x, T, cfg.seed, lvl * cfg.N, kid=objective.kernel_id,
+        n_steps=cfg.N, variant="delta" if cfg.use_delta_eval else "full",
+        device=state.x.device)
+    if cfg.exchange != "async" and lvl % cfg.exchange_period == 0:
+        x, fx = exch.EXCHANGES[cfg.exchange](x, fx, T, seed=cfg.seed, lvl=lvl)
+    xb, fb = exch.local_champion(x, fx)
+    better = fb < state.best_f
+    best_x = torch.where(better, xb, state.best_x)
+    best_f = torch.where(better, fb, state.best_f)
+    if state.hist is not None:
+        state.hist[lvl] = best_f
+    return LadderState(x, fx, best_x, best_f, state.hist)
+
+
+def run_ladder(x0c: torch.Tensor, *, objective: Objective, cfg: SAConfig):
+    """Run the whole ladder from per-chain states ``x0c`` (chains, dim).
+
+    Returns (best_x (dim,), best_f 0-d, hist (n_levels,) or None), all on
+    x0c's device."""
+    _check_supported(objective, cfg)
+    state = init_state(x0c, objective=objective, cfg=cfg)
+    for lvl, T in enumerate(cfg.ladder().tolist()):
+        state = level_step(state, lvl, T, objective=objective, cfg=cfg)
+    # Final champion reduce over the chains and the carried best (the paper
+    # V1's reduceMin; a refinement no-op for V2).
+    n = state.fx.shape[0]
+    fa = torch.cat([state.fx, state.best_f.reshape(1)])
+    fb, j = argmin_reduce(fa)
+    xa = state.x.index_select(0, torch.clamp(j, max=n - 1).reshape(1).long())[0]
+    best_x = torch.where(j == n, state.best_x, xa)
+    return best_x, fb, state.hist
+
+
+def sa_minimize(objective: Objective, cfg: SAConfig, x0=None, *,
+                device=None, mesh=None, mesh_axes=None) -> SAResult:
+    """Minimize ``objective`` with parallel SA on ``device`` (default: the
+    card).
+
+    Without ``x0`` the chains start uniform over the box, drawn from a
+    ``torch.Generator`` on the device seeded with ``cfg.seed``; a given
+    ``x0`` (dim,) is broadcast to every chain."""
+    if mesh is not None or mesh_axes is not None:
+        raise NotImplementedError(
+            "sa_minimize(mesh=...): the sharded ladder "
+            "(build_sharded_ladder) is not ported yet")
+    dev = resolve_device(device)
+    if x0 is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(cfg.seed)
+        x0c = objective.sample_uniform(gen, (cfg.n_chains,))
+    else:
+        x0c = torch.as_tensor(x0, dtype=torch.float32, device=dev).reshape(
+            1, objective.dim).expand(cfg.n_chains, objective.dim).contiguous()
+    best_x, best_f, hist = run_ladder(x0c, objective=objective, cfg=cfg)
+    return SAResult(
+        x_best=best_x.cpu().numpy(),
+        f_best=float(best_f),
+        history_f=None if hist is None else hist.cpu().numpy(),
+        n_evals=cfg.n_evals,
+        config=cfg,
+        objective_name=objective.name,
+    )

@@ -1,0 +1,112 @@
+"""The port as a package: no JAX, the card by default, state carried
+across, and the CUDA paths (collected here, run where there is a card)."""
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import SAConfig as JConfig
+from repro.objectives import functions as JF
+from repro_torch import interop
+from repro_torch.core import nelder_mead, sa_minimize, SAConfig, hybrid_minimize
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import metropolis_sweep as tms
+from repro_torch.kernels import reduce_min as trm
+from repro_torch.objectives import functions as TF
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def test_package_imports_no_jax_and_no_reference():
+    mods = sorted(
+        "repro_torch." + ".".join(p.relative_to(SRC / "repro_torch").with_suffix("").parts)
+        for p in (SRC / "repro_torch").rglob("*.py") if p.name != "__init__.py")
+    code = ("import sys\n"
+            f"for m in {mods!r}: __import__(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n"
+            "print(len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "repro_torch.kernels.ops" in mods and "repro_torch.interop" in mods
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: sa_minimize(TF.schwefel(2), SAConfig(n_chains=4)),
+    lambda: hybrid_minimize(TF.schwefel(2), SAConfig(n_chains=4)),
+    lambda: nelder_mead(TF.schwefel(2), np.zeros(2, np.float32)),
+    lambda: ops.metropolis_sweep(np.zeros((4, 2), np.float32), 1.0, 0, 0, kid=0, n_steps=1),
+    lambda: ops.metropolis_sweep_slots(np.zeros((4, 2), np.float32), 0, 1.0, 0, 0, 0, n_steps=1, blk=4),
+    lambda: interop.chains_from_numpy(np.zeros((2, 2)), np.zeros(2)),
+])
+def test_entry_points_need_the_card_by_default(no_card, call):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+
+
+def test_interop_round_trips():
+    ref_cfg = JConfig(T0=3.0, T_min=0.1, N=7, n_chains=12, exchange="async", seed=9)
+    cfg = interop.sa_config_from_dict(dataclasses.asdict(ref_cfg))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg)
+    with pytest.raises(ValueError, match="unknown SAConfig fields"):
+        interop.sa_config_from_dict({"mesh": 1})
+    for name in ("schwefel", "rastrigin", "ackley", "griewank", "exponential", "salomon"):
+        jo, to = getattr(JF, name)(6), interop.objective_from_ref(name, 6)
+        assert (to.kernel_id, to.f_opt, to.name) == (jo.kernel_id, jo.f_opt, jo.name)
+        np.testing.assert_array_equal(to.lower, jo.lower)
+        np.testing.assert_array_equal(to.x_opt, jo.x_opt)
+    with pytest.raises(ValueError, match="not a registry objective"):
+        interop.objective_from_ref("branin", 2)
+    rs = np.random.default_rng(0)
+    x, fx = rs.random((5, 3)).astype(np.float32), rs.random(5).astype(np.float32)
+    xt, ft = interop.chains_from_numpy(x, fx, device="cpu")
+    assert xt.dtype == torch.float32 and xt.device.type == "cpu"
+    x2, f2 = interop.chains_to_numpy(xt, ft)
+    np.testing.assert_array_equal(x2, x)
+    np.testing.assert_array_equal(f2, fx)
+
+
+@pytest.fixture
+def card():
+    """Decided here, not at import: the CUDA paths run only where there is
+    a card (chip_smoke.py drives them at full size)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def test_cuda_sweep_kernel_matches_plain(card):
+    x = (torch.rand(512, 16, device=card) - 0.5) * 1000
+    launches = tms.counter.launches
+    xk, fk = tms.metropolis_sweep_kernel(x, 5.0, 1, 2**31, kid=0, n_steps=12, blk=64)
+    torch.cuda.synchronize()
+    assert tms.counter.launches == launches + 1
+    xp, fp = tref.metropolis_sweep_ref(x, 5.0, 1, 2**31, kid=0, n_steps=12)
+    assert (xk == xp).all(1).float().mean() >= 0.95
+
+
+def test_cuda_argmin_kernel_matches_plain(card):
+    f = torch.randn(16385, device=card)
+    f[[77, 16384]] = f.min() - 1
+    m, i = trm.argmin_reduce(f)
+    mp, ip = trm.argmin_reduce_plain(f)
+    assert int(i) == int(ip) == 77 and float(m) == float(mp)
+
+
+def test_cuda_sa_minimize_runs(card):
+    r = sa_minimize(TF.schwefel(8), SAConfig(T0=50.0, T_min=1.0, rho=0.8, N=10,
+                                             n_chains=256))
+    assert np.isfinite(r.f_best) and r.x_best.shape == (8,)
