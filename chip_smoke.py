@@ -16,7 +16,18 @@ and runs, in order, failing on the first phase that fails:
 4. the paper-faithful full variant at the same width, first 20 levels;
 5. V0 and V1 (async) and SOS on Schwefel-32, and a small run held against
    the plain CPU path;
-6. kernel times at the main path's shapes (CUDA events, median).
+6. kernel times at the main path's shapes (CUDA events, median);
+7. kernel B3 (pairwise-exchange QAP sweep) vs its plain version at 128
+   slots x 512 chains, N = 40, for n = 5, 10, 12, 20 and the kernel's
+   largest n, at n = 12 with F or D one (n, n) for every block, and the
+   PTX of its accept test;
+8. the serving main path: 256 QAP requests (grid12 and syn10, 128 seeds
+   each) through the engine at 128 slots x 512 chains, macro-K 4, with B3's
+   launches and kernel time (CUDA events around each kernel launch), the
+   QAP quality gate, and 8 requests held bit for bit against their
+   standalone runs; the same load at K = 1;
+9. continuous and QAP requests co-batched at 64 slots x 512 chains, K = 1
+   and 4, every champion bit-exact against its standalone run.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a card, or without
@@ -25,6 +36,7 @@ no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -61,6 +73,20 @@ SWEEP_DIMS = (32, 512)
 N_SLOTS, SLOT_BLK = 64, 256
 ARGMIN_SIZES = (16384, 16385, 2**20)
 V1_CHAINS = 16384
+# Slice 2: B3's layout (phase 7), the serving main path (phase 8, the
+# cooling schedule of benchmarks/serve_qap_bench.py) and the mixed load.
+QAP_SLOTS, QAP_BLK, QAP_STEPS = 128, 512, 40
+QAP_SIZES = (5, 10, 12, 20)            # and the kernel's largest n
+SERVE_CFG = dict(n_slots=128, chains_per_slot=512, macro_k=4)
+SERVE_SEEDS = 128                      # requests per QAP instance
+QAP_SCHEDULE = dict(T0=50.0, T_min=0.5, rho=0.90, N=40)
+QAP_MAX_GAP_PCT = 2.0                  # scripts/bench_gates.toml, qap_committed
+QAP_EXACT_PER_INSTANCE = 4
+MIXED_CFG = dict(n_slots=64, chains_per_slot=512)
+MIXED_REQUESTS = 32
+# float32 operations of one move's O(n) delta: per location k, two
+# products of two differences and their sums.
+QAP_DELTA_OPS_PER_N = 10
 
 
 class SmokeFailure(RuntimeError):
@@ -421,6 +447,390 @@ def phase6_times(gen):
                 b2=(b2, b2p, b2_bound, lib))
 
 
+# ----------------------------------------------------------- slice 2
+def qap_layout(n, *, n_slots=QAP_SLOTS, seed=0, all_live=False, shared=None):
+    """B3's input in the serving layout: ``n_slots`` blocks of QAP_BLK
+    chains at permutation length n.  Blocks alternate between two
+    instances of that length (syn10 or grid12 where n is theirs, seeded
+    random integer ones otherwise), with per-block T, seed, step0 (wrapping
+    past 2^32) and shuffled chain bases; a quarter of the blocks are dead
+    unless ``all_live``.  ``shared`` ("F" or "D") passes that matrix as one
+    (n, n) for every block, block 0's, and the other one packed."""
+    from repro_torch.objectives import qap
+    rs = np.random.default_rng(seed)
+    mats = [(rs.integers(0, 10, (n, n)).astype(np.float32),
+             rs.integers(0, 10, (n, n)).astype(np.float32)) for _ in range(2)]
+    named = {inst.n: inst for inst in qap.INSTANCES.values()}
+    if n in named:
+        mats[0] = (named[n].F, named[n].D)
+    F = np.concatenate([mats[b % 2][0] for b in range(n_slots)])
+    D = np.concatenate([mats[b % 2][1] for b in range(n_slots)])
+    p = np.argsort(rs.random((n_slots * QAP_BLK, n)), axis=1).astype(np.int32)
+    if shared:
+        (F, D) = (np.tile(F[:n], (n_slots, 1)), D) if shared == "F" else \
+            (F, np.tile(D[:n], (n_slots, 1)))
+    live = np.ones(n_slots, np.int32) if all_live else \
+        (np.arange(n_slots) % 4 != 3).astype(np.int32)
+    host = dict(
+        F=F, D=D, p=p, live=live,
+        T=(10.0 ** rs.uniform(-1, 2, n_slots)).astype(np.float32),
+        seed=rs.integers(0, 2**32, n_slots, dtype=np.uint64).astype(np.int64),
+        step0=(2**32 - 20 + rs.integers(0, 40, n_slots)).astype(np.int64),
+        base=(rs.permutation(n_slots) * QAP_BLK).astype(np.int64))
+    # uint32 controls go to the card as int32 bit patterns, as the engine
+    # sends them, so a launch converts nothing.
+    dev = {k: torch.from_numpy(v.astype(np.uint32).view(np.int32)
+                               if v.dtype == np.int64 else v).to(DEV)
+           for k, v in host.items()}
+    if shared:
+        dev[shared] = dev[shared][:n]
+    args = (dev["p"], dev["F"], dev["D"], dev["T"], dev["seed"], dev["step0"])
+    kw = dict(blk=QAP_BLK, chain_base=dev["base"], live=dev["live"])
+    return host, args, kw
+
+
+def host_qap_cost(p, F, D, blk):
+    """Exact int64 cost of every row of p against its block's F and D."""
+    n = p.shape[1]
+    Fb = F.reshape(-1, n, n).astype(np.int64)
+    Db = D.reshape(-1, n, n).astype(np.int64)
+    out = np.empty(p.shape[0], np.int64)
+    for b in range(Fb.shape[0]):
+        q = p[b * blk:(b + 1) * blk]
+        out[b * blk:(b + 1) * blk] = (
+            Fb[b][None] * Db[b][q[:, :, None], q[:, None, :]]).sum((1, 2))
+    return out
+
+
+def qap_flip_ok(p_prev, F, D, T, seed, cidx, step):
+    """At the step where two B3 trajectories part, the accept uniform must
+    lie within 2 float32 ulps of exp(-delta/T) computed in float64."""
+    from repro_torch.kernels import rng
+    n = p_prev.shape[0]
+    rbits, uval, uacc = rng.draws3(seed, torch.tensor([cidx]), step)
+    i = int(rbits[0]) % n
+    j = min(int((uval * n).to(torch.int64)[0]), n - 1)
+    q = p_prev.copy()
+    q[i], q[j] = p_prev[j], p_prev[i]
+    F64, D64 = F.astype(np.int64), D.astype(np.int64)
+    delta = int((F64 * D64[np.ix_(q, q)]).sum() - (F64 * D64[np.ix_(p_prev, p_prev)]).sum())
+    thr = math.exp(min(max(-delta / T, -80.0), 80.0))
+    return abs(float(uacc[0]) - thr) <= 2 * float(np.spacing(np.float32(thr)))
+
+
+def check_expf_ptx():
+    """B3's accept test must use the accurate expf and IEEE division: in
+    the PTX every ex2.approx follows the range reduction (an fma.rm that
+    splits off the exponent), and no division is approximate."""
+    from repro_torch.kernels import _build
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    ptx = _build.BUILD_DIR / "qap_sweep.ptx"
+    proc = subprocess.run(
+        [_build._nvcc(), "-arch=compute_90a", "-std=c++17", "-O3", "-fmad=false",
+         "-ptx", "-o", str(ptx), str(_build.CSRC / "qap_sweep.cu")],
+        capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"nvcc -ptx failed: {proc.stderr}")
+    lines = ptx.read_text().splitlines()
+    ex2 = [k for k, line in enumerate(lines) if "ex2.approx" in line]
+    check(len(ex2) > 0, "no exp in B3's PTX")
+    for k in ex2:
+        check(any("fma.rm.f32" in line for line in lines[max(0, k - 16):k]),
+              f"ex2.approx at PTX line {k} without range reduction")
+    check(not any("div.approx" in line or "div.full" in line for line in lines),
+          "approximate division in B3's PTX")
+    check(any("div.rn.f32" in line for line in lines), "no IEEE division in B3's PTX")
+    log(f"  PTX: {len(ex2)} ex2.approx, each after its range reduction; "
+        "division div.rn.f32")
+
+
+def phase7_qap_sweep():
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import qap_sweep as qs
+    log(f"phase 7: kernel B3 vs plain version, {QAP_SLOTS} slots x {QAP_BLK} chains, "
+        f"n_steps={QAP_STEPS}")
+    check(_build.lib().sa_qap_max_n() == qs.MAX_N, "kernel and wrapper disagree on MAX_N")
+    check_expf_ptx()
+    worst = 0.0
+    # Every n with both matrices packed per block, then n = 12 with one
+    # matrix packed and the other (n, n).
+    cases = [(n, None) for n in QAP_SIZES + (qs.MAX_N,)] + [(12, "F"), (12, "D")]
+    for n, shared in cases:
+        host, args, kw = qap_layout(n, seed=n, shared=shared)
+        name = f"n={n}" + (f", {shared} (n, n)" if shared else "")
+
+        def run(k, args=args, kw=kw):
+            out_k = qs.qap_sweep_kernel(*args, n_steps=k, **kw)
+            torch.cuda.synchronize()
+            return out_k, qs.qap_sweep_plain(*args, n_steps=k, **kw)
+
+        (pk, fk), (pp, fp) = run(QAP_STEPS)
+        same = ((pk == pp).all(1) & (fk == fp)).cpu().numpy()
+        pk_h, fk_h = pk.cpu().numpy(), fk.cpu().numpy()
+        worst = max(worst, float((fk - fp).abs().max()))
+        check(bool((np.sort(pk_h, 1) == np.arange(n)).all()), f"{name}: not permutations")
+        dead = np.repeat(host["live"] == 0, QAP_BLK)
+        check(np.array_equal(pk_h[dead], host["p"][dead]), f"{name}: dead blocks changed")
+        check(np.array_equal(host_qap_cost(pk_h, host["F"], host["D"], QAP_BLK)
+                             .astype(np.float32), fk_h), f"{name}: f is not the exact cost")
+        moved = float((pk_h != host["p"]).any(1)[~dead].mean())
+        rows = np.flatnonzero(~same)
+        log(f"  {name}: rows bit-equal {same.mean():.6f} ({len(rows)} differ), "
+            f"live rows moved {moved:.3f}, permutations, dead blocks and exact costs hold")
+        if len(rows):
+            pending = {int(r): host["p"][r] for r in rows}
+            lane = np.arange(QAP_BLK)
+            for k in range(1, QAP_STEPS + 1):
+                (pk_k, _), (pp_k, _) = run(k)
+                diff = ~(pk_k == pp_k).all(1).cpu().numpy()
+                for r in [r for r in pending if diff[r]]:
+                    b = r // QAP_BLK
+                    ok = qap_flip_ok(pending.pop(r), host["F"][b * n:(b + 1) * n],
+                                     host["D"][b * n:(b + 1) * n], float(host["T"][b]),
+                                     int(host["seed"][b]), int(host["base"][b] + lane[r % QAP_BLK]),
+                                     int(host["step0"][b] + k - 1) & 0xFFFFFFFF)
+                    check(ok, f"{name}: row {r} parted at step {k - 1} far from its threshold")
+                now = pk_k.cpu().numpy()
+                for r in pending:
+                    pending[r] = now[r]
+            check(not pending, f"{name}: rows {sorted(pending)} differ but replay identically")
+            log(f"  {name}: every differing row parts at a near-threshold accept")
+    return worst
+
+
+def qap_requests():
+    """Phase 8's load: SERVE_SEEDS requests per QAP instance, one slot
+    each, the instances alternating in submission order."""
+    from repro_torch.objectives import qap
+    from repro_torch.service import SARequest
+    names = sorted(qap.INSTANCES)
+    reqs = []
+    for s in range(SERVE_SEEDS):
+        for i, name in enumerate(names):
+            reqs.append(SARequest(
+                req_id=len(reqs), objective=name, dim=qap.get(name).n,
+                n_chains=SERVE_CFG["chains_per_slot"], seed=100000 * i + s,
+                family="permutation", **QAP_SCHEDULE))
+    return reqs
+
+
+HOST_STEPS = ("_admit", "_launch_group", "_launch_group_fused",
+              "_collect_group", "_collect_group_fused", "_retire")
+
+
+class TimedLib:
+    """The kernel library with one C entry bracketed by CUDA events on the
+    current stream (the launch's), so each span holds the kernel and none
+    of its wrapper's host work."""
+
+    def __init__(self, lib, entry):
+        self._lib, self._entry = lib, entry
+        self.events = []
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name != self._entry:
+            return fn
+
+        def timed(*args):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            rc = fn(*args)
+            e1.record()
+            self.events.append((e0, e1))
+            return rc
+        return timed
+
+
+@contextlib.contextmanager
+def timed_entry(entry):
+    """Time every launch through the C entry ``entry`` while inside."""
+    from repro_torch.kernels import _build
+    real = _build.lib
+    timed = TimedLib(real(), entry)
+    _build.lib = lambda: timed
+    try:
+        yield timed
+    finally:
+        _build.lib = real
+
+
+def kernel_ms(fn, entry, n=25, warmup=3):
+    """Median time of the launch through ``entry`` in fn() over n calls,
+    CUDA events around the launch alone."""
+    for _ in range(warmup):
+        fn()
+    with timed_entry(entry) as t:
+        for _ in range(n):
+            fn()
+            torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in t.events)
+
+
+def serve_timed(cfg, reqs):
+    """Serve ``reqs`` with B3's launches counted from 0 and each kernel
+    bracketed by CUDA events, and the host seconds of the engine's steps
+    (admission, launch: packing, upload and enqueueing; collect: waiting
+    for the card, then folding champions; retire).  Returns (results by
+    id, wall s, launches, kernel s, engine, seconds by step)."""
+    from repro_torch.kernels import qap_sweep as qs
+    from repro_torch.service import SAServeEngine
+    engine = SAServeEngine(cfg)
+    for r in reqs:
+        engine.submit(r)
+    steps = {}
+    for name in HOST_STEPS:
+        def step(*a, _fn=getattr(engine, name), _name=name, **kw):
+            t = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                steps[_name] = steps.get(_name, 0.0) + time.perf_counter() - t
+        setattr(engine, name, step)
+    with timed_entry("sa_qap_sweep") as timed:
+        torch.cuda.synchronize()
+        qs.counter.launches = 0
+        t0 = time.perf_counter()
+        results = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = qs.counter.launches
+    kernel_s = sum(a.elapsed_time(b) for a, b in timed.events) / 1e3
+    return {r.req_id: r for r in results}, wall, launches, kernel_s, engine, steps
+
+
+def host_steps(steps, wall):
+    return ", ".join(f"{k.lstrip('_')} {v:.3f} s" for k, v in steps.items()) + \
+        f", other {wall - sum(steps.values()):.3f} s"
+
+
+def assert_exact(a, b, what):
+    check(a.f_best == b.f_best and np.array_equal(a.x_best, b.x_best)
+          and a.x_best.dtype == b.x_best.dtype
+          and a.champion_history == b.champion_history,
+          f"{what}: req {a.req_id} packed {a.f_best} != standalone {b.f_best}")
+
+
+def phase8_serving():
+    from repro_torch.objectives import qap
+    from repro_torch.service import EngineConfig, SAServeEngine, run_standalone
+    reqs = qap_requests()
+    cfg = EngineConfig(**SERVE_CFG)
+    n_levels = reqs[0].n_levels
+    log(f"phase 8: serving main path, {len(reqs)} QAP requests x {reqs[0].n_chains} chains, "
+        f"EngineConfig({SERVE_CFG}), {n_levels} levels of N={QAP_SCHEDULE['N']}")
+    warm = SAServeEngine(cfg)           # first calls of the torch ops
+    warm.submit(reqs[0])
+    warm.run()
+    got, wall, launches, kernel_s, engine, steps = serve_timed(cfg, reqs)
+    evals = sum(r.n_evals for r in got.values())
+    check(len(got) == len(reqs) and all(r.finish_reason == "ladder" for r in got.values()),
+          "not every request completed its ladder")
+    check(launches > 0, "B3 was not launched on the main path")
+    rows = {}
+    for name in sorted(qap.INSTANCES):
+        inst = qap.get(name)
+        mine = [got[r.req_id] for r in reqs if r.objective == name]
+        for res in mine:
+            check(sorted(res.x_best.tolist()) == list(range(inst.n))
+                  and inst.cost(res.x_best) == res.f_best,
+                  f"req {res.req_id}: champion f is not the exact cost of its permutation")
+        found = [res.f_best for res in mine]
+        best = min(found)
+        rows[name] = dict(
+            best_found=best, gap_pct=100.0 * (best - inst.best_known) / inst.best_known,
+            mean_gap_pct=100.0 * float(np.mean([(f - inst.best_known) / inst.best_known
+                                                for f in found])),
+            hit_rate=sum(f == inst.best_known for f in found) / len(found))
+        r = rows[name]
+        log(f"  {name}: best {best:.0f} (best_known {inst.best_known}), gap "
+            f"{r['gap_pct']:.3f}%, mean gap {r['mean_gap_pct']:.3f}%, hit rate {r['hit_rate']:.3f}")
+        check(best >= inst.best_known, f"{name}: best_found beats best_known")
+        check(r["hit_rate"] > 0.0, f"{name}: no seed reached best_known")
+        check(r["gap_pct"] <= QAP_MAX_GAP_PCT, f"{name}: gap above {QAP_MAX_GAP_PCT}%")
+    log(f"  K=4: wall {wall:.3f} s, {len(got) / wall:.2f} requests/s, "
+        f"{evals / wall:.4e} proposals/s, B3 launches {launches}, B3 kernel time "
+        f"{kernel_s:.4f} s ({100 * kernel_s / wall:.1f}% of wall), host and other "
+        f"device work {wall - kernel_s:.3f} s ({100 * (1 - kernel_s / wall):.1f}%), "
+        f"ticks {engine.tick_count}, group launches {engine.group_launches}")
+    log(f"  K=4 host steps: {host_steps(steps, wall)}")
+    picked = [r for name in sorted(qap.INSTANCES)
+              for r in [q for q in reqs if q.objective == name][:QAP_EXACT_PER_INSTANCE]]
+    for req in picked:
+        assert_exact(got[req.req_id], run_standalone(req, cfg), "phase 8")
+    log(f"  {len(picked)} requests bit-exact against run_standalone at K=4")
+    got1, wall1, launches1, kernel1, _, steps1 = serve_timed(
+        EngineConfig(**{**SERVE_CFG, "macro_k": 1}), reqs)
+    for req in reqs:
+        assert_exact(got1[req.req_id], got[req.req_id], "phase 8 K=1 vs K=4")
+    log(f"  K=1: wall {wall1:.3f} s, {len(got1) / wall1:.2f} requests/s, "
+        f"{evals / wall1:.4e} proposals/s, B3 launches {launches1}, kernel time "
+        f"{kernel1:.4f} s ({100 * kernel1 / wall1:.1f}% of wall); all "
+        f"{len(reqs)} champions bit-equal to K=4")
+    log(f"  K=1 host steps: {host_steps(steps1, wall1)}")
+    return launches, dict(wall_s=wall, kernel_s=kernel_s, rows=rows)
+
+
+def phase9_mixed():
+    import dataclasses
+    from repro_torch.kernels import metropolis_sweep as ms
+    from repro_torch.kernels import qap_sweep as qs
+    from repro_torch.service import EngineConfig, SAServeEngine, run_standalone
+    from repro_torch.service.serve_sa import make_mix
+    reqs = make_mix(MIXED_REQUESTS, MIXED_CFG["chains_per_slot"], seed=0, family="mixed")
+    # Two continuous requests at the width of slice 1's main path.
+    for i in (MIXED_REQUESTS - 4, MIXED_REQUESTS - 2):
+        reqs[i] = dataclasses.replace(reqs[i], dim=512)
+    log(f"phase 9: {len(reqs)} mixed requests (continuous dims "
+        f"{sorted({r.dim for r in reqs if r.family == 'continuous'})}, QAP "
+        f"{sorted({r.objective for r in reqs if r.family == 'permutation'})}), "
+        f"EngineConfig({MIXED_CFG})")
+    for k in (1, 4):
+        cfg = EngineConfig(**MIXED_CFG, macro_k=k)
+        engine = SAServeEngine(cfg)
+        for r in reqs:
+            engine.submit(r)
+        ms.counter.launches = qs.counter.launches = 0
+        t0 = time.perf_counter()
+        got = {r.req_id: r for r in engine.run()}
+        wall = time.perf_counter() - t0
+        b1, b3 = ms.counter.launches, qs.counter.launches
+        check(len(got) == len(reqs), f"K={k}: not every request completed")
+        check(b1 > 0 and b3 > 0, f"K={k}: B1 {b1} / B3 {b3} launches")
+        for req in reqs:
+            res = got[req.req_id]
+            check(np.isfinite(res.f_best) and res.x_best.shape == (req.dim,),
+                  f"K={k}: req {req.req_id} output")
+            check(res.x_best.dtype == (np.int32 if req.family == "permutation" else np.float32),
+                  f"K={k}: req {req.req_id} champion dtype")
+            assert_exact(res, run_standalone(req, cfg), f"phase 9 K={k}")
+        log(f"  K={k}: wall {wall:.3f} s, B1 launches {b1}, B3 launches {b3}; every "
+            f"champion (float32 and int32) bit-exact against run_standalone")
+
+
+def phase_b3_times(gen):
+    """B3 at phase 8's group shape: 64 slots x 512 chains of grid12,
+    N = 40, every block live."""
+    from repro_torch.kernels import qap_sweep as qs
+    n_slots = SERVE_CFG["n_slots"] // 2
+    host, args, kw = qap_layout(12, n_slots=n_slots, seed=99, all_live=True)
+    kw = {**kw, "n_steps": QAP_STEPS}
+    k = kernel_ms(lambda: qs.qap_sweep_kernel(*args, **kw), "sa_qap_sweep")
+    call = cuda_ms(lambda: qs.qap_sweep_kernel(*args, **kw))
+    p = cuda_ms(lambda: qs.qap_sweep_plain(*args, **kw), n=10, warmup=1)
+    chains, n = host["p"].shape
+    proposals = chains * QAP_STEPS
+    qbytes = 2 * chains * n * 4 + chains * 4 + 2 * n_slots * n * n * 4
+    t_bytes = qbytes / HBM_BYTES_PER_S
+    t_ops = (proposals * 2 * THREEFRY_OPS / INT32_OPS_PER_S
+             + proposals * QAP_DELTA_OPS_PER_N * n / FP32_OPS_PER_S)
+    bound = max(t_bytes, t_ops) * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"  B3 at phase 8's group shape ({chains} chains, n={n}, N={QAP_STEPS}): "
+        f"kernel {k:.4f} ms (the call with its wrapper {call:.4f} ms), plain {p:.4f} ms, "
+        f"bound {bound:.4f} ms ({by}), {proposals / (k * 1e-3):.4e} proposals/s")
+    return k, p, bound, by
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -436,6 +846,10 @@ def main() -> int:
     phase4_full_variant()
     phase5_v0_v1()
     t = phase6_times(gen)
+    b3_err = phase7_qap_sweep()
+    b3_launches, _ = phase8_serving()
+    phase9_mixed()
+    b3 = phase_b3_times(gen)
     kernels = [
         {"name": "metropolis_sweep", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/metropolis_sweep.cu",
@@ -449,6 +863,12 @@ def main() -> int:
          "launches": launches["argmin_reduce"], "max_abs_err": b2_err,
          "ms": t["b2"][0], "plain_ms": t["b2"][1], "bound_ms": t["b2"][2],
          "bound_by": "bytes", "library_ms": t["b2"][3]},
+        {"name": "qap_sweep", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/qap_sweep.cu",
+         "replaces": "src/repro/kernels/qap_sweep.py:165",
+         "launches": b3_launches, "max_abs_err": b3_err,
+         "ms": b3[0], "plain_ms": b3[1], "bound_ms": b3[2],
+         "bound_by": b3[3], "library_ms": None},
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -16,6 +16,9 @@ from repro_torch._device import resolve_device
 from repro_torch.core.annealing import SAConfig
 from repro_torch.objectives import functions as F
 from repro_torch.objectives.base import Objective
+from repro_torch.service.engine import EngineConfig
+from repro_torch.service.request import SARequest
+from repro_torch.service.scheduler import SchedulerConfig
 
 _BY_NAME = {
     "schwefel": F.schwefel, "rastrigin": F.rastrigin, "ackley": F.ackley,
@@ -23,14 +26,38 @@ _BY_NAME = {
 }
 
 
+def _from_dict(cls, d: dict, drop=()):
+    names = {f.name for f in dataclasses.fields(cls)}
+    d = {k: v for k, v in d.items() if k not in drop}
+    extra = set(d) - names
+    if extra:
+        raise ValueError(f"unknown {cls.__name__} fields {sorted(extra)}")
+    return cls(**d)
+
+
 def sa_config_from_dict(d: dict) -> SAConfig:
     """An ``SAConfig`` from ``dataclasses.asdict`` of a reference config;
     unknown keys raise."""
-    names = {f.name for f in dataclasses.fields(SAConfig)}
-    extra = set(d) - names
-    if extra:
-        raise ValueError(f"unknown SAConfig fields {sorted(extra)}")
-    return SAConfig(**d)
+    return _from_dict(SAConfig, d)
+
+
+def sa_request_from_dict(d: dict) -> SARequest:
+    """An ``SARequest`` from ``dataclasses.asdict`` of a reference request;
+    unknown keys raise, and the request is validated as the reference's
+    is."""
+    return _from_dict(SARequest, d)
+
+
+def engine_config_from_dict(d: dict, device=None) -> EngineConfig:
+    """An ``EngineConfig`` from ``dataclasses.asdict`` of a reference
+    config.  The reference-only fields ``use_pallas`` and ``interpret``
+    are dropped, ``device`` takes their place (default: the card), and
+    unknown keys raise."""
+    d = dict(d)
+    if isinstance(d.get("scheduler"), dict):
+        d["scheduler"] = _from_dict(SchedulerConfig, d["scheduler"])
+    return _from_dict(EngineConfig, {**d, "device": device},
+                      drop=("use_pallas", "interpret"))
 
 
 def objective_from_ref(name: str, dim: int) -> Objective:

@@ -3,10 +3,11 @@
 
 ``metropolis_sweep`` is the single-job sweep (chain indices
 ``0..chains-1``); ``metropolis_sweep_slots`` the heterogeneous-slot sweep
-of the serving engine, one slot per block of ``blk`` chains.  Both run on
+of the serving engine, one slot per block of ``blk`` chains, and
+``qap_sweep_slots`` its permutation-family counterpart.  All run on
 ``cuda`` unless the caller passes ``device="cpu"``: on the card they launch
-kernel B1, on the CPU its plain version.  Nothing falls back from one to
-the other.
+kernel B1 (B3 for QAP), on the CPU its plain version.  Nothing falls back
+from one to the other.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.kernels.metropolis_sweep import metropolis_sweep_kernel
+from repro_torch.kernels.qap_sweep import qap_sweep_kernel
 
 
 def _states(x, device):
@@ -35,12 +37,15 @@ def metropolis_sweep(x, T, seed, step0, *, kid, n_steps: int,
 
 def metropolis_sweep_slots(x, kids, T_blocks, seeds, step0s, chain_base, *,
                            n_steps: int, blk: int, variant: str = "delta",
-                           live=None, T_chain=None, device=None):
+                           live=None, T_chain=None, device=None, out=None,
+                           kid_checked: bool = False):
     """Heterogeneous-slot sweep: ``x`` is ``(n_blocks * blk, dim)`` and each
     control has one entry per slot (or one for all): objective id,
     temperature, seed, step counter and global chain-index base.  ``live``
     masks finished slots (their state passes through bit for bit);
     ``T_chain`` gives one temperature per chain instead of per slot.
+    ``out`` optionally receives the states; ``kid_checked`` is
+    :func:`metropolis_sweep_kernel`'s.
 
     Returns (x_out (n_blocks*blk, dim), f_out (n_blocks*blk,))."""
     x = _states(x, device)
@@ -49,7 +54,29 @@ def metropolis_sweep_slots(x, kids, T_blocks, seeds, step0s, chain_base, *,
             f"packed chains={x.shape[0]} must be a multiple of blk={blk}")
     return metropolis_sweep_kernel(
         x, T_blocks, seeds, step0s, kid=kids, n_steps=n_steps, blk=blk,
-        variant=variant, chain_base=chain_base, live=live, t_chain=T_chain)
+        variant=variant, chain_base=chain_base, live=live, t_chain=T_chain,
+        out=out, kid_checked=kid_checked)
+
+
+def qap_sweep_slots(x, F_blocks, D_blocks, T_blocks, seeds, step0s,
+                    chain_base, *, n_steps: int, blk: int, live=None,
+                    device=None, out=None):
+    """Heterogeneous-slot QAP pairwise-exchange sweep (permutation family).
+
+    ``x`` is ``(n_blocks * blk, n)`` int32 packed slot states and
+    ``F_blocks``/``D_blocks`` the per-slot instance operands packed
+    ``(n_blocks * n, n)`` (block ``b`` reads rows ``[b*n, (b+1)*n)``) or
+    one ``(n, n)`` for every slot.  The per-block controls ``T_blocks``,
+    ``seeds``, ``step0s``, ``chain_base`` and ``live`` mean what they mean
+    for :func:`metropolis_sweep_slots`; on the CPU they expand to
+    per-chain columns for the plain version.  ``out`` optionally receives
+    the permutations.
+
+    Returns (p_out (n_blocks*blk, n) int32, f_out (n_blocks*blk,) f32)."""
+    x = torch.as_tensor(x, dtype=torch.int32, device=resolve_device(device))
+    return qap_sweep_kernel(
+        x, F_blocks, D_blocks, T_blocks, seeds, step0s, n_steps=n_steps,
+        blk=blk, chain_base=chain_base, live=live, out=out)
 
 
 def kid_for(objective) -> Optional[int]:

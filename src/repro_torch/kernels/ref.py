@@ -136,3 +136,100 @@ def metropolis_sweep_ref(x, T, seed, step0, *, kid, n_steps: int,
             x = torch.where(acc, x1, x)
             fx = torch.where(acc, f1, fx)
     return x, fx[:, 0]
+
+
+# ------------------------------------------------------------------- QAP
+def _per_chain_mat(M, chains: int, n: int, device):
+    """(n, n) or (chains, n, n) float32 matrix -> a (chains, n, n) view."""
+    M = torch.as_tensor(M, dtype=torch.float32, device=device)
+    return M.expand(chains, n, n) if M.ndim == 2 else M
+
+
+def qap_full_cost(p, F, D):
+    """QAP cost ``sum_{u,v} F[u,v] * D[p[u],p[v]]`` of each chain.
+
+    ``p`` is (chains, n) int; ``F``/``D`` are (n, n) or per-chain
+    (chains, n, n) float32 with integer entries.  Returns (chains,)
+    float32.  Every term and partial sum is an integer below 2^24, so the
+    sum is exact in any order: it equals the kernel's, the JAX package's
+    one-hot form and the host's int64 ``QAPInstance.cost`` bit for bit.
+    """
+    chains, n = p.shape
+    p = p.long()
+    F = _per_chain_mat(F, chains, n, p.device)
+    D = _per_chain_mat(D, chains, n, p.device)
+    rows = D.gather(1, p[:, :, None].expand(chains, n, n))    # D[p[u], v]
+    DP = rows.gather(2, p[:, None, :].expand(chains, n, n))   # D[p[u], p[v]]
+    return (F * DP).sum(dim=(1, 2))
+
+
+def qap_sweep_ref(p, F, D, T, seed, step0, *, n_steps: int, cidx=None,
+                  live=None):
+    """Plain version of kernel B3: ``n_steps`` pairwise-exchange Metropolis
+    moves on every chain's permutation, counterpart of
+    ``repro.kernels.ref.qap_sweep_ref``.
+
+    Per step, from one ``rng.draws3`` triple: facility ``i`` from the raw
+    bits (mod n), facility ``j = min(floor(u_value * n), n - 1)``, and the
+    accept uniform.  Swapping the locations ``a = p[i]``, ``b = p[j]``
+    changes the cost by the O(n) asymmetric delta
+
+      sum_{k != i,j} (F[i,k]-F[j,k]) (D[b,p[k]]-D[a,p[k]])
+                   + (F[k,i]-F[k,j]) (D[p[k],b]-D[p[k],a])
+      + (F[i,i]-F[j,j]) (D[b,b]-D[a,a]) + (F[i,j]-F[j,i]) (D[b,a]-D[a,b])
+
+    ``i == j`` proposes the identity (delta 0, always accepted).  Entries
+    are gathered by index, not by one-hot products; both sum the same
+    integer-valued float32 terms, so the result is the same.
+
+    ``F``/``D`` are (n, n) or per-chain (chains, n, n); ``T``, ``seed``,
+    ``step0``, ``cidx`` and ``live`` are scalars or (chains,).  A dead
+    chain's moves are all rejected.  Returns (p_out (chains, n) int32,
+    f_out (chains,) float32).
+    """
+    chains, n = p.shape
+    dev = p.device
+    F = _per_chain_mat(F, chains, n, dev)
+    D = _per_chain_mat(D, chains, n, dev)
+    FT, DT = F.transpose(1, 2), D.transpose(1, 2)
+    fx = qap_full_cost(p, F, D)[:, None]
+    if cidx is None:
+        cidx = torch.arange(chains, device=dev)[:, None]
+    else:
+        cidx = _col(cidx, chains, torch.int64, dev)
+    seed = _col(seed, chains, torch.int64, dev)
+    step0 = _col(step0, chains, torch.int64, dev)
+    T = _col(T, chains, torch.float32, dev)
+    live = None if live is None else _col(live, chains, torch.bool, dev)
+
+    steps = torch.arange(n_steps, device=dev)[None, :]
+    rbits, uval, uacc_all = rng.draws3(seed, cidx, (step0 + steps) & rng.MASK32)
+    i_all = rbits % n
+    j_all = torch.clamp((uval * n).to(torch.int64), max=n - 1)
+    locs = torch.arange(n, device=dev)[None, :]
+
+    def row(M, r):  # M[c, r[c], :] for each chain c -> (chains, n)
+        return M.gather(1, r[:, :, None].expand(chains, 1, n))[:, 0]
+
+    def at(R, k):   # R[c, k[c]] -> (chains, 1)
+        return R.gather(1, k)
+
+    p = p.to(torch.int64)
+    for s in range(n_steps):
+        i, j = i_all[:, s:s + 1], j_all[:, s:s + 1]
+        a, b = at(p, i), at(p, j)
+        Fi, Fj, FiT, FjT = row(F, i), row(F, j), row(FT, i), row(FT, j)
+        Da, Db, DaT, DbT = row(D, a), row(D, b), row(DT, a), row(DT, b)
+        kmask = (locs != i) & (locs != j)
+        t1 = torch.where(kmask, (Fi - Fj) * (Db.gather(1, p) - Da.gather(1, p)), 0.0)
+        t2 = torch.where(kmask, (FiT - FjT) * (DbT.gather(1, p) - DaT.gather(1, p)), 0.0)
+        diag = (at(Fi, i) - at(Fj, j)) * (at(Db, b) - at(Da, a))
+        cross = (at(Fi, j) - at(Fj, i)) * (at(Db, a) - at(Da, b))
+        delta = t1.sum(1, keepdim=True) + t2.sum(1, keepdim=True) + diag + cross
+        acc = accept(uacc_all[:, s:s + 1], 0.0, delta, T)
+        if live is not None:
+            acc = acc & live
+        swapped = torch.where(locs == i, b, torch.where(locs == j, a, p))
+        p = torch.where(acc, swapped, p)
+        fx = torch.where(acc, fx + delta, fx)
+    return p.to(torch.int32), fx[:, 0]

@@ -19,6 +19,8 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels import metropolis_sweep as tms
 from repro_torch.kernels import reduce_min as trm
 from repro_torch.objectives import functions as TF
+from repro_torch.service import EngineConfig, SARequest, SAServeEngine, run_standalone
+from repro_torch.service import serve_sa
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -51,6 +53,15 @@ def no_card(monkeypatch):
     lambda: ops.metropolis_sweep(np.zeros((4, 2), np.float32), 1.0, 0, 0, kid=0, n_steps=1),
     lambda: ops.metropolis_sweep_slots(np.zeros((4, 2), np.float32), 0, 1.0, 0, 0, 0, n_steps=1, blk=4),
     lambda: interop.chains_from_numpy(np.zeros((2, 2)), np.zeros(2)),
+    lambda: ops.qap_sweep_slots(np.tile(np.arange(3, dtype=np.int32), (4, 1)),
+                                np.ones((3, 3), np.float32), np.ones((3, 3), np.float32),
+                                1.0, 0, 0, 0, n_steps=1, blk=4),
+    lambda: SAServeEngine(EngineConfig(n_slots=2, chains_per_slot=4)).run(),
+    lambda: run_standalone(SARequest(req_id=0, objective="syn10", dim=10, n_chains=4,
+                                     family="permutation"),
+                           EngineConfig(n_slots=2, chains_per_slot=4)),
+    lambda: serve_sa.main(["--family", "qap", "--requests", "2", "--slots", "2",
+                           "--chains-per-slot", "4"]),
 ])
 def test_entry_points_need_the_card_by_default(no_card, call):
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -96,6 +107,16 @@ def test_cuda_sweep_kernel_matches_plain(card):
     assert tms.counter.launches == launches + 1
     xp, fp = tref.metropolis_sweep_ref(x, 5.0, 1, 2**31, kid=0, n_steps=12)
     assert (xk == xp).all(1).float().mean() >= 0.95
+
+
+def test_cuda_kid_out_of_range_raises_eagerly(card):
+    x = torch.zeros(32, 4, device=card)
+    kids = torch.tensor([0, 6], dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="outside the kernel registry"):
+        tms.metropolis_sweep_kernel(x, 1.0, 0, 0, kid=kids, n_steps=2, blk=16)
+    with pytest.raises(ValueError, match="outside the kernel registry"):
+        ops.metropolis_sweep_slots(x, kids, 1.0, 0, 0, 0, n_steps=2, blk=16,
+                                   device=card)
 
 
 def test_cuda_argmin_kernel_matches_plain(card):
