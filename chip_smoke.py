@@ -1,22 +1,33 @@
 """Drive the PyTorch/CUDA port on one GPU and hold its kernels against their
 plain PyTorch versions.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py --times    # phases 0 and 6 only, to time two trees
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a)
 and runs, in order, failing on the first phase that fails:
 
-0. device: the card's name and power limit, torch/CUDA versions, build time;
+0. device: the card's name and power limit, torch/CUDA versions, build time,
+   and ptxas's registers, shared memory and spills of B1 and B2;
 1. kernel B1 (Metropolis sweep) vs its plain version at 16384 chains, dim 32
-   and 512, full and delta, in the 64-slot layout of the serving engine;
-2. kernel B2 (block argmin) vs its plain version, fp32 and bf16, with ties;
+   and 512, full and delta, in the 64-slot layout of the serving engine,
+   and delta at dim 3 over 100 steps with step0 wrapping past 2^32; one
+   slot swept alone and packed at blk 256 and 64, bit for bit;
+2. kernel B2 (block argmin) vs its plain version, fp32 and bf16, with ties,
+   n = 1 and 5 up to 2^20 + 3, an all-equal vector, NaNs, and slices that
+   start off 16-byte alignment;
 3. the main path: hybrid SA -> Nelder-Mead on Schwefel-512 at 16384 chains
    (the F0_g row of the paper's Table 10), delta variant, with the kernels'
-   launch counts over that run;
+   launch counts over that run, and the device time per level of its
+   first 100 levels under a torch.profiler trace;
 4. the paper-faithful full variant at the same width, first 20 levels;
 5. V0 and V1 (async) and SOS on Schwefel-32, and a small run held against
    the plain CPU path;
-6. kernel times at the main path's shapes (CUDA events, median);
+6. kernel times at the main path's shapes: CUDA events around the C entry
+   alone and around the wrapper call (medians), torch.min and torch.argmin
+   beside B2, and device times from a torch.profiler trace (B1 delta also
+   at N = 0, 1 and 16); then B2's two routes timed at lengths around its
+   one-CTA threshold;
 7. kernel B3 (pairwise-exchange QAP sweep) vs its plain version at 128
    slots x 512 chains, N = 40, for n = 5, 10, 12, 20 and the kernel's
    largest n, at n = 12 with F or D one (n, n) for every block, and the
@@ -71,7 +82,9 @@ SCHWEFEL_F_OPT = -418.982887
 # 2 and the chain count of phase 5.
 SWEEP_DIMS = (32, 512)
 N_SLOTS, SLOT_BLK = 64, 256
-ARGMIN_SIZES = (16384, 16385, 2**20)
+ARGMIN_SIZES = (1, 5, 16384, 16385, 2**20, 2**20 + 3)
+ARGMIN_EDGE_N = 16385              # the all-equal, NaN and unaligned cases
+B2_ROUTE_SIZES = (16385, 24576, 32768, 49152, 65536, 2**20)  # one CTA vs grid
 V1_CHAINS = 16384
 # Slice 2: B3's layout (phase 7), the serving main path (phase 8, the
 # cooling schedule of benchmarks/serve_qap_bench.py) and the mixed load.
@@ -103,10 +116,11 @@ def log(*a):
 
 
 # --------------------------------------------------------------- helpers
-def slot_layout(dim, gen, *, seed=0):
+def slot_layout(dim, gen, *, seed=0, step0_base=2**31 - 8):
     """The serving engine's layout: one slot per block of ``blk`` chains,
-    mixed kids, seeds, step0 near 2^31, shuffled chain bases, half the
-    slots dead."""
+    mixed kids, seeds, step0 in [step0_base, step0_base + 16) (wrapping
+    past 2^32 when it is near), shuffled chain bases, half the slots
+    dead."""
     from repro_torch.kernels import objective_math as om
     n_slots, blk = N_SLOTS, SLOT_BLK
     rs = np.random.default_rng(seed)
@@ -121,7 +135,7 @@ def slot_layout(dim, gen, *, seed=0):
         kid=torch.from_numpy(kids).to(DEV),
         T=torch.from_numpy((10.0 ** rs.uniform(-1, 2, n_slots)).astype(np.float32)).to(DEV),
         seed=rs.integers(0, 2**32, n_slots, dtype=np.uint64),
-        step0=(2**31 - 8 + rs.integers(0, 16, n_slots)).astype(np.uint64),
+        step0=((step0_base + rs.integers(0, 16, n_slots)) % 2**32).astype(np.uint64),
         chain_base=(rs.permutation(n_slots) * blk).astype(np.uint64),
         live=torch.from_numpy((np.arange(n_slots) % 2).astype(np.int32)).to(DEV),
         blk=blk)
@@ -217,6 +231,27 @@ def cuda_ms(fn, n=25, warmup=3):
     return statistics.median(times)
 
 
+def device_ms(fn, n=50):
+    """Device time per fn() call from a torch.profiler (CUPTI) trace of n
+    calls: the kernels and memory operations it holds, summed.  Returns
+    (ms or None when the trace holds no device activity, device ops per
+    call, their names)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        return None, 0, []
+    total_us = sum(e.time_range.elapsed_us() for e in dev)
+    return total_us / n / 1e3, len(dev) / n, sorted({e.name[:60] for e in dev})
+
+
 # ---------------------------------------------------------------- phases
 def phase0_device():
     smi = subprocess.run(
@@ -224,9 +259,24 @@ def phase0_device():
         capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     from repro_torch.kernels import _build
+    # ptxas's report (registers, shared memory, spills) of B1 and B2, one
+    # nvcc each, started beside the library's build.
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    ptxas = {name: subprocess.Popen(
+        [_build._nvcc(), *flags, "-Xptxas", "-v", "-cubin", "-o",
+         str(_build.BUILD_DIR / f"{name}.cubin"), str(_build.CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in ("metropolis_sweep", "reduce_min")}
     _build.lib()
     log(f"phase 0: torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, kernel build {_build.build_seconds:.2f} s")
+    for name, proc in ptxas.items():
+        out, _ = proc.communicate(timeout=300)
+        check(proc.returncode == 0, f"nvcc -Xptxas -v {name}.cu failed:\n{out}")
+        for line in out.splitlines():
+            if "Compiling entry function" in line or "Used" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
     return smi.stdout.strip().splitlines()[0]
 
 
@@ -234,12 +284,17 @@ def phase1_sweep(gen):
     from repro_torch.kernels.metropolis_sweep import (metropolis_sweep_kernel,
                                                       metropolis_sweep_plain)
     log(f"phase 1: kernel B1 vs plain version, {N_SLOTS} slots x {SLOT_BLK} "
-        "chains, n_steps=16")
+        "chains")
     worst = 0.0
-    cases = [(d, v, False) for d in SWEEP_DIMS for v in ("delta", "full")]
-    cases.append((SWEEP_DIMS[0], "delta", True))
-    for dim, variant, with_t_chain in cases:
-        lay = slot_layout(dim, gen, seed=dim + len(variant))
+    # (dim, variant, t_chain, n_steps, step0 base): the serving widths, then
+    # dim 3 (rows not 16-byte aligned, nearly every step revisits a
+    # coordinate) over 100 steps with step0 wrapping past 2^32.
+    cases = [(d, v, False, 16, 2**31 - 8) for d in SWEEP_DIMS for v in ("delta", "full")]
+    cases.append((SWEEP_DIMS[0], "delta", True, 16, 2**31 - 8))
+    cases += [(3, "delta", t, 100, 2**32 - 60) for t in (False, True)]
+    for dim, variant, with_t_chain, n_steps, step0_base in cases:
+        lay = slot_layout(dim, gen, seed=dim + len(variant) + with_t_chain,
+                          step0_base=step0_base)
         blk, n = lay["blk"], lay["x"].shape[0]
         t_chain = None
         if with_t_chain:
@@ -258,27 +313,102 @@ def phase1_sweep(gen):
                    step0=_per_row(lay["step0"], blk, n),
                    cidx=_per_row(lay["chain_base"], blk, n) + lane)
         dead = torch.from_numpy(_per_row(lay["live"], blk, n) == 0).to(DEV)
-        name = f"dim {dim} {variant}" + (" t_chain" if with_t_chain else "")
-        worst = max(worst, compare_sweep(name, lay["x"], run, ctl, 16, variant,
+        name = f"dim {dim} {variant} n_steps {n_steps}" + (" t_chain" if with_t_chain else "")
+        worst = max(worst, compare_sweep(name, lay["x"], run, ctl, n_steps, variant,
                                          dead_rows=dead))
+    for dim in (3, MAIN_DIM):
+        placement_check(gen, dim)
     return worst
+
+
+def placement_check(gen, dim, n_steps=MAIN_CFG["N"]):
+    """One live slot's chains swept alone, and packed among the other slots
+    at blk 256 and at blk 64 (the slot split into four blocks with chain
+    bases 64 apart): the rows and their f must be bit-equal."""
+    from repro_torch.kernels.metropolis_sweep import metropolis_sweep_kernel
+    lay = slot_layout(dim, gen, seed=100 + dim, step0_base=2**32 - 20)
+    blk, b = lay["blk"], 5                       # odd slots are live
+    rows = slice(b * blk, (b + 1) * blk)
+    host = {k: np.asarray(lay[k].cpu() if isinstance(lay[k], torch.Tensor) else lay[k])
+            for k in ("kid", "T", "seed", "step0", "chain_base", "live")}
+    check(host["live"][b] == 1, "placement check needs a live slot")
+    alone = metropolis_sweep_kernel(
+        lay["x"][rows].clone(), float(host["T"][b]), int(host["seed"][b]),
+        int(host["step0"][b]), kid=int(host["kid"][b]), n_steps=n_steps, blk=blk,
+        chain_base=host["chain_base"][b:b + 1])
+    packed256 = metropolis_sweep_kernel(
+        lay["x"], lay["T"], lay["seed"], lay["step0"], kid=lay["kid"], n_steps=n_steps,
+        blk=blk, chain_base=lay["chain_base"], live=lay["live"])
+    q = blk // 64
+
+    def split(v):                                 # one entry per 64-chain block
+        return np.repeat(v, q)
+
+    packed64 = metropolis_sweep_kernel(
+        lay["x"], torch.from_numpy(split(host["T"])).to(DEV), split(host["seed"]),
+        split(host["step0"]), kid=torch.from_numpy(split(host["kid"])).to(DEV),
+        n_steps=n_steps, blk=64,
+        chain_base=split(host["chain_base"].astype(np.int64))
+        + np.tile(np.arange(q) * 64, len(host["T"])),
+        live=torch.from_numpy(split(host["live"])).to(DEV))
+    torch.cuda.synchronize()
+    for name, (xo, fo) in (("blk 256", packed256), ("blk 64", packed64)):
+        check(torch.equal(xo[rows], alone[0]) and torch.equal(fo[rows], alone[1]),
+              f"dim {dim}: slot {b} packed at {name} differs from the slot alone")
+    check(not torch.equal(alone[0], lay["x"][rows]), f"dim {dim}: the slot did not move")
+    log(f"  placement, dim {dim}: slot {b} alone == packed at blk 256 == packed at "
+        f"blk 64, bit for bit ({n_steps} steps)")
 
 
 def phase2_argmin(gen):
     from repro_torch.kernels.reduce_min import argmin_reduce, argmin_reduce_plain
     log("phase 2: kernel B2 vs plain version")
-    for n in ARGMIN_SIZES:
-        for dtype in (torch.float32, torch.bfloat16):
+
+    def same(a, b):
+        return float(a) == float(b) or (math.isnan(float(a)) and math.isnan(float(b)))
+
+    for dtype in (torch.float32, torch.bfloat16):
+        cases = []
+        for n in ARGMIN_SIZES:
             f = torch.randn(n, generator=gen, device=DEV).to(dtype)
-            low = f.min() - 1
-            f[[n // 3, n // 3 + 1, n - 1]] = low    # ties inside and across tiles
-            m, i = argmin_reduce(f)
+            if n >= 4:                            # ties inside and across tiles
+                f[[n // 3, n // 3 + 1, n - 1]] = f.min() - 1
+            cases.append((f"n={n}", f, n // 3))  # n = 1: index 0
+        n = ARGMIN_EDGE_N
+        cases.append(("all equal", torch.full((n,), 0.5, device=DEV, dtype=dtype), 0))
+        f = torch.randn(n, generator=gen, device=DEV).to(dtype)
+        f[[10, n // 23, n // 2]] = torch.tensor([-math.inf, math.nan, math.nan],
+                                                device=DEV, dtype=dtype)
+        cases.append(("NaN", f, n // 23))         # the first NaN wins
+        for off in (1, 3):                        # slices off 16-byte alignment
+            big = torch.randn(n + 8, generator=gen, device=DEV).to(dtype)
+            f = big[off:off + n]
+            f[[n // 3, n - 1]] = f.min() - 1
+            cases.append((f"offset {off}", f, n // 3))
+        for name, f, want in cases:
             mp, ip = argmin_reduce_plain(f)
-            check(int(i) == int(ip) == n // 3 and float(m) == float(mp),
-                  f"B2 n={n} {dtype}: kernel ({float(m)}, {int(i)}) vs plain "
-                  f"({float(mp)}, {int(ip)})")
-            log(f"  n={n} {dtype}: ({float(m)}, {int(i)}) exact")
+            # The wrapper's route, then each route forced.
+            for route in (None, "one CTA", "grid"):
+                m, i = argmin_route(f, route)
+                check(int(i) == int(ip) == want and same(m, mp),
+                      f"B2 {name} {dtype} ({route or 'default'} route): kernel "
+                      f"({float(m)}, {int(i)}) vs plain ({float(mp)}, {int(ip)}), "
+                      f"expected index {want}")
+            log(f"  {name} (n={f.numel()}) {dtype}: ({float(m)}, {int(i)}) exact, "
+                "each route")
     return 0.0
+
+
+def argmin_route(f, route=None):
+    """B2 through one CTA, through the grid, or (None) as the wrapper
+    chooses by ``ONE_CTA_MAX``."""
+    from repro_torch.kernels import reduce_min as rm
+    saved = rm.ONE_CTA_MAX
+    rm.ONE_CTA_MAX = {None: saved, "one CTA": 2**31 - 1, "grid": 0}[route]
+    try:
+        return rm.argmin_reduce(f)
+    finally:
+        rm.ONE_CTA_MAX = saved
 
 
 def phase3_main_path():
@@ -342,6 +472,7 @@ def phase3_main_path():
     # random point scores about 0, |f - f_opt| ~ 419.
     check(err_h <= err_sa < 0.5 * abs(SCHWEFEL_F_OPT),
           f"SA error {err_sa}, hybrid error {err_h}")
+    sa_device_share(obj, sa_wall / cfg.n_levels)
     log(f"  sweep vs plain version at levels {[k[3] // cfg.N for k in kept]}")
     from repro_torch.kernels.metropolis_sweep import (metropolis_sweep_kernel,
                                                       metropolis_sweep_plain)
@@ -357,6 +488,40 @@ def phase3_main_path():
         compare_sweep(f"level {step0 // cfg.N}", x_in, run, ctl, cfg.N, "delta")
     return launches, dict(wall_s=wall, sa_s=sa_wall, nm_s=nm_time[0], rate=rate,
                           sa_f=h.sa.f_best, nm_f=h.nm.f_best)
+
+
+def sa_device_share(obj, wall_per_level, levels=100):
+    """The main path's SA ladder cut to its first ``levels`` levels under a
+    torch.profiler trace: device time per level by kernel, against the
+    wall time per level of the unprofiled run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import SAConfig, sa_minimize
+    cfg = SAConfig(**{**MAIN_CFG, "T_min": MAIN_CFG["T0"] * MAIN_CFG["rho"] ** (levels - 0.5)})
+    check(cfg.n_levels == levels, "profiled ladder cut")
+    sa_minimize(obj, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sa_minimize(obj, cfg)
+        torch.cuda.synchronize()
+    per = {"B1": 0.0, "B2": 0.0, "other": 0.0}
+    n_ops = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        key = ("B1" if "sweep_delta_kernel" in e.name else
+               "B2" if "argmin_kernel" in e.name else "other")
+        per[key] += e.time_range.elapsed_us() / 1e3 / levels
+        n_ops += 1
+    busy = sum(per.values())
+    if n_ops == 0:
+        log("  SA device time per level: not measured (no device activity in the trace)")
+        return
+    log(f"  SA device time per level (profiled, first {levels} levels): {busy:.4f} ms "
+        f"(B1 {per['B1']:.4f}, B2 {per['B2']:.4f}, other {per['other']:.4f} ms in "
+        f"{n_ops / levels:.1f} device ops), against {wall_per_level * 1e3:.4f} ms of "
+        f"wall per level unprofiled: the device is busy {100 * busy / (wall_per_level * 1e3):.1f}% "
+        "of the SA wall")
 
 
 def phase4_full_variant():
@@ -406,6 +571,11 @@ def phase5_v0_v1():
 
 
 def phase6_times(gen):
+    """Kernel times at the main path's shapes: the C entry alone (CUDA
+    events around the ctypes call, ``kernel_ms``), beside the whole
+    wrapper call (``cuda_ms``), the plain version and, for B2, the PyTorch
+    calls that compute the same function; device times from a profiler
+    trace where it has them."""
     from repro_torch.kernels import metropolis_sweep as ms
     from repro_torch.kernels import reduce_min as rm
     from repro_torch.kernels import ref
@@ -415,14 +585,19 @@ def phase6_times(gen):
     sweep = dict(kid=0, n_steps=N, blk=256)
     times = {}
     for variant in ("delta", "full"):
-        k = cuda_ms(lambda: ms.metropolis_sweep_kernel(x, T, 0, 0, variant=variant, **sweep))
+        def call(variant=variant):
+            return ms.metropolis_sweep_kernel(x, T, 0, 0, variant=variant, **sweep)
+        k = kernel_ms(call, "sa_metropolis_sweep")
+        w = cuda_ms(call)
         p = cuda_ms(lambda: ref.metropolis_sweep_ref(x, T, 0, 0, kid=0, n_steps=N,
                                                      variant=variant), n=20, warmup=2)
-        times[variant] = (k, p)
+        times[variant] = (k, w, p)
     f = torch.randn(n + 1, generator=gen, device=DEV)
-    b2 = cuda_ms(lambda: rm.argmin_reduce(f), n=50)
+    b2 = kernel_ms(lambda: rm.argmin_reduce(f), "sa_argmin_reduce", n=50)
+    b2w = cuda_ms(lambda: rm.argmin_reduce(f), n=50)
     b2p = cuda_ms(lambda: rm.argmin_reduce_plain(f), n=50)
-    lib = cuda_ms(lambda: torch.argmin(f), n=50)
+    lib_min = cuda_ms(lambda: torch.min(f, 0), n=50)
+    lib_argmin = cuda_ms(lambda: torch.argmin(f), n=50)
     proposals = n * N
     xbytes = 2 * n * dim * 4 + n * 4          # x read once, x and f written once
     bounds = {
@@ -436,15 +611,53 @@ def phase6_times(gen):
           "full": "bytes" if xbytes / HBM_BYTES_PER_S
           >= proposals * dim * SCHWEFEL_COORD_OPS / FP32_OPS_PER_S else "operations"}
     b2_bound = (n + 1) * 4 / HBM_BYTES_PER_S * 1e3
-    log(f"phase 6: at the main path's shapes ({n} x {dim}, N={N}; argmin over {n + 1})")
+    log(f"phase 6: at the main path's shapes ({n} x {dim}, N={N}; argmin over {n + 1}); "
+        "kernel = CUDA events around the C entry, call = around the wrapper call")
     for v in ("delta", "full"):
-        k, p = times[v]
-        log(f"  B1 {v}: kernel {k:.4f} ms, plain {p:.4f} ms, bound {bounds[v]:.4f} ms "
-            f"({by[v]}), {proposals / (k * 1e-3):.4e} proposals/s")
-    log(f"  B2: kernel {b2:.4f} ms, plain {b2p:.4f} ms, torch.argmin {lib:.4f} ms, "
+        k, w, p = times[v]
+        log(f"  B1 {v}: kernel {k:.4f} ms (call {w:.4f} ms), plain {p:.4f} ms, bound "
+            f"{bounds[v]:.4f} ms ({by[v]}, {100 * bounds[v] / k:.1f}% of it reached), "
+            f"{proposals / (k * 1e-3):.4e} proposals/s")
+    log(f"  B2: kernel {b2:.4f} ms (call {b2w:.4f} ms), plain {b2p:.4f} ms, "
+        f"torch.min(f, 0) {lib_min:.4f} ms, torch.argmin {lib_argmin:.4f} ms, "
         f"bound {b2_bound:.6f} ms (bytes)")
-    return dict(b1=(times["delta"][0], times["delta"][1], bounds["delta"], by["delta"]),
-                b2=(b2, b2p, b2_bound, lib))
+    for name, fn in (("B1 delta", lambda: ms.metropolis_sweep_kernel(
+                         x, T, 0, 0, variant="delta", **sweep)),
+                     ("B2", lambda: rm.argmin_reduce(f)),
+                     ("torch.min(f, 0)", lambda: torch.min(f, 0)),
+                     ("torch.argmin", lambda: torch.argmin(f))):
+        dev_ms, per_call, names = device_ms(fn)
+        shown = "not measured (no device activity in the trace)" if dev_ms is None \
+            else f"{dev_ms:.4f} ms"
+        log(f"  {name}: device time per call {shown}, {per_call:g} device op(s) per "
+            f"call ({', '.join(names)})")
+    # Where B1 delta's time goes: the copy and the initial evaluation alone
+    # (N = 0), then more steps.
+    shown = []
+    for steps in (0, 1, 16, N):
+        dev_ms, _, _ = device_ms(lambda: ms.metropolis_sweep_kernel(
+            x, T, 0, 0, variant="delta", kid=0, n_steps=steps, blk=256), n=20)
+        shown.append(f"N={steps} {dev_ms:.4f} ms" if dev_ms is not None
+                     else f"N={steps} not measured")
+    log("  B1 delta device time by steps: " + ", ".join(shown))
+    k, w, p = times["delta"]
+    return dict(b1=(k, w, p, bounds["delta"], by["delta"]),
+                b2=(b2, b2w, b2p, b2_bound, lib_min))
+
+
+def b2_route_times(gen):
+    """B2's device time through one CTA and through the grid at lengths
+    around ONE_CTA_MAX, the measurement behind that threshold."""
+    from repro_torch.kernels import reduce_min as rm
+    for n in B2_ROUTE_SIZES:
+        g = torch.randn(n, generator=gen, device=DEV)
+        shown = []
+        for route in ("one CTA", "grid"):
+            dev_ms, per_call, _ = device_ms(lambda: argmin_route(g, route))
+            shown.append(f"{route} {dev_ms:.4f} ms ({per_call:g} op/call)"
+                         if dev_ms is not None else f"{route} not measured")
+        log(f"  B2 routes at n={n} (ONE_CTA_MAX {rm.ONE_CTA_MAX}), device time: "
+            + ", ".join(shown))
 
 
 # ----------------------------------------------------------- slice 2
@@ -828,10 +1041,14 @@ def phase_b3_times(gen):
     log(f"  B3 at phase 8's group shape ({chains} chains, n={n}, N={QAP_STEPS}): "
         f"kernel {k:.4f} ms (the call with its wrapper {call:.4f} ms), plain {p:.4f} ms, "
         f"bound {bound:.4f} ms ({by}), {proposals / (k * 1e-3):.4e} proposals/s")
-    return k, p, bound, by
+    return k, call, p, bound, by
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else argv
+    if args not in ([], ["--times"]):
+        print("usage: chip_smoke.py [--times]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -840,12 +1057,17 @@ def main() -> int:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
     smi = phase0_device()
+    if args == ["--times"]:       # phases 0 and 6 alone: two trees on one card
+        phase6_times(gen)
+        log(smi)
+        return 0
     b1_err = phase1_sweep(gen)
     b2_err = phase2_argmin(gen)
     launches, _ = phase3_main_path()
     phase4_full_variant()
     phase5_v0_v1()
     t = phase6_times(gen)
+    b2_route_times(gen)
     b3_err = phase7_qap_sweep()
     b3_launches, _ = phase8_serving()
     phase9_mixed()
@@ -855,20 +1077,20 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/metropolis_sweep.cu",
          "replaces": "src/repro/kernels/metropolis_sweep.py:81",
          "launches": launches["metropolis_sweep"], "max_abs_err": b1_err,
-         "ms": t["b1"][0], "plain_ms": t["b1"][1], "bound_ms": t["b1"][2],
-         "bound_by": t["b1"][3], "library_ms": None},
+         "ms": t["b1"][0], "wrapper_ms": t["b1"][1], "plain_ms": t["b1"][2],
+         "bound_ms": t["b1"][3], "bound_by": t["b1"][4], "library_ms": None},
         {"name": "argmin_reduce", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/reduce_min.cu",
          "replaces": "src/repro/kernels/reduce_min.py:24",
          "launches": launches["argmin_reduce"], "max_abs_err": b2_err,
-         "ms": t["b2"][0], "plain_ms": t["b2"][1], "bound_ms": t["b2"][2],
-         "bound_by": "bytes", "library_ms": t["b2"][3]},
+         "ms": t["b2"][0], "wrapper_ms": t["b2"][1], "plain_ms": t["b2"][2],
+         "bound_ms": t["b2"][3], "bound_by": "bytes", "library_ms": t["b2"][4]},
         {"name": "qap_sweep", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/qap_sweep.cu",
          "replaces": "src/repro/kernels/qap_sweep.py:165",
          "launches": b3_launches, "max_abs_err": b3_err,
-         "ms": b3[0], "plain_ms": b3[1], "bound_ms": b3[2],
-         "bound_by": b3[3], "library_ms": None},
+         "ms": b3[0], "wrapper_ms": b3[1], "plain_ms": b3[2], "bound_ms": b3[3],
+         "bound_by": b3[4], "library_ms": None},
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

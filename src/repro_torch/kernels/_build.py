@@ -34,7 +34,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "sa_metropolis_sweep": [_P, _P, _P, _P, _I, _P, _U, _P, _U, _P, _F, _P, _P,
                             _P, _I, _I, _I, _I, _I, _P],
-    "sa_argmin_reduce": [_P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "sa_argmin_reduce": [_P, _I, _I, _I, _P, _I, _P, _P, _P],
     "sa_qap_sweep": [_P, _P, _P, _P, _P, _I, _I, _P, _F, _P, _U, _P, _U, _P,
                      _P, _I, _I, _I, _I, _P],
     "sa_qap_max_n": [],

@@ -3,10 +3,15 @@
 The counterpart of ``repro.kernels.reduce_min`` (the paper's V1/V2
 champion selection, a Thrust reduceMin).  ``argmin_reduce`` launches
 ``csrc/reduce_min.cu`` for a CUDA tensor and runs ``argmin_reduce_plain``
-for a CPU tensor.  Both reduce per tile of ``blk`` values, then across
-tiles; ties go to the lowest index and a NaN wins as the first NaN, as
-``jnp.argmin`` does.  Any ``n >= 1`` is taken: the ragged last tile is
-masked, so a champion reduce on the card never falls back to another path.
+for a CPU tensor.  Ties go to the lowest index and a NaN wins as the first
+NaN, as ``jnp.argmin`` does.  Any ``n >= 1`` is taken, at any start
+address, so a champion reduce on the card never falls back to another
+path.
+
+The kernel is one launch per reduction: one CTA up to ``ONE_CTA_MAX``
+values, a grid whose last CTA folds the tiles above it.  Its scratch (the
+tile pairs and the grid's ticket) is allocated once per device and stream
+and reused, so a call allocates nothing but its two outputs.
 """
 from __future__ import annotations
 
@@ -25,6 +30,13 @@ class _Count:
 
 
 counter = _Count()
+
+# Up to this many values one CTA reads the whole vector; above it a grid
+# does.  chip_smoke phase 6 times both routes: on the H100 they cross
+# between 24576 and 32768 float32 values.
+ONE_CTA_MAX = 24576
+_TILES = 264                   # tile pairs: two CTAs on each of 132 SMs
+_scratch = {}                  # (device index, stream) -> int32 scratch
 
 
 def _check_input(f):
@@ -57,7 +69,10 @@ def argmin_reduce(f, *, blk: int = 1024):
     """(min value, first argmin index) of a 1-D float32/bf16 tensor.
 
     A CUDA tensor goes through kernel B2; a CPU tensor through the plain
-    version.  Returns 0-d tensors on f's device: no host synchronisation."""
+    version, which reduces per tile of ``blk`` values, then across tiles.
+    The kernel takes ``blk`` and ignores it: its result does not depend on
+    a tiling.  Returns 0-d tensors on f's device: no host
+    synchronisation."""
     _check_input(f)
     if f.device.type == "cpu":
         return argmin_reduce_plain(f, blk=blk)
@@ -66,18 +81,26 @@ def argmin_reduce(f, *, blk: int = 1024):
     if blk <= 0:
         raise ValueError(f"blk must be positive, not {blk}")
     f = f.contiguous()
-    n = f.numel()
-    n_tiles = -(-n // blk)
-    tile_min = torch.empty(n_tiles, dtype=torch.float32, device=f.device)
-    tile_idx = torch.empty(n_tiles, dtype=torch.int32, device=f.device)
-    out_val = torch.empty((), dtype=f.dtype, device=f.device)
-    out_idx = torch.empty((), dtype=torch.int32, device=f.device)
+    dev = f.device
+    out_val = torch.empty((), dtype=f.dtype, device=dev)
+    out_idx = torch.empty((), dtype=torch.int32, device=dev)
     lib = _build.lib()
-    with torch.cuda.device(f.device):
-        rc = lib.sa_argmin_reduce(
-            f.data_ptr(), _DTYPES[f.dtype], n, blk, tile_min.data_ptr(),
-            tile_idx.data_ptr(), out_val.data_ptr(), out_idx.data_ptr(),
-            torch.cuda.current_stream(f.device).cuda_stream)
+    if dev.index == torch.cuda.current_device():
+        rc = _launch(lib, f, out_val, out_idx)
+    else:
+        with torch.cuda.device(dev):
+            rc = _launch(lib, f, out_val, out_idx)
     _build.check(rc, "argmin_reduce")
     counter.launches += 1
     return out_val, out_idx
+
+
+def _launch(lib, f, out_val, out_idx):
+    stream = torch.cuda.current_stream(f.device).cuda_stream
+    scratch = _scratch.get((f.device.index, stream))
+    if scratch is None:   # the ticket, then the tile pairs; the ticket stays 0
+        scratch = torch.zeros(1 + 2 * _TILES, dtype=torch.int32, device=f.device)
+        _scratch[(f.device.index, stream)] = scratch
+    return lib.sa_argmin_reduce(
+        f.data_ptr(), _DTYPES[f.dtype], f.numel(), ONE_CTA_MAX,
+        scratch.data_ptr(), _TILES, out_val.data_ptr(), out_idx.data_ptr(), stream)

@@ -109,6 +109,45 @@ def test_cuda_sweep_kernel_matches_plain(card):
     assert (xk == xp).all(1).float().mean() >= 0.95
 
 
+def test_cuda_sweep_dim3_long_sweep_matches_plain(card):
+    """Rows that are not 16-byte aligned and steps that keep revisiting a
+    coordinate, over 100 steps with step0 wrapping past 2^32."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(3)
+    x = ((torch.rand(512, 3, device=card, generator=gen) - 0.5) * 1000).contiguous()
+    kw = dict(kid=0, n_steps=100, blk=64)
+    xk, fk = tms.metropolis_sweep_kernel(x, 50.0, 9, 2**32 - 40, **kw)
+    xp, fp = tms.metropolis_sweep_plain(x, 50.0, 9, 2**32 - 40, **kw)
+    torch.cuda.synchronize()
+    same = (xk == xp).all(1)
+    assert same.float().mean() >= 0.95
+    assert torch.allclose(fk[same], fp[same], rtol=2e-3, atol=2e-3)
+    assert not torch.equal(xk, x)
+
+
+@pytest.mark.parametrize("dim", [3, 512])
+def test_cuda_sweep_placement_invariant(card, dim):
+    """One block's chains swept alone and packed among others at blk 64
+    and 256 give the same rows and f, bit for bit."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(dim)
+    x = ((torch.rand(1024, dim, device=card, generator=gen) - 0.5) * 1000).contiguous()
+    T = torch.tensor([1.0, 5.0, 20.0, 80.0], device=card)
+    seeds, step0s = [11, 12, 13, 14], [2**32 - 5, 0, 7, 2**31]
+    base = np.array([768, 0, 256, 512], np.int64)
+    rows = slice(256, 512)                     # block 1 of 256
+    alone = tms.metropolis_sweep_kernel(x[rows].clone(), 5.0, 12, 0, kid=0, n_steps=33,
+                                        blk=256, chain_base=[0])
+    packed256 = tms.metropolis_sweep_kernel(x, T, seeds, step0s, kid=0, n_steps=33,
+                                            blk=256, chain_base=base)
+    packed64 = tms.metropolis_sweep_kernel(
+        x, T.repeat_interleave(4), np.repeat(seeds, 4), np.repeat(step0s, 4), kid=0,
+        n_steps=33, blk=64, chain_base=np.repeat(base, 4) + np.tile(np.arange(4) * 64, 4))
+    torch.cuda.synchronize()
+    for xo, fo in (packed256, packed64):
+        assert torch.equal(xo[rows], alone[0]) and torch.equal(fo[rows], alone[1])
+
+
 def test_cuda_kid_out_of_range_raises_eagerly(card):
     x = torch.zeros(32, 4, device=card)
     kids = torch.tensor([0, 6], dtype=torch.int32, device=card)
@@ -125,6 +164,23 @@ def test_cuda_argmin_kernel_matches_plain(card):
     m, i = trm.argmin_reduce(f)
     mp, ip = trm.argmin_reduce_plain(f)
     assert int(i) == int(ip) == 77 and float(m) == float(mp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_argmin_edge_cases_match_plain(card, dtype):
+    """n = 1, an all-equal vector (index 0), NaNs (the first wins) and a
+    slice that starts off 16-byte alignment, exact against plain."""
+    big = torch.randn(16393, device=card).to(dtype)
+    nan = torch.randn(16385, device=card).to(dtype)
+    nan[[3, 900, 12000]] = torch.tensor([-float("inf"), float("nan"), float("nan")],
+                                        device=card, dtype=dtype)
+    for f, want in ((torch.randn(1, device=card).to(dtype), 0),
+                    (torch.full((16385,), 0.25, device=card, dtype=dtype), 0),
+                    (nan, 900), (big[3:3 + 16385], None)):
+        m, i = trm.argmin_reduce(f)
+        mp, ip = trm.argmin_reduce_plain(f)
+        assert int(i) == int(ip) and (want is None or int(i) == want)
+        assert float(m) == float(mp) or (np.isnan(float(m)) and np.isnan(float(mp)))
 
 
 def test_cuda_sa_minimize_runs(card):

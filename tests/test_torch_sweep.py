@@ -115,6 +115,25 @@ def test_t_chain_matches_oracle_and_block_t():
     assert torch.equal(xp[keep], xb[keep]) and torch.equal(fp[keep], fb[keep])
 
 
+@pytest.mark.parametrize("dim", [1, 3])
+@pytest.mark.parametrize("kid", [0, 1, 2, 3, 4, 5])
+def test_collision_heavy_delta_matches_oracle(kid, dim):
+    """At dim 1 and 3 nearly every step proposes a coordinate that an
+    earlier step changed: the card stages proposals ahead of its walk and
+    resolves such steps there, against this plain version.  step0 sits
+    near the top of the int32 range that the JAX oracle takes."""
+    x = _x([kid] * CHAINS, dim=dim, seed=kid)
+    T, seed, step0, n_steps = 3.0, 42, 2**31 - 20, 64
+    assert_sweep_parity(
+        x,
+        lambda k: tref.metropolis_sweep_ref(torch.from_numpy(x), T, seed, step0,
+                                            kid=kid, n_steps=k),
+        lambda k: jref.metropolis_sweep_ref(x, T, seed, step0, kid=kid, n_steps=k),
+        kid=_rows(kid, CHAINS), T=_rows(T, CHAINS), seed=_rows(seed, CHAINS),
+        step0=_rows(step0, CHAINS), cidx=np.arange(CHAINS), variant="delta",
+        n_steps=n_steps)
+
+
 def test_padded_chains_match_oracle():
     """A ragged chain count pads with dummy chains that do not perturb the
     real ones."""
