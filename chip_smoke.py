@@ -1,37 +1,47 @@
 """Drive the PyTorch/CUDA port on one GPU and hold its kernels against their
 plain PyTorch versions.
 
-    python3 chip_smoke.py            # every phase
-    python3 chip_smoke.py --times    # phases 0 and 6 only, to time two trees
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py --against DIR    # phase 0, then B1 full and B3
+                                           # against the kernels of the tree
+                                           # DIR (bits, then times in turns)
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a)
 and runs, in order, failing on the first phase that fails:
 
 0. device: the card's name and power limit, torch/CUDA versions, build time,
-   and ptxas's registers, shared memory and spills of B1 and B2;
+   ptxas's registers, shared memory and spills of B1, B2 and B3, and the
+   SASS instructions of one Schwefel term (B1 full's bound);
 1. kernel B1 (Metropolis sweep) vs its plain version at 16384 chains, dim 32
    and 512, full and delta, in the 64-slot layout of the serving engine,
-   and delta at dim 3 over 100 steps with step0 wrapping past 2^32; one
-   slot swept alone and packed at blk 256 and 64, bit for bit;
+   and both variants at dim 3 over 100 steps with step0 wrapping past 2^32,
+   with and without t_chain; full at dim 30000, whose term caches do not
+   fit in shared memory; one slot swept alone and packed at blk 256 and
+   64, bit for bit, in both variants;
 2. kernel B2 (block argmin) vs its plain version, fp32 and bf16, with ties,
    n = 1 and 5 up to 2^20 + 3, an all-equal vector, NaNs, and slices that
    start off 16-byte alignment;
-3. the main path: hybrid SA -> Nelder-Mead on Schwefel-512 at 16384 chains
-   (the F0_g row of the paper's Table 10), delta variant, with the kernels'
-   launch counts over that run, and the device time per level of its
-   first 100 levels under a torch.profiler trace;
-4. the paper-faithful full variant at the same width, first 20 levels;
+3. the beyond-paper delta variant: hybrid SA -> Nelder-Mead on Schwefel-512
+   at 16384 chains (the F0_g row of the paper's Table 10 with
+   use_delta_eval=True), with the kernels' launch counts over that run,
+   and the device time per level of its first 100 levels under a
+   torch.profiler trace;
+4. the main path as the paper and the reference's Table 10 bench run it:
+   sa_minimize on Schwefel-512, 16384 chains, the default (full) variant,
+   all 688 levels, with B1 full's launches, the device time per level of
+   the first 100 levels, and the quality gate of phase 3;
 5. V0 and V1 (async) and SOS on Schwefel-32, and a small run held against
    the plain CPU path;
 6. kernel times at the main path's shapes: CUDA events around the C entry
    alone and around the wrapper call (medians), torch.min and torch.argmin
-   beside B2, and device times from a torch.profiler trace (B1 delta also
-   at N = 0, 1 and 16); then B2's two routes timed at lengths around its
-   one-CTA threshold;
+   beside B2, and device times from a torch.profiler trace (both B1
+   variants also at N = 0, 1 and 16); then B2's two routes timed at
+   lengths around its one-CTA threshold;
 7. kernel B3 (pairwise-exchange QAP sweep) vs its plain version at 128
-   slots x 512 chains, N = 40, for n = 5, 10, 12, 20 and the kernel's
-   largest n, at n = 12 with F or D one (n, n) for every block, and the
-   PTX of its accept test;
+   slots x 512 chains, N = 40, for n = 2, 5, 10, 12, 20, 31 and the
+   kernel's largest n, at n = 12 with F or D one (n, n) for every block,
+   at n = 12 and 31 with blocks of 96 chains, and the PTX of its accept
+   test;
 8. the serving main path: 256 QAP requests (grid12 and syn10, 128 seeds
    each) through the engine at 128 slots x 512 chains, macro-K 4, with B3's
    launches and kernel time (CUDA events around each kernel launch), the
@@ -68,19 +78,29 @@ FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 # Hopper has 64 INT32 lanes per SM beside its 128 FP32 ones:
 # 132 SMs x 64 lanes x 1.98 GHz boost clock.
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# One float32 instruction per lane and cycle (an FMA counts two of the
+# 67 TFLOP/s): the rate at which the SMs issue lane-instructions.
+LANE_INSTR_PER_S = FP32_OPS_PER_S / 2
 # Integer ops of one threefry2x32: 2 key adds, 20 rounds of add, rotate and
 # xor, 5 key injections of 3 adds (csrc/rng.cuh).
 THREEFRY_OPS = 2 + 20 * 3 + 5 * 3
-# float32 ops per Schwefel coordinate evaluated: abs, sqrt, sin, mul, add.
-SCHWEFEL_COORD_OPS = 5
+# Lane-instructions of one full-variant step beyond its new term: the
+# changed lane's re-fold (ceil(dim / 32) adds, counted apart), five tree
+# adds, f, the accept test's subtraction, division, clip and exp.
+FULL_STEP_INSTR = 5 + 10
 
+# The F0_g row of the paper's Table 10 as the reference's bench builds it
+# (benchmarks/table10_hybrid.py:29-30, 49): the default, paper-faithful
+# full variant.  Phase 3 runs the beyond-paper delta variant of the row.
 MAIN_CFG = dict(T0=1000.0, T_min=1.0, rho=0.99, N=33, n_chains=16384,
-                exchange="sync", use_delta_eval=True)
+                exchange="sync", seed=0)
+DELTA_CFG = dict(MAIN_CFG, use_delta_eval=True)
 MAIN_DIM = 512
 SCHWEFEL_F_OPT = -418.982887
 # Phase sizes: the serving layout of phase 1, the argmin lengths of phase
 # 2 and the chain count of phase 5.
 SWEEP_DIMS = (32, 512)
+WIDE_DIM = 30000          # B1 full's term caches no longer fit in shared memory
 N_SLOTS, SLOT_BLK = 64, 256
 ARGMIN_SIZES = (1, 5, 16384, 16385, 2**20, 2**20 + 3)
 ARGMIN_EDGE_N = 16385              # the all-equal, NaN and unaligned cases
@@ -89,7 +109,8 @@ V1_CHAINS = 16384
 # Slice 2: B3's layout (phase 7), the serving main path (phase 8, the
 # cooling schedule of benchmarks/serve_qap_bench.py) and the mixed load.
 QAP_SLOTS, QAP_BLK, QAP_STEPS = 128, 512, 40
-QAP_SIZES = (5, 10, 12, 20)            # and the kernel's largest n
+QAP_SIZES = (2, 5, 10, 12, 20, 31)     # and the kernel's largest n
+QAP_BLK_ODD = 96                       # a block that fills no whole CTA
 SERVE_CFG = dict(n_slots=128, chains_per_slot=512, macro_k=4)
 SERVE_SEEDS = 128                      # requests per QAP instance
 QAP_SCHEDULE = dict(T0=50.0, T_min=0.5, rho=0.90, N=40)
@@ -116,13 +137,13 @@ def log(*a):
 
 
 # --------------------------------------------------------------- helpers
-def slot_layout(dim, gen, *, seed=0, step0_base=2**31 - 8):
-    """The serving engine's layout: one slot per block of ``blk`` chains,
+def slot_layout(dim, gen, *, seed=0, step0_base=2**31 - 8, n_slots=None):
+    """The serving engine's layout: ``n_slots`` slots of ``blk`` chains,
     mixed kids, seeds, step0 in [step0_base, step0_base + 16) (wrapping
     past 2^32 when it is near), shuffled chain bases, half the slots
     dead."""
     from repro_torch.kernels import objective_math as om
-    n_slots, blk = N_SLOTS, SLOT_BLK
+    n_slots, blk = n_slots or N_SLOTS, SLOT_BLK
     rs = np.random.default_rng(seed)
     kids = (np.arange(n_slots) % om.N_KIDS).astype(np.int32)
     lo = np.array([om.BOX[k][0] for k in kids], np.float32)
@@ -267,7 +288,8 @@ def phase0_device():
         [_build._nvcc(), *flags, "-Xptxas", "-v", "-cubin", "-o",
          str(_build.BUILD_DIR / f"{name}.cubin"), str(_build.CSRC / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for name in ("metropolis_sweep", "reduce_min")}
+        for name in ("metropolis_sweep", "reduce_min", "qap_sweep")}
+    probe = term_probe_start()
     _build.lib()
     log(f"phase 0: torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, kernel build {_build.build_seconds:.2f} s")
@@ -277,7 +299,63 @@ def phase0_device():
         for line in out.splitlines():
             if "Compiling entry function" in line or "Used" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
+    global TERM_INSTR
+    TERM_INSTR = term_probe_count(probe)
+    log(f"  one Schwefel term (full_terms): {TERM_INSTR} SASS instructions on its "
+        "fast path (probe kernel less a copy kernel)")
     return smi.stdout.strip().splitlines()[0]
+
+
+TERM_INSTR = None  # SASS instructions of one Schwefel term, from phase 0
+TERM_PROBE = """#include "objective_math.cuh"
+extern "C" __global__ void probe_term(const float* x, float* y) {
+    float ta, tb;
+    sa::full_terms(sa::KID_SCHWEFEL, x[threadIdx.x], threadIdx.x, ta, tb);
+    y[threadIdx.x] = ta;
+}
+extern "C" __global__ void probe_copy(const float* x, float* y) {
+    y[threadIdx.x] = x[threadIdx.x];
+}
+"""
+
+
+def term_probe_start():
+    """Compile a kernel that evaluates one Schwefel term (the header B1
+    uses) and one that copies, beside the library's build."""
+    from repro_torch.kernels import _build
+    src = _build.BUILD_DIR / "term_probe.cu"
+    src.write_text(TERM_PROBE)
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    return subprocess.Popen(
+        [_build._nvcc(), *flags, "-I", str(_build.CSRC), "-cubin", "-o",
+         str(_build.BUILD_DIR / "term_probe.cubin"), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def term_probe_count(proc):
+    """SASS instructions of one term: the probe's instructions from its
+    entry to its first EXIT (the path sinf takes for |arguments| below
+    105615, its slow reduction lying after EXIT), less the copy kernel's."""
+    import re
+    from repro_torch.kernels import _build
+    out, _ = proc.communicate(timeout=300)
+    check(proc.returncode == 0, f"nvcc term probe failed:\n{out}")
+    cubin = _build.BUILD_DIR / "term_probe.cubin"
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(cubin)], capture_output=True,
+                          text=True, timeout=120)
+    check(sass.returncode == 0, f"cuobjdump -sass failed: {sass.stderr}")
+    counts, fn = {}, None
+    for line in sass.stdout.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = [0, False]
+        elif fn and re.search(r"/\*[0-9a-f]{4}\*/\s+\S", line) and not counts[fn][1]:
+            counts[fn][0] += 1
+            counts[fn][1] = "EXIT" in line
+    check({"probe_term", "probe_copy"} <= set(counts), f"probe SASS: {sorted(counts)}")
+    return counts["probe_term"][0] - counts["probe_copy"][0]
 
 
 def phase1_sweep(gen):
@@ -285,13 +363,13 @@ def phase1_sweep(gen):
                                                       metropolis_sweep_plain)
     log(f"phase 1: kernel B1 vs plain version, {N_SLOTS} slots x {SLOT_BLK} "
         "chains")
-    worst = 0.0
+    worst = {"delta": 0.0, "full": 0.0}
     # (dim, variant, t_chain, n_steps, step0 base): the serving widths, then
     # dim 3 (rows not 16-byte aligned, nearly every step revisits a
     # coordinate) over 100 steps with step0 wrapping past 2^32.
     cases = [(d, v, False, 16, 2**31 - 8) for d in SWEEP_DIMS for v in ("delta", "full")]
     cases.append((SWEEP_DIMS[0], "delta", True, 16, 2**31 - 8))
-    cases += [(3, "delta", t, 100, 2**32 - 60) for t in (False, True)]
+    cases += [(3, v, t, 100, 2**32 - 60) for v in ("delta", "full") for t in (False, True)]
     for dim, variant, with_t_chain, n_steps, step0_base in cases:
         lay = slot_layout(dim, gen, seed=dim + len(variant) + with_t_chain,
                           step0_base=step0_base)
@@ -314,14 +392,42 @@ def phase1_sweep(gen):
                    cidx=_per_row(lay["chain_base"], blk, n) + lane)
         dead = torch.from_numpy(_per_row(lay["live"], blk, n) == 0).to(DEV)
         name = f"dim {dim} {variant} n_steps {n_steps}" + (" t_chain" if with_t_chain else "")
-        worst = max(worst, compare_sweep(name, lay["x"], run, ctl, n_steps, variant,
-                                         dead_rows=dead))
-    for dim in (3, MAIN_DIM):
-        placement_check(gen, dim)
+        worst[variant] = max(worst[variant], compare_sweep(
+            name, lay["x"], run, ctl, n_steps, variant, dead_rows=dead))
+    worst["full"] = max(worst["full"], wide_rows_check(gen))
+    for variant in ("delta", "full"):
+        for dim in (3, MAIN_DIM):
+            placement_check(gen, dim, variant)
     return worst
 
 
-def placement_check(gen, dim, n_steps=MAIN_CFG["N"]):
+def wide_rows_check(gen, dim=WIDE_DIM, n_slots=4, n_steps=16):
+    """B1 full at rows whose term caches do not fit in shared memory (the
+    mixed kids of the slot layout need two caches): the kernel that
+    re-evaluates every term, against the plain version."""
+    from repro_torch.kernels.metropolis_sweep import (metropolis_sweep_kernel,
+                                                      metropolis_sweep_plain)
+    lay = slot_layout(dim, gen, seed=dim, n_slots=n_slots)
+    blk, n = lay["blk"], lay["x"].shape[0]
+    kw = dict(kid=lay["kid"], blk=blk, variant="full", chain_base=lay["chain_base"],
+              live=lay["live"])
+
+    def run(k):
+        args = (lay["x"], lay["T"], lay["seed"], lay["step0"])
+        out_k = metropolis_sweep_kernel(*args, **kw, n_steps=k)
+        torch.cuda.synchronize()
+        return out_k, metropolis_sweep_plain(*args, **kw, n_steps=k)
+
+    lane = np.tile(np.arange(blk), n // blk)
+    ctl = dict(kid=_per_row(lay["kid"], blk, n), T=_per_row(lay["T"], blk, n),
+               seed=_per_row(lay["seed"], blk, n), step0=_per_row(lay["step0"], blk, n),
+               cidx=_per_row(lay["chain_base"], blk, n) + lane)
+    dead = torch.from_numpy(_per_row(lay["live"], blk, n) == 0).to(DEV)
+    return compare_sweep(f"dim {dim} full n_steps {n_steps} (rows beyond shared memory)",
+                         lay["x"], run, ctl, n_steps, "full", dead_rows=dead)
+
+
+def placement_check(gen, dim, variant, n_steps=MAIN_CFG["N"]):
     """One live slot's chains swept alone, and packed among the other slots
     at blk 256 and at blk 64 (the slot split into four blocks with chain
     bases 64 apart): the rows and their f must be bit-equal."""
@@ -335,10 +441,10 @@ def placement_check(gen, dim, n_steps=MAIN_CFG["N"]):
     alone = metropolis_sweep_kernel(
         lay["x"][rows].clone(), float(host["T"][b]), int(host["seed"][b]),
         int(host["step0"][b]), kid=int(host["kid"][b]), n_steps=n_steps, blk=blk,
-        chain_base=host["chain_base"][b:b + 1])
+        chain_base=host["chain_base"][b:b + 1], variant=variant)
     packed256 = metropolis_sweep_kernel(
         lay["x"], lay["T"], lay["seed"], lay["step0"], kid=lay["kid"], n_steps=n_steps,
-        blk=blk, chain_base=lay["chain_base"], live=lay["live"])
+        blk=blk, chain_base=lay["chain_base"], live=lay["live"], variant=variant)
     q = blk // 64
 
     def split(v):                                 # one entry per 64-chain block
@@ -350,14 +456,14 @@ def placement_check(gen, dim, n_steps=MAIN_CFG["N"]):
         n_steps=n_steps, blk=64,
         chain_base=split(host["chain_base"].astype(np.int64))
         + np.tile(np.arange(q) * 64, len(host["T"])),
-        live=torch.from_numpy(split(host["live"])).to(DEV))
+        live=torch.from_numpy(split(host["live"])).to(DEV), variant=variant)
     torch.cuda.synchronize()
     for name, (xo, fo) in (("blk 256", packed256), ("blk 64", packed64)):
         check(torch.equal(xo[rows], alone[0]) and torch.equal(fo[rows], alone[1]),
-              f"dim {dim}: slot {b} packed at {name} differs from the slot alone")
-    check(not torch.equal(alone[0], lay["x"][rows]), f"dim {dim}: the slot did not move")
-    log(f"  placement, dim {dim}: slot {b} alone == packed at blk 256 == packed at "
-        f"blk 64, bit for bit ({n_steps} steps)")
+              f"{variant} dim {dim}: slot {b} packed at {name} differs from the slot alone")
+    check(not torch.equal(alone[0], lay["x"][rows]), f"{variant} dim {dim}: the slot did not move")
+    log(f"  placement, {variant} dim {dim}: slot {b} alone == packed at blk 256 == "
+        f"packed at blk 64, bit for bit ({n_steps} steps)")
 
 
 def phase2_argmin(gen):
@@ -417,9 +523,9 @@ def phase3_main_path():
     from repro_torch.kernels import ops
     from repro_torch.kernels import reduce_min as rm
     from repro_torch.objectives import functions as F
-    cfg = SAConfig(**MAIN_CFG)
+    cfg = SAConfig(**DELTA_CFG)
     obj = F.schwefel(MAIN_DIM)
-    log(f"phase 3: main path hybrid_minimize(schwefel({MAIN_DIM}), {MAIN_CFG}), "
+    log(f"phase 3: delta variant hybrid_minimize(schwefel({MAIN_DIM}), {DELTA_CFG}), "
         f"{cfg.n_levels} levels")
     kept = []
     nm_time = []
@@ -472,7 +578,7 @@ def phase3_main_path():
     # random point scores about 0, |f - f_opt| ~ 419.
     check(err_h <= err_sa < 0.5 * abs(SCHWEFEL_F_OPT),
           f"SA error {err_sa}, hybrid error {err_h}")
-    sa_device_share(obj, sa_wall / cfg.n_levels)
+    sa_device_share(obj, DELTA_CFG, sa_wall / cfg.n_levels, "sweep_delta_kernel")
     log(f"  sweep vs plain version at levels {[k[3] // cfg.N for k in kept]}")
     from repro_torch.kernels.metropolis_sweep import (metropolis_sweep_kernel,
                                                       metropolis_sweep_plain)
@@ -490,14 +596,16 @@ def phase3_main_path():
                           sa_f=h.sa.f_best, nm_f=h.nm.f_best)
 
 
-def sa_device_share(obj, wall_per_level, levels=100):
-    """The main path's SA ladder cut to its first ``levels`` levels under a
-    torch.profiler trace: device time per level by kernel, against the
-    wall time per level of the unprofiled run."""
+def sa_device_share(obj, cfg_kw, wall_per_level, b1_kernel, levels=100):
+    """The SA ladder of ``cfg_kw`` cut to its first ``levels`` levels under a
+    torch.profiler trace: device time per level by kernel (B1 is the
+    kernel named ``b1_kernel``), against the wall time per level of the
+    unprofiled run.  Returns the busy share, or None when the trace holds
+    no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import SAConfig, sa_minimize
-    cfg = SAConfig(**{**MAIN_CFG, "T_min": MAIN_CFG["T0"] * MAIN_CFG["rho"] ** (levels - 0.5)})
+    cfg = SAConfig(**{**cfg_kw, "T_min": cfg_kw["T0"] * cfg_kw["rho"] ** (levels - 0.5)})
     check(cfg.n_levels == levels, "profiled ladder cut")
     sa_minimize(obj, cfg)
     torch.cuda.synchronize()
@@ -509,37 +617,51 @@ def sa_device_share(obj, wall_per_level, levels=100):
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
-        key = ("B1" if "sweep_delta_kernel" in e.name else
+        key = ("B1" if b1_kernel in e.name else
                "B2" if "argmin_kernel" in e.name else "other")
         per[key] += e.time_range.elapsed_us() / 1e3 / levels
         n_ops += 1
     busy = sum(per.values())
     if n_ops == 0:
         log("  SA device time per level: not measured (no device activity in the trace)")
-        return
+        return None
     log(f"  SA device time per level (profiled, first {levels} levels): {busy:.4f} ms "
         f"(B1 {per['B1']:.4f}, B2 {per['B2']:.4f}, other {per['other']:.4f} ms in "
         f"{n_ops / levels:.1f} device ops), against {wall_per_level * 1e3:.4f} ms of "
         f"wall per level unprofiled: the device is busy {100 * busy / (wall_per_level * 1e3):.1f}% "
         "of the SA wall")
+    return busy / (wall_per_level * 1e3)
 
 
-def phase4_full_variant():
+def phase4_main_path():
+    """The F0_g row as the reference's Table 10 bench runs it: sa_minimize
+    with the default full variant, every level."""
     from repro_torch.core import SAConfig, sa_minimize
+    from repro_torch.kernels import metropolis_sweep as ms
     from repro_torch.objectives import functions as F
-    cfg = SAConfig(**{**MAIN_CFG, "use_delta_eval": False,
-                      "T_min": MAIN_CFG["T0"] * MAIN_CFG["rho"] ** 19.5})
-    check(cfg.n_levels == 20, "phase 4 ladder cut")
+    cfg = SAConfig(**MAIN_CFG)
+    obj = F.schwefel(MAIN_DIM)
+    log(f"phase 4: main path sa_minimize(schwefel({MAIN_DIM}), {MAIN_CFG}), full "
+        f"variant, {cfg.n_levels} levels")
     torch.cuda.synchronize()
+    ms.counter.launches = 0
     t0 = time.perf_counter()
-    r = sa_minimize(F.schwefel(MAIN_DIM), cfg)
+    r = sa_minimize(obj, cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    check(math.isfinite(r.f_best), "phase 4 f_best")
-    full_levels = SAConfig(**MAIN_CFG).n_levels
-    log(f"phase 4: full variant, {cfg.n_chains} x {MAIN_DIM}, cut to the first 20 "
-        f"of {full_levels} levels: f_best {r.f_best:.4f}, {wall:.3f} s, {cfg.n_evals / wall:.4e} proposals/s")
-    return cfg.n_evals / wall
+    launches = ms.counter.launches
+    err = abs(r.f_best - SCHWEFEL_F_OPT)
+    rate = cfg.n_evals / wall
+    log(f"  SA f_best {r.f_best:.6f} (|f - f_opt| {err:.3e}), wall {wall:.3f} s, "
+        f"{cfg.n_evals} proposals, {rate:.4e} proposals/s, B1 full launches {launches}")
+    check(launches == cfg.n_levels,
+          f"B1 full launched {launches} times, expected {cfg.n_levels}")
+    check(math.isfinite(r.f_best) and r.x_best.shape == (MAIN_DIM,), "phase 4 output")
+    f_x = float(obj(torch.from_numpy(r.x_best).to(DEV)))
+    check(abs(f_x - r.f_best) <= 1e-4 * abs(f_x), "phase 4 (x, f) not coherent")
+    check(err < 0.5 * abs(SCHWEFEL_F_OPT), f"phase 4: SA error {err}")
+    busy = sa_device_share(obj, MAIN_CFG, wall / cfg.n_levels, "sweep_full_kernel")
+    return launches, dict(wall_s=wall, rate=rate, f_best=r.f_best, busy=busy)
 
 
 def phase5_v0_v1():
@@ -568,6 +690,25 @@ def phase5_v0_v1():
     fc, fp = float(card[1]), float(cpu[1])
     log(f"  schwefel(8) 256 chains: card f_best {fc:.6f}, plain CPU {fp:.6f}")
     check(abs(fc - fp) <= 0.05, "card and plain CPU runs disagree")
+
+
+def b1_bounds(n, dim, N):
+    """The least time of B1 at n chains of dim coordinates and N steps, by
+    variant: (ms, what bounds it).  Bytes: x read once, x and f written
+    once.  Operations: two threefry2x32 per proposal (integer lanes); for
+    full also the initial evaluation (one term per coordinate) and per
+    step one term, the changed lane's re-fold and the accept test (float
+    lanes), with a term's SASS instructions counted in phase 0."""
+    xbytes = 2 * n * dim * 4 + n * 4
+    t_bytes = xbytes / HBM_BYTES_PER_S
+    t_rng = n * N * 2 * THREEFRY_OPS / INT32_OPS_PER_S
+    term = TERM_INSTR
+    t_full = (n * dim * term + n * N * (term + -(-dim // 32) + FULL_STEP_INSTR)) \
+        / LANE_INSTR_PER_S
+    out = {}
+    for v, t_ops in (("delta", t_rng), ("full", max(t_rng, t_full))):
+        out[v] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    return out
 
 
 def phase6_times(gen):
@@ -599,30 +740,23 @@ def phase6_times(gen):
     lib_min = cuda_ms(lambda: torch.min(f, 0), n=50)
     lib_argmin = cuda_ms(lambda: torch.argmin(f), n=50)
     proposals = n * N
-    xbytes = 2 * n * dim * 4 + n * 4          # x read once, x and f written once
-    bounds = {
-        "delta": max(xbytes / HBM_BYTES_PER_S,
-                     proposals * 2 * THREEFRY_OPS / INT32_OPS_PER_S) * 1e3,
-        "full": max(xbytes / HBM_BYTES_PER_S,
-                    proposals * dim * SCHWEFEL_COORD_OPS / FP32_OPS_PER_S) * 1e3,
-    }
-    by = {"delta": "bytes" if xbytes / HBM_BYTES_PER_S
-          >= proposals * 2 * THREEFRY_OPS / INT32_OPS_PER_S else "operations",
-          "full": "bytes" if xbytes / HBM_BYTES_PER_S
-          >= proposals * dim * SCHWEFEL_COORD_OPS / FP32_OPS_PER_S else "operations"}
+    bounds = b1_bounds(n, dim, N)
     b2_bound = (n + 1) * 4 / HBM_BYTES_PER_S * 1e3
     log(f"phase 6: at the main path's shapes ({n} x {dim}, N={N}; argmin over {n + 1}); "
         "kernel = CUDA events around the C entry, call = around the wrapper call")
     for v in ("delta", "full"):
         k, w, p = times[v]
+        b, by = bounds[v]
         log(f"  B1 {v}: kernel {k:.4f} ms (call {w:.4f} ms), plain {p:.4f} ms, bound "
-            f"{bounds[v]:.4f} ms ({by[v]}, {100 * bounds[v] / k:.1f}% of it reached), "
+            f"{b:.4f} ms ({by}, {100 * b / k:.1f}% of it reached), "
             f"{proposals / (k * 1e-3):.4e} proposals/s")
     log(f"  B2: kernel {b2:.4f} ms (call {b2w:.4f} ms), plain {b2p:.4f} ms, "
         f"torch.min(f, 0) {lib_min:.4f} ms, torch.argmin {lib_argmin:.4f} ms, "
         f"bound {b2_bound:.6f} ms (bytes)")
     for name, fn in (("B1 delta", lambda: ms.metropolis_sweep_kernel(
                          x, T, 0, 0, variant="delta", **sweep)),
+                     ("B1 full", lambda: ms.metropolis_sweep_kernel(
+                         x, T, 0, 0, variant="full", **sweep)),
                      ("B2", lambda: rm.argmin_reduce(f)),
                      ("torch.min(f, 0)", lambda: torch.min(f, 0)),
                      ("torch.argmin", lambda: torch.argmin(f))):
@@ -631,17 +765,18 @@ def phase6_times(gen):
             else f"{dev_ms:.4f} ms"
         log(f"  {name}: device time per call {shown}, {per_call:g} device op(s) per "
             f"call ({', '.join(names)})")
-    # Where B1 delta's time goes: the copy and the initial evaluation alone
+    # Where B1's time goes: the copy and the initial evaluation alone
     # (N = 0), then more steps.
-    shown = []
-    for steps in (0, 1, 16, N):
-        dev_ms, _, _ = device_ms(lambda: ms.metropolis_sweep_kernel(
-            x, T, 0, 0, variant="delta", kid=0, n_steps=steps, blk=256), n=20)
-        shown.append(f"N={steps} {dev_ms:.4f} ms" if dev_ms is not None
-                     else f"N={steps} not measured")
-    log("  B1 delta device time by steps: " + ", ".join(shown))
-    k, w, p = times["delta"]
-    return dict(b1=(k, w, p, bounds["delta"], by["delta"]),
+    for variant in ("delta", "full"):
+        shown = []
+        for steps in (0, 1, 16, N):
+            dev_ms, _, _ = device_ms(lambda: ms.metropolis_sweep_kernel(
+                x, T, 0, 0, variant=variant, kid=0, n_steps=steps, blk=256), n=20)
+            shown.append(f"N={steps} {dev_ms:.4f} ms" if dev_ms is not None
+                         else f"N={steps} not measured")
+        log(f"  B1 {variant} device time by steps: " + ", ".join(shown))
+    return dict(delta=(*times["delta"], *bounds["delta"]),
+                full=(*times["full"], *bounds["full"]),
                 b2=(b2, b2w, b2p, b2_bound, lib_min))
 
 
@@ -661,8 +796,9 @@ def b2_route_times(gen):
 
 
 # ----------------------------------------------------------- slice 2
-def qap_layout(n, *, n_slots=QAP_SLOTS, seed=0, all_live=False, shared=None):
-    """B3's input in the serving layout: ``n_slots`` blocks of QAP_BLK
+def qap_layout(n, *, n_slots=QAP_SLOTS, blk=QAP_BLK, seed=0, all_live=False,
+               shared=None):
+    """B3's input in the serving layout: ``n_slots`` blocks of ``blk``
     chains at permutation length n.  Blocks alternate between two
     instances of that length (syn10 or grid12 where n is theirs, seeded
     random integer ones otherwise), with per-block T, seed, step0 (wrapping
@@ -678,7 +814,7 @@ def qap_layout(n, *, n_slots=QAP_SLOTS, seed=0, all_live=False, shared=None):
         mats[0] = (named[n].F, named[n].D)
     F = np.concatenate([mats[b % 2][0] for b in range(n_slots)])
     D = np.concatenate([mats[b % 2][1] for b in range(n_slots)])
-    p = np.argsort(rs.random((n_slots * QAP_BLK, n)), axis=1).astype(np.int32)
+    p = np.argsort(rs.random((n_slots * blk, n)), axis=1).astype(np.int32)
     if shared:
         (F, D) = (np.tile(F[:n], (n_slots, 1)), D) if shared == "F" else \
             (F, np.tile(D[:n], (n_slots, 1)))
@@ -689,7 +825,7 @@ def qap_layout(n, *, n_slots=QAP_SLOTS, seed=0, all_live=False, shared=None):
         T=(10.0 ** rs.uniform(-1, 2, n_slots)).astype(np.float32),
         seed=rs.integers(0, 2**32, n_slots, dtype=np.uint64).astype(np.int64),
         step0=(2**32 - 20 + rs.integers(0, 40, n_slots)).astype(np.int64),
-        base=(rs.permutation(n_slots) * QAP_BLK).astype(np.int64))
+        base=(rs.permutation(n_slots) * blk).astype(np.int64))
     # uint32 controls go to the card as int32 bit patterns, as the engine
     # sends them, so a launch converts nothing.
     dev = {k: torch.from_numpy(v.astype(np.uint32).view(np.int32)
@@ -698,7 +834,7 @@ def qap_layout(n, *, n_slots=QAP_SLOTS, seed=0, all_live=False, shared=None):
     if shared:
         dev[shared] = dev[shared][:n]
     args = (dev["p"], dev["F"], dev["D"], dev["T"], dev["seed"], dev["step0"])
-    kw = dict(blk=QAP_BLK, chain_base=dev["base"], live=dev["live"])
+    kw = dict(blk=blk, chain_base=dev["base"], live=dev["live"])
     return host, args, kw
 
 
@@ -765,11 +901,15 @@ def phase7_qap_sweep():
     check_expf_ptx()
     worst = 0.0
     # Every n with both matrices packed per block, then n = 12 with one
-    # matrix packed and the other (n, n).
-    cases = [(n, None) for n in QAP_SIZES + (qs.MAX_N,)] + [(12, "F"), (12, "D")]
-    for n, shared in cases:
-        host, args, kw = qap_layout(n, seed=n, shared=shared)
-        name = f"n={n}" + (f", {shared} (n, n)" if shared else "")
+    # matrix packed and the other (n, n), then blocks whose chains fill no
+    # whole CTA.
+    cases = [(n, None, QAP_BLK) for n in QAP_SIZES + (qs.MAX_N,)]
+    cases += [(12, "F", QAP_BLK), (12, "D", QAP_BLK)]
+    cases += [(n, None, QAP_BLK_ODD) for n in (12, 31)]
+    for n, shared, blk in cases:
+        host, args, kw = qap_layout(n, blk=blk, seed=n, shared=shared)
+        name = f"n={n}" + (f", {shared} (n, n)" if shared else "") + \
+            (f", blk {blk}" if blk != QAP_BLK else "")
 
         def run(k, args=args, kw=kw):
             out_k = qs.qap_sweep_kernel(*args, n_steps=k, **kw)
@@ -781,9 +921,9 @@ def phase7_qap_sweep():
         pk_h, fk_h = pk.cpu().numpy(), fk.cpu().numpy()
         worst = max(worst, float((fk - fp).abs().max()))
         check(bool((np.sort(pk_h, 1) == np.arange(n)).all()), f"{name}: not permutations")
-        dead = np.repeat(host["live"] == 0, QAP_BLK)
+        dead = np.repeat(host["live"] == 0, blk)
         check(np.array_equal(pk_h[dead], host["p"][dead]), f"{name}: dead blocks changed")
-        check(np.array_equal(host_qap_cost(pk_h, host["F"], host["D"], QAP_BLK)
+        check(np.array_equal(host_qap_cost(pk_h, host["F"], host["D"], blk)
                              .astype(np.float32), fk_h), f"{name}: f is not the exact cost")
         moved = float((pk_h != host["p"]).any(1)[~dead].mean())
         rows = np.flatnonzero(~same)
@@ -791,15 +931,15 @@ def phase7_qap_sweep():
             f"live rows moved {moved:.3f}, permutations, dead blocks and exact costs hold")
         if len(rows):
             pending = {int(r): host["p"][r] for r in rows}
-            lane = np.arange(QAP_BLK)
+            lane = np.arange(blk)
             for k in range(1, QAP_STEPS + 1):
                 (pk_k, _), (pp_k, _) = run(k)
                 diff = ~(pk_k == pp_k).all(1).cpu().numpy()
                 for r in [r for r in pending if diff[r]]:
-                    b = r // QAP_BLK
+                    b = r // blk
                     ok = qap_flip_ok(pending.pop(r), host["F"][b * n:(b + 1) * n],
                                      host["D"][b * n:(b + 1) * n], float(host["T"][b]),
-                                     int(host["seed"][b]), int(host["base"][b] + lane[r % QAP_BLK]),
+                                     int(host["seed"][b]), int(host["base"][b] + lane[r % blk]),
                                      int(host["step0"][b] + k - 1) & 0xFFFFFFFF)
                     check(ok, f"{name}: row {r} parted at step {k - 1} far from its threshold")
                 now = pk_k.cpu().numpy()
@@ -1020,6 +1160,18 @@ def phase9_mixed():
             f"champion (float32 and int32) bit-exact against run_standalone")
 
 
+def b3_bound(chains, n, n_slots, n_steps=QAP_STEPS):
+    """The least time of B3: p read and written once, f and the blocks' F
+    and D; two threefry2x32 per move on the integer lanes plus the
+    delta's 10 n float32 operations.  Returns (ms, what bounds it)."""
+    proposals = chains * n_steps
+    qbytes = 2 * chains * n * 4 + chains * 4 + 2 * n_slots * n * n * 4
+    t_bytes = qbytes / HBM_BYTES_PER_S
+    t_ops = (proposals * 2 * THREEFRY_OPS / INT32_OPS_PER_S
+             + proposals * QAP_DELTA_OPS_PER_N * n / FP32_OPS_PER_S)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def phase_b3_times(gen):
     """B3 at phase 8's group shape: 64 slots x 512 chains of grid12,
     N = 40, every block live."""
@@ -1032,22 +1184,138 @@ def phase_b3_times(gen):
     p = cuda_ms(lambda: qs.qap_sweep_plain(*args, **kw), n=10, warmup=1)
     chains, n = host["p"].shape
     proposals = chains * QAP_STEPS
-    qbytes = 2 * chains * n * 4 + chains * 4 + 2 * n_slots * n * n * 4
-    t_bytes = qbytes / HBM_BYTES_PER_S
-    t_ops = (proposals * 2 * THREEFRY_OPS / INT32_OPS_PER_S
-             + proposals * QAP_DELTA_OPS_PER_N * n / FP32_OPS_PER_S)
-    bound = max(t_bytes, t_ops) * 1e3
-    by = "bytes" if t_bytes >= t_ops else "operations"
+    bound, by = b3_bound(chains, n, n_slots)
     log(f"  B3 at phase 8's group shape ({chains} chains, n={n}, N={QAP_STEPS}): "
         f"kernel {k:.4f} ms (the call with its wrapper {call:.4f} ms), plain {p:.4f} ms, "
         f"bound {bound:.4f} ms ({by}), {proposals / (k * 1e-3):.4e} proposals/s")
+    # Where the time goes: loads, tables and initial costs alone (N = 0),
+    # then more moves.
+    shown = []
+    for steps in (0, 1, 16, QAP_STEPS):
+        dev_ms, _, _ = device_ms(lambda: qs.qap_sweep_kernel(*args, **{**kw, "n_steps": steps}),
+                                 n=20)
+        shown.append(f"N={steps} {dev_ms:.4f} ms" if dev_ms is not None
+                     else f"N={steps} not measured")
+    log("  B3 device time by steps: " + ", ".join(shown))
     return k, call, p, bound, by
+
+
+# ------------------------------------------------------ against a tree
+@contextlib.contextmanager
+def use_lib(lib):
+    """Launch through ``lib`` (a loaded kernel library) while inside."""
+    from repro_torch.kernels import _build
+    real = _build.lib
+    _build.lib = lambda: lib
+    try:
+        yield
+    finally:
+        _build.lib = real
+
+
+def build_tree_lib(root):
+    """The kernel library of the tree at ``root``, built with this tree's
+    flags; its C entries must take the same arguments."""
+    import ctypes
+    from repro_torch.kernels import _build
+    cus = sorted((root / "src/repro_torch/kernels/csrc").glob("*.cu"))
+    check(bool(cus), f"no CUDA sources under {root}")
+    out = _build.BUILD_DIR / "against.so"
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                           *map(str, cus)], capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"nvcc for {root} failed:\n{proc.stderr}")
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in _build._SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def against(root, gen):
+    """B1 full and B3 of this tree against the kernels of the tree at
+    ``root``: bit for bit on phase 1's full cases and phase 7's cases,
+    then C entry and device times at the main paths' shapes and phase
+    4's SA wall, the two trees in turns (that, this, this, that)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import metropolis_sweep as ms
+    from repro_torch.kernels import qap_sweep as qs
+    other, this = build_tree_lib(root), _build.lib()
+    log(f"against {root}: this tree's B1 full and B3 vs that tree's kernels")
+    for dim, with_t, n_steps, step0_base in ((SWEEP_DIMS[0], False, 16, 2**31 - 8),
+                                             (MAIN_DIM, False, 16, 2**31 - 8),
+                                             (3, False, 100, 2**32 - 60),
+                                             (3, True, 100, 2**32 - 60)):
+        lay = slot_layout(dim, gen, seed=dim + 4 + with_t, step0_base=step0_base)
+        n = lay["x"].shape[0]
+        t_chain = (10.0 ** (torch.rand(n, generator=gen, device=DEV) * 3 - 1)).contiguous() \
+            if with_t else None
+        args = (lay["x"], lay["T"], lay["seed"], lay["step0"])
+        kw = dict(kid=lay["kid"], blk=lay["blk"], variant="full", n_steps=n_steps,
+                  chain_base=lay["chain_base"], live=lay["live"], t_chain=t_chain)
+        xa, fa = ms.metropolis_sweep_kernel(*args, **kw)
+        with use_lib(other):
+            xb, fb = ms.metropolis_sweep_kernel(*args, **kw)
+        torch.cuda.synchronize()
+        name = f"B1 full dim {dim} n_steps {n_steps}" + (" t_chain" if with_t else "")
+        check(torch.equal(xa, xb) and torch.equal(fa, fb), f"{name}: trees differ")
+        log(f"  {name}: x and f bit-equal to that tree's")
+    for n, blk in [(n, QAP_BLK) for n in QAP_SIZES + (qs.MAX_N,)] + [(12, QAP_BLK_ODD),
+                                                                     (31, QAP_BLK_ODD)]:
+        _, args, kw = qap_layout(n, blk=blk, seed=n)
+        pa, fa = qs.qap_sweep_kernel(*args, n_steps=QAP_STEPS, **kw)
+        with use_lib(other):
+            pb, fb = qs.qap_sweep_kernel(*args, n_steps=QAP_STEPS, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(pa, pb) and torch.equal(fa, fb), f"B3 n={n} blk {blk}: trees differ")
+        log(f"  B3 n={n} blk {blk}: p and f bit-equal to that tree's")
+    n, dim, N = MAIN_CFG["n_chains"], MAIN_DIM, MAIN_CFG["N"]
+    x = ((torch.rand(n, dim, generator=gen, device=DEV) - 0.5) * 1024).contiguous()
+    host, qargs, qkw = qap_layout(12, n_slots=SERVE_CFG["n_slots"] // 2, seed=99,
+                                  all_live=True)
+    calls = {
+        "B1 full": (lambda: ms.metropolis_sweep_kernel(
+            x, 5.0, 0, 0, kid=0, n_steps=N, blk=256, variant="full"), "sa_metropolis_sweep"),
+        "B1 delta": (lambda: ms.metropolis_sweep_kernel(
+            x, 5.0, 0, 0, kid=0, n_steps=N, blk=256, variant="delta"), "sa_metropolis_sweep"),
+        "B3": (lambda: qs.qap_sweep_kernel(*qargs, n_steps=QAP_STEPS, **qkw), "sa_qap_sweep"),
+    }
+    bounds = {"B1 full": b1_bounds(n, dim, N)["full"], "B1 delta": b1_bounds(n, dim, N)["delta"],
+              "B3": b3_bound(*host["p"].shape, SERVE_CFG["n_slots"] // 2)}
+    log(f"  C entry (CUDA events) and device (profiler) ms at {n} x {dim}, N={N} (B1) "
+        f"and {host['p'].shape[0]} chains of n=12, N={QAP_STEPS} (B3)")
+    for label, lib in (("that", other), ("this", this), ("this", this), ("that", other)):
+        with use_lib(lib):
+            for name, (fn, entry) in calls.items():
+                k = kernel_ms(fn, entry)
+                dev_ms, _, _ = device_ms(fn, n=20)
+                b, by = bounds[name]
+                shown = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+                log(f"  {label} tree {name}: C entry {k:.4f} ms, device {shown}, "
+                    f"bound {b:.4f} ms ({by}, {100 * b / k:.1f}% of it at the C entry)")
+    # End to end: phase 4's main path through each tree's kernels.
+    from repro_torch.core import SAConfig, sa_minimize
+    from repro_torch.objectives import functions as F
+    cfg, obj = SAConfig(**MAIN_CFG), F.schwefel(MAIN_DIM)
+    sa_minimize(obj, SAConfig(**{**MAIN_CFG, "T_min": MAIN_CFG["T0"] * MAIN_CFG["rho"] ** 19.5}))
+    found = {}
+    for label, lib in (("that", other), ("this", this), ("this", this), ("that", other)):
+        with use_lib(lib):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = sa_minimize(obj, cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        found.setdefault(label, r.f_best)
+        log(f"  {label} tree main path (phase 4, {cfg.n_levels} levels): SA wall {wall:.3f} s, "
+            f"{cfg.n_evals / wall:.4e} proposals/s, f_best {r.f_best:.6f}")
+    check(found["this"] == found["that"], f"main path f_best differs between trees: {found}")
 
 
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
-    if args not in ([], ["--times"]):
-        print("usage: chip_smoke.py [--times]", file=sys.stderr)
+    if not (args == [] or (len(args) == 2 and args[0] == "--against")):
+        print("usage: chip_smoke.py [--against DIR]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1057,14 +1325,14 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
     smi = phase0_device()
-    if args == ["--times"]:       # phases 0 and 6 alone: two trees on one card
-        phase6_times(gen)
+    if args:                      # --against DIR: two trees on one card
+        against(Path(args[1]), gen)
         log(smi)
         return 0
     b1_err = phase1_sweep(gen)
     b2_err = phase2_argmin(gen)
     launches, _ = phase3_main_path()
-    phase4_full_variant()
+    full_launches, _ = phase4_main_path()
     phase5_v0_v1()
     t = phase6_times(gen)
     b2_route_times(gen)
@@ -1072,13 +1340,17 @@ def main(argv=None) -> int:
     b3_launches, _ = phase8_serving()
     phase9_mixed()
     b3 = phase_b3_times(gen)
+    b1 = dict(route="cuda", source="src/repro_torch/kernels/csrc/metropolis_sweep.cu",
+              replaces="src/repro/kernels/metropolis_sweep.py:81", library_ms=None)
     kernels = [
-        {"name": "metropolis_sweep", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/metropolis_sweep.cu",
-         "replaces": "src/repro/kernels/metropolis_sweep.py:81",
-         "launches": launches["metropolis_sweep"], "max_abs_err": b1_err,
-         "ms": t["b1"][0], "wrapper_ms": t["b1"][1], "plain_ms": t["b1"][2],
-         "bound_ms": t["b1"][3], "bound_by": t["b1"][4], "library_ms": None},
+        {"name": "metropolis_sweep_delta", **b1,
+         "launches": launches["metropolis_sweep"], "max_abs_err": b1_err["delta"],
+         "ms": t["delta"][0], "wrapper_ms": t["delta"][1], "plain_ms": t["delta"][2],
+         "bound_ms": t["delta"][3], "bound_by": t["delta"][4]},
+        {"name": "metropolis_sweep_full", **b1,
+         "launches": full_launches, "max_abs_err": b1_err["full"],
+         "ms": t["full"][0], "wrapper_ms": t["full"][1], "plain_ms": t["full"][2],
+         "bound_ms": t["full"][3], "bound_by": t["full"][4]},
         {"name": "argmin_reduce", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/reduce_min.cu",
          "replaces": "src/repro/kernels/reduce_min.py:24",

@@ -4,7 +4,8 @@
 // kernel behind metropolis_sweep_pallas).  One launch advances every chain
 // by n_steps Metropolis steps at a fixed temperature; it computes what the
 // Pallas kernel computes, not how: there the grid walks chain blocks in
-// VMEM, here a CTA owns 32 chains (delta) or a warp owns one (full).
+// VMEM, here a CTA owns up to 32 (delta) or 16 (full) chains and one lane
+// walks each.
 //
 // Per-block controls, one entry per block of `blk` chains (a serving slot):
 // kid, seed, step0, T, chain_base and live.  A NULL pointer means the
@@ -45,15 +46,40 @@
 // What is left: the 33 serial steps of each walk (about 500 SM cycles
 // each, with the other seven warps waiting) and the staging, which runs
 // after the rows have streamed through, not beside them.
-// The full variant keeps its design: one warp per chain, lanes striding the
-// coordinates of each re-evaluation (coalesced), a __shfl_xor butterfly
-// leaving the same total in every lane; the dim transcendentals of each
-// proposal bound it.
+// What bounds the full variant on the H100: operations, the initial
+// evaluation's one term per coordinate (a Schwefel term is about 105 SASS
+// instructions, counted by chip_smoke.py: 0.026 ms for 16384 x 512 at
+// 3.35e13 lane-instructions/s), ahead of the same bytes (0.020 ms).  A
+// re-evaluation of all dim terms per proposal (a warp per chain, the first
+// design) spent dim sinf/sqrtf per step where one coordinate changed.  The design
+// (sweep_full_kernel) returns the bits of that re-evaluation without its
+// work:
+//   - a CTA of 8 warps owns up to 16 consecutive chains (four CTAs on an
+//     SM, so that one CTA's walk overlaps another's loads); their rows come
+//     in once by cp.async into shared memory while all threads stage the
+//     first chunk of draws, proposals and proposal terms;
+//   - a warp per row copies it to x_out, replaces each x_j in shared
+//     memory by its term (the term cache: x sin sqrt|x| for Schwefel, the
+//     cosines in a second cache for Ackley and Griewank), folds lane l's
+//     coordinates l, l + 32, ... in order and keeps the lane partials and
+//     the partial sums of the __shfl_xor butterfly, so the order is fixed
+//     by dim alone;
+//   - warp 0, one lane per chain, walks: a step re-folds the ceil(dim/32)
+//     cached terms of lane d % 32 with the proposal's term, then the five
+//     tree nodes above it, and applies the accept test; an accepted step
+//     writes its term, its path and its x.
+// What is left: the rows' load and their evaluation run one after the
+// other within a CTA, and the walk (one warp of eight) leaves the SM to
+// the other CTAs.
+// Rows whose cache does not fit in shared memory (dim above about 48k, or
+// 24k with two caches) take sweep_full_wide_kernel, a warp per chain that
+// re-evaluates every term in the same order: the same bits, slower.
 #include <cuda_runtime.h>
 #include <cstdint>
 
 #include "objective_math.cuh"
 #include "rng.cuh"
+#include "smem.cuh"
 
 namespace sa {
 
@@ -450,24 +476,281 @@ sweep_delta_kernel(const float* __restrict__ x_in, float* x_out,
     if (warp == 0 && lane < rows) f_out[first + lane] = fx;
 }
 
-// f of row xo with coordinate d replaced by newval (d < 0: no replacement).
+// ------------------------------------------------------------ full variant
+//
+// A proposal changes one coordinate, so every other coordinate's terms
+// are those of an unchanged x_j: they are computed once, in the initial
+// pass, and kept per chain in shared memory (the term cache).  The sum
+// keeps the order of a warp-wide re-evaluation: lane l folds coordinates
+// l, l + 32, ... in order, then a __shfl_xor butterfly adds the 32 lane
+// partials.  The butterfly's nodes are kept too (the tree), so a step that
+// changes coordinate d re-folds only the partial of lane d % 32 from its
+// cached terms and then the five nodes above it.
+
+constexpr int FULL_ROWS = 16;        // most chains per CTA: one walking lane each
+constexpr int FULL_THREADS = 256;
+constexpr int FULL_WARPS = FULL_THREADS / 32;
+constexpr int FULL_STAGE = 32;       // steps staged per chunk
+constexpr int TREE_NODES = 62;       // 32 lane partials, then 16, 8, 4 and 2 sums
+
+struct FullShared {
+    ChainSetup cs[FULL_ROWS];
+    float f[FULL_ROWS];
+    // The butterfly of accumulators a and b, node-major so that the
+    // walking lanes (one row each) hit distinct banks.
+    float tree[2][TREE_NODES][FULL_ROWS];
+    // One staged chunk, per step and row: the draws and the proposal's terms.
+    int d[FULL_STAGE][FULL_ROWS];
+    float newval[FULL_STAGE][FULL_ROWS], uacc[FULL_STAGE][FULL_ROWS];
+    float na[FULL_STAGE][FULL_ROWS], nb[FULL_STAGE][FULL_ROWS];
+};
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The butterfly of a warp's lane partials v, leaving its nodes in
+// tree[.][r] and returning the total (the same in every lane).
+__device__ __forceinline__ float tree_build(float (*tree)[FULL_ROWS], int r,
+                                            int lane, float v, bool prod) {
+    tree[lane][r] = v;
+    int base = 32;
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) {
+        const float o = __shfl_xor_sync(0xffffffffu, v, m);
+        v = prod ? v * o : v + o;
+        if (m > 1 && lane < m) tree[base + lane][r] = v;
+        base += m;
+    }
+    return v;
+}
+
+// The total with leaf o set to v: the five nodes above it, each the sum
+// (product) of the new node below and its cached sibling.  path[L] is the
+// new value of the level-L node on the way.
+template <bool PROD>
+__device__ __forceinline__ float tree_path(const float (*tree)[FULL_ROWS],
+                                           int r, int o, float v,
+                                           float (&path)[5]) {
+    int base = 0, pos = o;
+#pragma unroll
+    for (int L = 0, half = 16; L < 5; ++L, half >>= 1) {
+        path[L] = v;
+        const float sib = tree[base + (pos ^ half)][r];
+        v = PROD ? v * sib : v + sib;
+        base += 2 * half;
+        pos &= half - 1;
+    }
+    return v;
+}
+
+__device__ __forceinline__ void tree_store(float (*tree)[FULL_ROWS], int r,
+                                           int o, const float (&path)[5]) {
+    int base = 0, pos = o;
+#pragma unroll
+    for (int L = 0, half = 16; L < 5; ++L, half >>= 1) {
+        tree[base + pos][r] = path[L];
+        base += 2 * half;
+        pos &= half - 1;
+    }
+}
+
+// All threads stage steps [c0, c0 + cnt) of the CTA's live rows.
+__device__ __forceinline__ void full_stage(FullShared& sh, int rows, int dim,
+                                           int c0, int cnt) {
+    for (int it = static_cast<int>(threadIdx.x); it < cnt * FULL_ROWS;
+         it += FULL_THREADS) {
+        const int s = it / FULL_ROWS, r = it % FULL_ROWS;
+        if (r >= rows || !sh.cs[r].live) continue;
+        int d;
+        float newval, uacc, ta, tb;
+        propose(sh.cs[r], c0 + s, dim, d, newval, uacc);
+        full_terms(sh.cs[r].kid, newval, d, ta, tb);
+        sh.d[s][r] = d;
+        sh.newval[s][r] = newval;
+        sh.uacc[s][r] = uacc;
+        sh.na[s][r] = ta;
+        sh.nb[s][r] = tb;
+    }
+}
+
+// Lane r walks a staged chunk of row r: re-fold the changed lane partial
+// from the cached terms, then the tree, then the accept test.  An accepted
+// step writes its terms and its path into the caches and its value to x.
+template <int KID>
+__device__ __forceinline__ void full_walk_kid(FullShared& sh, float* ca,
+                                              float* cb, int r, int cnt,
+                                              float T, int dim, float* xrow,
+                                              float& fx) {
+    constexpr bool B = KID == KID_ACKLEY || KID == KID_GRIEWANK;
+    constexpr bool PROD = KID == KID_GRIEWANK;
+    for (int s = 0; s < cnt; ++s) {
+        const int d = sh.d[s][r];
+        const float na = sh.na[s][r], nb = B ? sh.nb[s][r] : 0.0f;
+        const float u = sh.uacc[s][r];
+        const int o = d & 31, k = d >> 5, terms = (dim - o + 31) >> 5;
+        float a = 0.0f, b = PROD ? 1.0f : 0.0f;
+        // Unrolled so that the cached terms' loads are issued together;
+        // only the adds stay in order.
+#pragma unroll 8
+        for (int kk = 0; kk < terms; ++kk) {
+            a += kk == k ? na : ca[o + 32 * kk];
+            if (B) {
+                const float t = kk == k ? nb : cb[o + 32 * kk];
+                b = PROD ? b * t : b + t;
+            }
+        }
+        float pa[5], pb[5];
+        const float A = tree_path<false>(sh.tree[0], r, o, a, pa);
+        const float Bt = B ? tree_path<PROD>(sh.tree[1], r, o, b, pb) : 0.0f;
+        const float f1 = full_finish(KID, A, Bt, dim);
+        if (accept(u, fx, f1, T)) {
+            ca[d] = na;
+            tree_store(sh.tree[0], r, o, pa);
+            if (B) {
+                cb[d] = nb;
+                tree_store(sh.tree[1], r, o, pb);
+            }
+            xrow[d] = sh.newval[s][r];
+            fx = f1;
+        }
+    }
+}
+
+__device__ __forceinline__ void full_walk(int kid, FullShared& sh, float* ca,
+                                          float* cb, int r, int cnt, float T,
+                                          int dim, float* xrow, float& fx) {
+    switch (kid) {
+        case KID_RASTRIGIN:
+            full_walk_kid<KID_RASTRIGIN>(sh, ca, cb, r, cnt, T, dim, xrow, fx);
+            break;
+        case KID_ACKLEY:
+            full_walk_kid<KID_ACKLEY>(sh, ca, cb, r, cnt, T, dim, xrow, fx);
+            break;
+        case KID_GRIEWANK:
+            full_walk_kid<KID_GRIEWANK>(sh, ca, cb, r, cnt, T, dim, xrow, fx);
+            break;
+        case KID_EXPONENTIAL:
+            full_walk_kid<KID_EXPONENTIAL>(sh, ca, cb, r, cnt, T, dim, xrow, fx);
+            break;
+        case KID_SALOMON:
+            full_walk_kid<KID_SALOMON>(sh, ca, cb, r, cnt, T, dim, xrow, fx);
+            break;
+        default:
+            full_walk_kid<KID_SCHWEFEL>(sh, ca, cb, r, cnt, T, dim, xrow, fx);
+            break;
+    }
+}
+
+// A CTA owns `rpc` (<= 16) consecutive chains.  Dynamic shared memory holds
+// their term caches: rpc rows of dim a-terms, then, with two_caches, rpc
+// rows of b-terms (Ackley's and Griewank's cosines).
+__global__ void __launch_bounds__(FULL_THREADS, 4)
+sweep_full_kernel(const float* __restrict__ x_in, float* x_out,
+                  float* __restrict__ f_out, SweepControls c, int chains,
+                  int dim, int blk, int n_steps, int rpc, int two_caches) {
+    extern __shared__ float4 cache4[];
+    __shared__ FullShared sh;
+    float* cache_a = reinterpret_cast<float*>(cache4);
+    float* cache_b = two_caches ? cache_a + static_cast<size_t>(rpc) * dim : nullptr;
+    const int first = blockIdx.x * rpc;
+    const int rows = min(rpc, chains - first);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (static_cast<int>(threadIdx.x) < rows)
+        sh.cs[threadIdx.x] = setup(c, first + threadIdx.x, blk);
+
+    // The rows are one contiguous range: copy it into the a-cache, in
+    // 16-byte pieces where rows are 16-byte aligned, and stage the first
+    // chunk while it arrives (the draws do not depend on x).
+    const float* src = x_in + static_cast<size_t>(first) * dim;
+    const int total = rows * dim;
+    if ((dim & 3) == 0 && (reinterpret_cast<uintptr_t>(x_in) & 15u) == 0) {
+        for (int q = threadIdx.x; q < total / 4; q += FULL_THREADS)
+            cp_async16(cache_a + 4 * q, src + 4 * q);
+    } else {
+        for (int e = threadIdx.x; e < total; e += FULL_THREADS)
+            cp_async4(cache_a + e, src + e);
+    }
+    cp_async_commit();
+    __syncthreads();
+    full_stage(sh, rows, dim, 0, min(FULL_STAGE, n_steps));
+    cp_async_wait_all();
+    __syncthreads();
+
+    // A warp per row: x to x_out, the terms into the caches in place, lane
+    // l folding coordinates l, l + 32, ... in order, then the butterfly.
+    for (int r = warp; r < rows; r += FULL_WARPS) {
+        const int kid = sh.cs[r].kid;
+        float* xa = cache_a + static_cast<size_t>(r) * dim;
+        float* xb = two_caches ? cache_b + static_cast<size_t>(r) * dim : nullptr;
+        float* xo = x_out + static_cast<size_t>(first + r) * dim;
+        float a = 0.0f, b = b_init(kid);
+        for (int j = lane; j < dim; j += 32) {
+            const float xj = xa[j];
+            xo[j] = xj;
+            float ta, tb;
+            full_terms(kid, xj, j, ta, tb);
+            xa[j] = ta;
+            a += ta;
+            if (has_b(kid)) {
+                xb[j] = tb;
+                b = fold_b(kid, b, tb);
+            }
+        }
+        a = tree_build(sh.tree[0], r, lane, a, false);
+        if (has_b(kid)) b = tree_build(sh.tree[1], r, lane, b, kid == KID_GRIEWANK);
+        if (lane == 0) sh.f[r] = full_finish(kid, a, b, dim);
+    }
+    __syncthreads();
+
+    // Warp 0 walks, lane r carrying row r's f; all warps stage each later
+    // chunk before its walk.
+    const bool walks = warp == 0 && lane < rows && sh.cs[lane].live;
+    float fx = (warp == 0 && lane < rows) ? sh.f[lane] : 0.0f;
+    for (int c0 = 0; c0 < n_steps; c0 += FULL_STAGE) {
+        const int cnt = min(FULL_STAGE, n_steps - c0);
+        if (c0 > 0) {
+            full_stage(sh, rows, dim, c0, cnt);
+            __syncthreads();
+        }
+        if (walks)
+            full_walk(sh.cs[lane].kid, sh, cache_a + static_cast<size_t>(lane) * dim,
+                      two_caches ? cache_b + static_cast<size_t>(lane) * dim : nullptr,
+                      lane, cnt, sh.cs[lane].T, dim,
+                      x_out + static_cast<size_t>(first + lane) * dim, fx);
+        __syncthreads();
+    }
+    if (warp == 0 && lane < rows) f_out[first + lane] = fx;
+}
+
+// Rows whose term cache does not fit in shared memory: a warp per chain
+// re-evaluates all dim terms of every proposal, lanes striding the
+// coordinates in the same order, so the result is the same bits.
 __device__ __forceinline__ float warp_full_eval(int kid, const float* xo,
                                                 int dim, int lane, int d,
                                                 float newval) {
-    float a = 0.0f, b = 0.0f, p = 1.0f;
+    float a = 0.0f, b = b_init(kid);
     for (int j = lane; j < dim; j += 32)
-        full_term(kid, j == d ? newval : xo[j], j, a, b, p);
-    return full_finish(kid, warp_sum(a), warp_sum(b), warp_prod(p), dim);
+        full_term(kid, j == d ? newval : xo[j], j, a, b);
+    a = warp_sum(a);
+    if (has_b(kid)) b = kid == KID_GRIEWANK ? warp_prod(b) : warp_sum(b);
+    return full_finish(kid, a, b, dim);
 }
 
-constexpr int FULL_WARPS = 4;
+constexpr int WIDE_WARPS = 4;
 
-__global__ void sweep_full_kernel(const float* __restrict__ x_in,
-                                  float* __restrict__ x_out,
-                                  float* __restrict__ f_out, SweepControls c,
-                                  int chains, int dim, int blk, int n_steps) {
+__global__ void sweep_full_wide_kernel(const float* __restrict__ x_in,
+                                       float* __restrict__ x_out,
+                                       float* __restrict__ f_out,
+                                       SweepControls c, int chains, int dim,
+                                       int blk, int n_steps) {
     const int lane = threadIdx.x & 31;
-    const int chain = blockIdx.x * FULL_WARPS + (threadIdx.x >> 5);
+    const int chain = blockIdx.x * WIDE_WARPS + (threadIdx.x >> 5);
     if (chain >= chains) return;  // whole warps only
     const ChainSetup s = setup(c, chain, blk);
     const float* xr = x_in + static_cast<size_t>(chain) * dim;
@@ -476,13 +759,13 @@ __global__ void sweep_full_kernel(const float* __restrict__ x_in,
     __syncwarp();
 
     float fx = warp_full_eval(s.kid, xo, dim, lane, -1, 0.0f);
-    for (int i = 0; i < n_steps; ++i) {
+    for (int i = 0; s.live && i < n_steps; ++i) {
         int d;
         float newval, uacc;
         propose(s, i, dim, d, newval, uacc);
         const float f1 = warp_full_eval(s.kid, xo, dim, lane, d, newval);
         // Every lane holds the same f1, so every lane takes the same branch.
-        if (s.live && accept(uacc, fx, f1, s.T)) {
+        if (accept(uacc, fx, f1, s.T)) {
             if ((d & 31) == lane) xo[d] = newval;
             fx = f1;
         }
@@ -490,6 +773,11 @@ __global__ void sweep_full_kernel(const float* __restrict__ x_in,
     }
     if (lane == 0) f_out[chain] = fx;
 }
+
+// Shared memory a full-variant CTA can hold, static and dynamic, and the
+// share of it the term caches take when four CTAs share an SM.
+constexpr size_t SMEM_BLOCK_MAX = 232448;
+constexpr size_t FULL_CACHE_BUDGET = 32 * 1024;
 
 }  // namespace sa
 
@@ -509,9 +797,28 @@ extern "C" int sa_metropolis_sweep(
         sa::sweep_delta_kernel<<<grid, sa::DELTA_THREADS, 0, st>>>(
             x_in, x_out, f_out, c, chains, dim, blk, n_steps);
     } else {
-        const int grid = (chains + sa::FULL_WARPS - 1) / sa::FULL_WARPS;
-        sa::sweep_full_kernel<<<grid, 32 * sa::FULL_WARPS, 0, st>>>(
-            x_in, x_out, f_out, c, chains, dim, blk, n_steps);
+        // Rows per CTA: 16 where their caches fit the budget, fewer for
+        // wide rows.  The b-cache is needed by Ackley and Griewank only; a
+        // per-block kid array may hold them.
+        const bool two = kid != nullptr || kid_s == sa::KID_ACKLEY ||
+                         kid_s == sa::KID_GRIEWANK;
+        const size_t row_bytes = static_cast<size_t>(dim) * 4 * (two ? 2 : 1);
+        int rpc = sa::FULL_ROWS;
+        while (rpc > 1 && rpc * row_bytes > sa::FULL_CACHE_BUDGET) rpc >>= 1;
+        const size_t shmem = rpc * row_bytes;
+        if (shmem + sizeof(sa::FullShared) <= sa::SMEM_BLOCK_MAX) {
+            static sa::SmemOptIn opt_in;
+            const cudaError_t e = opt_in.allow(sa::sweep_full_kernel,
+                                               shmem + sizeof(sa::FullShared), shmem);
+            if (e != cudaSuccess) return static_cast<int>(e);
+            const int grid = (chains + rpc - 1) / rpc;
+            sa::sweep_full_kernel<<<grid, sa::FULL_THREADS, shmem, st>>>(
+                x_in, x_out, f_out, c, chains, dim, blk, n_steps, rpc, two);
+        } else {
+            const int grid = (chains + sa::WIDE_WARPS - 1) / sa::WIDE_WARPS;
+            sa::sweep_full_wide_kernel<<<grid, 32 * sa::WIDE_WARPS, 0, st>>>(
+                x_in, x_out, f_out, c, chains, dim, blk, n_steps);
+        }
     }
     return static_cast<int>(cudaGetLastError());
 }

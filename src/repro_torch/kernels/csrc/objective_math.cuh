@@ -97,29 +97,54 @@ __device__ __forceinline__ float combine(int kid, float S0, float S1,
 }
 
 // Full evaluation, split so that coordinates can be summed by any number
-// of threads: full_term folds coordinate i into (a, b, p), full_finish maps
-// the folded totals to f.  Griewank's full form divides the sum of squares
-// by 4000 once and multiplies the cosines directly, as the reference does.
-__device__ __forceinline__ void full_term(int kid, float xi, int i, float& a,
-                                          float& b, float& p) {
+// of threads: full_terms gives coordinate i's terms, ta for the sum a and
+// tb for the second accumulator (Ackley: the sum b of cosines; Griewank:
+// the product p of cosines; other kids have none); fold_b folds tb into it;
+// full_finish maps the folded totals to f.  Griewank's full form divides
+// the sum of squares by 4000 once and multiplies the cosines directly, as
+// the reference does.
+__device__ __forceinline__ bool has_b(int kid) {
+    return kid == KID_ACKLEY || kid == KID_GRIEWANK;
+}
+
+__device__ __forceinline__ float b_init(int kid) {
+    return kid == KID_GRIEWANK ? 1.0f : 0.0f;
+}
+
+__device__ __forceinline__ float fold_b(int kid, float acc, float tb) {
+    return kid == KID_GRIEWANK ? acc * tb : acc + tb;
+}
+
+__device__ __forceinline__ void full_terms(int kid, float xi, int i, float& ta,
+                                           float& tb) {
+    tb = 0.0f;
     switch (kid) {
-        case KID_RASTRIGIN: a += xi * xi - 10.0f * cosf(TWO_PI * xi); break;
-        case KID_ACKLEY: a += xi * xi; b += cosf(TWO_PI * xi); break;
+        case KID_RASTRIGIN: ta = xi * xi - 10.0f * cosf(TWO_PI * xi); break;
+        case KID_ACKLEY: ta = xi * xi; tb = cosf(TWO_PI * xi); break;
         case KID_GRIEWANK:
-            a += xi * xi;
-            p *= cosf(xi / sqrtf(static_cast<float>(i) + 1.0f));
+            ta = xi * xi;
+            tb = cosf(xi / sqrtf(static_cast<float>(i) + 1.0f));
             break;
         case KID_EXPONENTIAL:
-        case KID_SALOMON: a += xi * xi; break;
-        default: a += xi * sinf(sqrtf(fabsf(xi))); break;
+        case KID_SALOMON: ta = xi * xi; break;
+        default: ta = xi * sinf(sqrtf(fabsf(xi))); break;
     }
 }
 
+// (a, b) after the terms of one more coordinate; b is Griewank's p.
+__device__ __forceinline__ void full_term(int kid, float xi, int i, float& a,
+                                          float& b) {
+    float ta, tb;
+    full_terms(kid, xi, i, ta, tb);
+    a += ta;
+    if (has_b(kid)) b = fold_b(kid, b, tb);
+}
+
 __device__ __forceinline__ float full_finish(int kid, float a, float b,
-                                             float p, int dim) {
+                                             int dim) {
     const float n = static_cast<float>(dim);
     switch (kid) {
-        case KID_GRIEWANK: return 1.0f + a / 4000.0f - p;
+        case KID_GRIEWANK: return 1.0f + a / 4000.0f - b;
         case KID_RASTRIGIN:
         case KID_ACKLEY:
         case KID_EXPONENTIAL:

@@ -109,13 +109,14 @@ def test_cuda_sweep_kernel_matches_plain(card):
     assert (xk == xp).all(1).float().mean() >= 0.95
 
 
-def test_cuda_sweep_dim3_long_sweep_matches_plain(card):
+@pytest.mark.parametrize("variant", ["delta", "full"])
+def test_cuda_sweep_dim3_long_sweep_matches_plain(card, variant):
     """Rows that are not 16-byte aligned and steps that keep revisiting a
     coordinate, over 100 steps with step0 wrapping past 2^32."""
     gen = torch.Generator(device=card)
     gen.manual_seed(3)
     x = ((torch.rand(512, 3, device=card, generator=gen) - 0.5) * 1000).contiguous()
-    kw = dict(kid=0, n_steps=100, blk=64)
+    kw = dict(kid=0, n_steps=100, blk=64, variant=variant)
     xk, fk = tms.metropolis_sweep_kernel(x, 50.0, 9, 2**32 - 40, **kw)
     xp, fp = tms.metropolis_sweep_plain(x, 50.0, 9, 2**32 - 40, **kw)
     torch.cuda.synchronize()
@@ -125,8 +126,27 @@ def test_cuda_sweep_dim3_long_sweep_matches_plain(card):
     assert not torch.equal(xk, x)
 
 
+def test_cuda_full_sweep_wide_rows_match_plain(card):
+    """Rows whose full-variant term caches do not fit in shared memory
+    (Griewank's two caches at dim 30000) take the kernel that re-evaluates
+    every term; it is held to the plain version all the same."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(5)
+    x = ((torch.rand(64, 30000, device=card, generator=gen) - 0.5) * 1000).contiguous()
+    kw = dict(kid=torch.tensor([0, 3], dtype=torch.int32, device=card), n_steps=8,
+              blk=32, variant="full")
+    xk, fk = tms.metropolis_sweep_kernel(x, 50.0, 9, 11, **kw)
+    xp, fp = tms.metropolis_sweep_plain(x, 50.0, 9, 11, **kw)
+    torch.cuda.synchronize()
+    same = (xk == xp).all(1)
+    assert same.float().mean() >= 0.95
+    assert torch.allclose(fk[same], fp[same], rtol=2e-3, atol=2e-3)
+    assert not torch.equal(xk, x)
+
+
+@pytest.mark.parametrize("variant", ["delta", "full"])
 @pytest.mark.parametrize("dim", [3, 512])
-def test_cuda_sweep_placement_invariant(card, dim):
+def test_cuda_sweep_placement_invariant(card, dim, variant):
     """One block's chains swept alone and packed among others at blk 64
     and 256 give the same rows and f, bit for bit."""
     gen = torch.Generator(device=card)
@@ -137,12 +157,13 @@ def test_cuda_sweep_placement_invariant(card, dim):
     base = np.array([768, 0, 256, 512], np.int64)
     rows = slice(256, 512)                     # block 1 of 256
     alone = tms.metropolis_sweep_kernel(x[rows].clone(), 5.0, 12, 0, kid=0, n_steps=33,
-                                        blk=256, chain_base=[0])
+                                        blk=256, chain_base=[0], variant=variant)
     packed256 = tms.metropolis_sweep_kernel(x, T, seeds, step0s, kid=0, n_steps=33,
-                                            blk=256, chain_base=base)
+                                            blk=256, chain_base=base, variant=variant)
     packed64 = tms.metropolis_sweep_kernel(
         x, T.repeat_interleave(4), np.repeat(seeds, 4), np.repeat(step0s, 4), kid=0,
-        n_steps=33, blk=64, chain_base=np.repeat(base, 4) + np.tile(np.arange(4) * 64, 4))
+        n_steps=33, blk=64, chain_base=np.repeat(base, 4) + np.tile(np.arange(4) * 64, 4),
+        variant=variant)
     torch.cuda.synchronize()
     for xo, fo in (packed256, packed64):
         assert torch.equal(xo[rows], alone[0]) and torch.equal(fo[rows], alone[1])

@@ -79,7 +79,7 @@ def _controls(rs, chains):
         live=rs.random(chains) < 0.75)
 
 
-@pytest.mark.parametrize("case", ["syn10", "grid12", 3, 5, 12, 20])
+@pytest.mark.parametrize("case", ["syn10", "grid12", 2, 3, 5, 12, 20, 31, 32])
 def test_plain_sweep_matches_oracle(case):
     """Per-chain T, seed, step0 (wrapping past 2^32), chain index and live
     mask; the registered instances shared by every chain, random integer
@@ -235,6 +235,27 @@ def test_cuda_qap_kernel_matches_plain(card):
     assert tqs.counter.launches == launches + 1
     pp, fp = tqs.qap_sweep_plain(p, *args, **kw)
     assert torch.equal(pk, pp) and torch.equal(fk, fp)
+
+
+@pytest.mark.parametrize("blk", [32, 96, 512])
+@pytest.mark.parametrize("n", [2, 31, 32])
+def test_cuda_qap_kernel_lane_groups_match_plain(card, n, blk):
+    """Lane groups of every width (n = 2, 31, 32), blocks that fill no whole
+    CTA (blk 96) or one CTA exactly, and a dead block: bit for bit."""
+    rs = np.random.default_rng(n + blk)
+    nb = 4
+    F, D = _instances(rs, n, nb)
+    p = torch.from_numpy(_perms(rs, nb * blk, n)).to(card)
+    args = (torch.from_numpy(F.reshape(-1, n)).to(card),
+            torch.from_numpy(D.reshape(-1, n)).to(card),
+            torch.tensor([1.0, 5.0, 20.0, 0.3], device=card), 3, 2**32 - 7)
+    kw = dict(n_steps=40, blk=blk, chain_base=np.array([3, 1, 0, 2]) * blk,
+              live=torch.tensor([1, 1, 0, 1], device=card))
+    pk, fk = tqs.qap_sweep_kernel(p, *args, **kw)
+    pp, fp = tqs.qap_sweep_plain(p, *args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pp) and torch.equal(fk, fp)
+    assert torch.equal(pk[2 * blk:3 * blk], p[2 * blk:3 * blk])
 
 
 @pytest.mark.parametrize("packed", ["F", "D"])

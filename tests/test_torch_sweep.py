@@ -134,6 +134,25 @@ def test_collision_heavy_delta_matches_oracle(kid, dim):
         n_steps=n_steps)
 
 
+@pytest.mark.parametrize("dim", [1, 3])
+@pytest.mark.parametrize("kid", [0, 1, 2, 3, 4, 5])
+def test_collision_heavy_full_matches_oracle(kid, dim):
+    """The full variant where nearly every step revisits a coordinate that
+    an earlier step changed: the card keeps each coordinate's terms cached
+    and re-folds them, and is held to this plain version there."""
+    x = _x([kid] * CHAINS, dim=dim, seed=kid)
+    T, seed, step0, n_steps = 3.0, 42, 2**31 - 20, 64
+    assert_sweep_parity(
+        x,
+        lambda k: tref.metropolis_sweep_ref(torch.from_numpy(x), T, seed, step0,
+                                            kid=kid, n_steps=k, variant="full"),
+        lambda k: jref.metropolis_sweep_ref(x, T, seed, step0, kid=kid, n_steps=k,
+                                            variant="full"),
+        kid=_rows(kid, CHAINS), T=_rows(T, CHAINS), seed=_rows(seed, CHAINS),
+        step0=_rows(step0, CHAINS), cidx=np.arange(CHAINS), variant="full",
+        n_steps=n_steps)
+
+
 def test_padded_chains_match_oracle():
     """A ragged chain count pads with dummy chains that do not perturb the
     real ones."""
