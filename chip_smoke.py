@@ -4,7 +4,9 @@ plain PyTorch versions.
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --against DIR    # phase 0, then B1 full and B3
                                            # against the kernels of the tree
-                                           # DIR (bits, then times in turns)
+                                           # DIR (bits, then times in turns),
+                                           # then phase 8's load through
+                                           # both trees' engines in turns
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a)
 and runs, in order, failing on the first phase that fails:
@@ -48,7 +50,17 @@ and runs, in order, failing on the first phase that fails:
    QAP quality gate, and 8 requests held bit for bit against their
    standalone runs; the same load at K = 1;
 9. continuous and QAP requests co-batched at 64 slots x 512 chains, K = 1
-   and 4, every champion bit-exact against its standalone run.
+   and 4, every champion bit-exact against its standalone run;
+10. the elastic open-loop path: 192 mixed requests with completion
+    deadlines arriving in bursts (rate 3 per tick, bursts of 8) on two
+    shards of 64 slots x 512 chains at K = 4, with preemption, proactive
+    degrade, watermark rebalancing, a scripted preempt, migrate and
+    degrade, drain(1) at tick 24 and resize(2) from tick 48 once shard 1
+    has retired; accounting,
+    every event kind, every completed request bit-exact against its
+    standalone replay of its width and ladder schedules, the QAP quality
+    gate, latency percentiles, checkpoint cost and card memory around the
+    retired shard; then the reference's K-boundary scenario at K = 1 and 4.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a card, or without
@@ -57,9 +69,11 @@ no result.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -118,6 +132,21 @@ QAP_MAX_GAP_PCT = 2.0                  # scripts/bench_gates.toml, qap_committed
 QAP_EXACT_PER_INSTANCE = 4
 MIXED_CFG = dict(n_slots=64, chains_per_slot=512)
 MIXED_REQUESTS = 32
+# Slice 5: the elastic open-loop path (phase 10) at phase 8's pool width.
+ELASTIC_CFG = dict(n_devices=2, n_slots=64, chains_per_slot=512, macro_k=4,
+                   migration_budget=2)
+ELASTIC_SCHED = dict(overload="preempt", preemption_budget=2,
+                     proactive_degrade=True, high_watermark=0.9,
+                     low_watermark=0.5)
+ELASTIC_REQUESTS = 192
+ELASTIC_MIX = dict(family="mixed", max_slots_per_req=2,
+                   finish_deadline_factor=1.5, min_levels_frac=0.5, seed=0)
+ELASTIC_ARRIVALS = dict(rate=3.0, burst=8, seed=0)
+DRAIN_AT, RESIZE_AT = 24, 48
+# Ticks of the scripted preempt, migrate and degrade (each retried four
+# levels later until a request it can act on is active; the resize, until
+# shard 1 has retired).
+OPS_AT = dict(preempt=12, migrate=16, degrade=20)
 # float32 operations of one move's O(n) delta: per location k, two
 # products of two differences and their sums.
 QAP_DELTA_OPS_PER_N = 10
@@ -1030,15 +1059,7 @@ def serve_timed(cfg, reqs):
     engine = SAServeEngine(cfg)
     for r in reqs:
         engine.submit(r)
-    steps = {}
-    for name in HOST_STEPS:
-        def step(*a, _fn=getattr(engine, name), _name=name, **kw):
-            t = time.perf_counter()
-            try:
-                return _fn(*a, **kw)
-            finally:
-                steps[_name] = steps.get(_name, 0.0) + time.perf_counter() - t
-        setattr(engine, name, step)
+    steps = time_host_steps(engine)
     with timed_entry("sa_qap_sweep") as timed:
         torch.cuda.synchronize()
         qs.counter.launches = 0
@@ -1049,6 +1070,21 @@ def serve_timed(cfg, reqs):
         launches = qs.counter.launches
     kernel_s = sum(a.elapsed_time(b) for a, b in timed.events) / 1e3
     return {r.req_id: r for r in results}, wall, launches, kernel_s, engine, steps
+
+
+def time_host_steps(engine, names=HOST_STEPS):
+    """Accumulate the host seconds of each of ``engine``'s methods
+    ``names`` into the returned dict, from now on."""
+    steps = {}
+    for name in names:
+        def step(*a, _fn=getattr(engine, name), _name=name, **kw):
+            t = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                steps[_name] = steps.get(_name, 0.0) + time.perf_counter() - t
+        setattr(engine, name, step)
+    return steps
 
 
 def host_steps(steps, wall):
@@ -1158,6 +1194,260 @@ def phase9_mixed():
             assert_exact(res, run_standalone(req, cfg), f"phase 9 K={k}")
         log(f"  K={k}: wall {wall:.3f} s, B1 launches {b1}, B3 launches {b3}; every "
             f"champion (float32 and int32) bit-exact against run_standalone")
+
+
+def card_mem():
+    """Bytes the caching allocator holds for tensors on the card."""
+    return torch.cuda.memory_allocated() if DEV == "cuda" else None
+
+
+def fmt_mem(b):
+    return "not measured" if b is None else f"{b / 2**20:.1f} MiB"
+
+
+def elastic_requests():
+    """Phase 10's load: the reference mix with completion deadlines; the
+    priority-0 two-slot requests are degrade-class with a one-slot
+    floor."""
+    import dataclasses
+    from repro_torch.service.serve_sa import make_mix
+    cps = ELASTIC_CFG["chains_per_slot"]
+    reqs = make_mix(ELASTIC_REQUESTS, cps, **ELASTIC_MIX)
+    return [dataclasses.replace(r, on_overload="degrade", min_chains=cps)
+            if r.priority == 0 and r.n_chains == 2 * cps else r for r in reqs]
+
+
+def script_ops(engine, done):
+    """Schedule the phase's operator calls: drain(1) at its tick and
+    resize(2) from its tick on once shard 1 has retired; one preempt, one
+    migrate and one degrade_active on requests active then, each retried
+    four levels later until it acts."""
+    cps = ELASTIC_CFG["chains_per_slot"]
+
+    def active():
+        return sorted(((job.req.req_id, shard, job) for shard, job in engine._iter_jobs()),
+                      key=lambda t: t[0])
+
+    def preempt():
+        return any(engine.preempt(rid) for rid, _, _ in active()[:1])
+
+    def migrate():
+        for rid, shard, job in active():
+            for dst in engine.live_shards:
+                if dst is not shard and dst.pool.n_free >= len(job.slots):
+                    return engine.migrate(rid, dst.index)
+        return False
+
+    def degrade():
+        return any(engine.degrade_active(rid, cps)
+                   for rid, _, job in active() if len(job.slots) > 1)
+
+    def attempt(name, fn):
+        if fn():
+            done[name] = engine.tick_count
+        else:
+            engine.schedule_op(engine.tick_count + 4, lambda: attempt(name, fn))
+
+    for name, fn in (("preempt", preempt), ("migrate", migrate), ("degrade", degrade)):
+        engine.schedule_op(OPS_AT[name], lambda name=name, fn=fn: attempt(name, fn))
+
+    def drain():
+        done["mem_before_drain"] = card_mem()
+        engine.drain(1)
+        done["drain"] = engine.tick_count
+
+    def resize():
+        # A grow while shard 1 still drains would cancel the drain: wait
+        # for it to retire, so the fleet really loses a shard and gains one.
+        if any(s.draining for s in engine.shards):
+            engine.schedule_op(engine.tick_count + 4, resize)
+            return
+        engine.resize(2)
+        done["resize"] = engine.tick_count
+
+    engine.schedule_op(DRAIN_AT, drain)
+    engine.schedule_op(RESIZE_AT, resize)
+
+
+@contextlib.contextmanager
+def timed_checkpoints():
+    """Host seconds and slots of every SlotPool.checkpoint while inside."""
+    from repro_torch.service.slots import SlotPool
+    real, acc = SlotPool.checkpoint, {"s": 0.0, "calls": 0, "slots": 0}
+
+    def checkpoint(self, rid):
+        t = time.perf_counter()
+        blocks = real(self, rid)
+        acc["s"] += time.perf_counter() - t
+        acc["calls"] += 1
+        acc["slots"] += len(blocks)
+        return blocks
+
+    SlotPool.checkpoint = checkpoint
+    try:
+        yield acc
+    finally:
+        SlotPool.checkpoint = real
+
+
+def phase10_elastic():
+    import dataclasses
+    from repro_torch.kernels import metropolis_sweep as ms
+    from repro_torch.kernels import qap_sweep as qs
+    from repro_torch.objectives import qap
+    from repro_torch.service import (ArrivalProcess, EngineConfig, SAServeEngine,
+                                     SchedulerConfig, latency_summary)
+    from repro_torch.service.serve_sa import replay_check
+    reqs = elastic_requests()
+    cfg = EngineConfig(**ELASTIC_CFG, device=DEV, scheduler=SchedulerConfig(**ELASTIC_SCHED))
+    n_degrade = sum(r.on_overload == "degrade" for r in reqs)
+    log(f"phase 10: elastic open loop, {len(reqs)} requests of make_mix({ELASTIC_MIX}) "
+        f"({sum(r.family == 'permutation' for r in reqs)} QAP), {n_degrade} priority-0 two-slot "
+        f"requests made on_overload='degrade', min_chains={cfg.chains_per_slot} "
+        f"(dataclasses.replace); bursty arrivals {ELASTIC_ARRIVALS}; EngineConfig({ELASTIC_CFG}), "
+        f"SchedulerConfig({ELASTIC_SCHED}); drain(1) at tick {DRAIN_AT}, resize(2) from tick "
+        f"{RESIZE_AT} once shard 1 has retired, preempt/migrate/degrade_active from ticks "
+        f"{OPS_AT}")
+    warm = SAServeEngine(dataclasses.replace(cfg, n_devices=1))   # first calls of the ops
+    warm.submit(reqs[0])
+    warm.submit(reqs[1])
+    warm.run()
+    engine = SAServeEngine(cfg)
+    done = {}
+    script_ops(engine, done)
+    real_retire = engine._retire_drained
+
+    def retire_drained():
+        before = len(engine.retired_shards)
+        real_retire()
+        if len(engine.retired_shards) > before and "mem_after_retire" not in done:
+            done["mem_after_retire"] = card_mem()
+    engine._retire_drained = retire_drained
+    arrivals = ArrivalProcess.bursty(reqs, **ELASTIC_ARRIVALS)
+    steps = time_host_steps(engine, ("_admit", "_plan_truncations", "_launch_group_fused",
+                                     "_collect_group_fused", "_retire"))
+    with timed_checkpoints() as ckpt, timed_entry("sa_metropolis_sweep") as tb1, \
+            timed_entry("sa_qap_sweep") as tb3:
+        if DEV == "cuda":
+            torch.cuda.synchronize()
+        ms.counter.launches = qs.counter.launches = 0
+        t0 = time.perf_counter()
+        results = engine.run_stream(arrivals)
+        if DEV == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        b1, b3 = ms.counter.launches, qs.counter.launches
+    b1_s, b3_s = (sum(a.elapsed_time(b) for a, b in t.events) / 1e3 for t in (tb1, tb3))
+    st = engine.stats()
+    lat = latency_summary(results, ticks=engine.tick_count, n_submitted=engine.n_submitted)
+    got = {r.req_id: r for r in results}
+    check(len(got) == len(results) == len(reqs), "a request was lost or finished twice")
+    check(lat["completed"] + lat["rejected"] + lat["incomplete"] == engine.n_submitted
+          == len(reqs), f"accounting: {lat}")
+    check(b1 > 0 and b3 > 0, f"phase 10: B1 {b1} / B3 {b3} launches")
+    events = {"preemptions": st["preemptions"], "migrations": st["migrations"],
+              "shrinks": st["shrinks"], "truncations": st["truncations"],
+              "shards_retired": st["shards_retired"], "rejected": st["rejected"]}
+    check(all(events[k] > 0 for k in ("preemptions", "migrations", "shrinks", "truncations",
+                                      "shards_retired")), f"an event kind never occurred: {events}")
+    check(all(k in done for k in ("preempt", "migrate", "degrade", "drain", "resize")),
+          f"a scripted operation never acted: {done}")
+    evals = sum(r.n_evals for r in results)
+    log(f"  wall {wall:.3f} s, {len(results) / wall:.2f} requests/s, {evals / wall:.4e} "
+        f"proposals/s, {engine.tick_count} ticks, {st['group_launches']} group launches, "
+        f"occupancy {st['occupancy']:.3f}; B1 launches {b1}, B3 launches {b3}")
+    shown = (f"B1 {b1_s:.4f} s, B3 {b3_s:.4f} s, {100 * (b1_s + b3_s) / wall:.1f}% of wall"
+             if DEV == "cuda" else "not measured")
+    log(f"  kernel time (CUDA events around each launch): {shown}; host steps: "
+        f"{host_steps(steps, wall)}")
+    log(f"  completed {lat['completed']}, rejected {lat['rejected']}, incomplete "
+        f"{lat['incomplete']} of {engine.n_submitted}; queue delay p50/p99 "
+        f"{lat['queue_delay_p50']:.2f}/{lat['queue_delay_p99']:.2f} ticks, latency p50/p99 "
+        f"{lat['latency_p50']:.2f}/{lat['latency_p99']:.2f} ticks")
+    degraded = sum(r.degraded for r in results if r.completed)
+    log(f"  events {events}, degraded admissions {degraded}, retired {engine.retired_shards}, "
+        f"scripted ops at ticks {{preempt: {done['preempt']}, migrate: {done['migrate']}, "
+        f"degrade: {done['degrade']}, drain: {done['drain']}, resize: {done['resize']}}}")
+    per_slot = ckpt["s"] / max(ckpt["slots"], 1)
+    log(f"  checkpoints: {ckpt['calls']} calls, {ckpt['slots']} slots, {ckpt['s']:.4f} s on "
+        f"the host, {1e3 * per_slot:.4f} ms per slot")
+    log(f"  card memory allocated before drain(1) {fmt_mem(done.get('mem_before_drain'))}, "
+        f"after shard 1 retired {fmt_mem(done.get('mem_after_retire'))}")
+    # Every completed request against its standalone replay, on the card.
+    t0 = time.perf_counter()
+    by_req = {r.req_id: r for r in reqs}
+    done_reqs = [by_req[rid] for rid, r in got.items() if r.completed]
+    for req in done_reqs:
+        res = got[req.req_id]
+        check(np.isfinite(res.f_best) and res.x_best.shape == (req.dim,)
+              and res.x_best.dtype == (np.int32 if req.family == "permutation" else np.float32),
+              f"phase 10: req {req.req_id} output")
+        check(replay_check(req, res, cfg),
+              f"phase 10: req {req.req_id} differs from its standalone replay "
+              f"(shrinks {res.shrink_events}, cuts {res.truncate_events})")
+    log(f"  all {len(done_reqs)} completed requests bit-exact against run_standalone with "
+        f"their width and ladder schedules ({time.perf_counter() - t0:.1f} s)")
+    # The QAP quality gate of phase 8 on the QAP requests no cut shortened.
+    for name in sorted(qap.INSTANCES):
+        inst = qap.get(name)
+        mine = [got[r.req_id] for r in done_reqs
+                if r.objective == name and not got[r.req_id].truncated]
+        check(bool(mine), f"{name}: no untruncated request")
+        for res in mine:
+            check(sorted(res.x_best.tolist()) == list(range(inst.n))
+                  and inst.cost(res.x_best) == res.f_best,
+                  f"req {res.req_id}: champion f is not the exact cost of its permutation")
+        found = [res.f_best for res in mine]
+        best = min(found)
+        gap = 100.0 * (best - inst.best_known) / inst.best_known
+        hit = sum(f == inst.best_known for f in found) / len(found)
+        log(f"  {name}: {len(mine)} untruncated, best {best:.0f} (best_known "
+            f"{inst.best_known}), gap {gap:.3f}%, hit rate {hit:.3f}")
+        check(best >= inst.best_known, f"{name}: best_found beats best_known")
+        check(hit > 0.0, f"{name}: no seed reached best_known")
+        check(gap <= QAP_MAX_GAP_PCT, f"{name}: gap above {QAP_MAX_GAP_PCT}%")
+    boundary_case(cfg.device)
+    return b1, b3
+
+
+def boundary_case(device):
+    """The reference's K-boundary scenario on the card: preempt request 0
+    and grow to three shards at tick 8, drain shard 1 at tick 16, with a
+    move budget that empties it within that tick; K = 4 gives K = 1's
+    champions and lifecycle stamps, and each result replays standalone."""
+    from repro_torch.service import EngineConfig, SAServeEngine, SARequest
+    from repro_torch.service.serve_sa import replay_check
+    cps = ELASTIC_CFG["chains_per_slot"]
+    mix = [dict(objective="rastrigin"), dict(objective="ackley", dim=8),
+           dict(objective="griewank", n_chains=2 * cps), dict(objective="schwefel")]
+    reqs = [SARequest(req_id=i, seed=100 + i, **{**dict(dim=4, n_chains=cps, T0=50.0,
+                                                       T_min=1.0, rho=0.8, N=10), **kw})
+            for i, kw in enumerate(mix)]
+    runs = {}
+    for k in (1, 4):
+        cfg = EngineConfig(n_slots=4, chains_per_slot=cps, n_devices=2, macro_k=k,
+                           migration_budget=4, device=device)
+        engine = SAServeEngine(cfg)
+        for r in reqs:
+            engine.submit(r)
+        engine.schedule_op(8, lambda e=engine: e.preempt(0))
+        engine.schedule_op(8, lambda e=engine: e.resize(3))
+        engine.schedule_op(16, lambda e=engine: e.drain(1))
+        runs[k] = {r.req_id: r for r in engine.run()}
+        for req in reqs:
+            check(replay_check(req, runs[k][req.req_id], cfg),
+                  f"K-boundary K={k}: req {req.req_id} differs from its replay")
+    stamps = ("champion_history", "f_best", "levels_run", "finish_tick", "first_tick",
+              "preempted_ticks", "resumed_ticks", "migrated_ticks", "home_shard")
+    for rid, a in runs[1].items():
+        b = runs[4][rid]
+        check(all(getattr(a, s) == getattr(b, s) for s in stamps)
+              and np.array_equal(a.x_best, b.x_best), f"K-boundary: req {rid} K=4 != K=1")
+    check(runs[1][0].preempted_ticks == [8] and any(r.migrated_ticks for r in runs[1].values()),
+          "K-boundary: the scripted preempt or the drain did not act")
+    log(f"  K-boundary scenario ({len(reqs)} requests x {cps} chains, preempt and resize(3) at "
+        f"tick 8, drain(1) at 16): K=4 equals K=1 in champions and lifecycle stamps, every "
+        f"result bit-exact against its standalone replay")
 
 
 def b3_bound(chains, n, n_slots, n_steps=QAP_STEPS):
@@ -1312,6 +1602,98 @@ def against(root, gen):
     check(found["this"] == found["that"], f"main path f_best differs between trees: {found}")
 
 
+# Boundary work the elastic engine does on every path, one shard too:
+# scripted ops, truncation planning, and the migration and rebalance
+# planners inside admission.
+BOUNDARY_STEPS = (("engine", "_run_due_ops"), ("engine", "_plan_truncations"),
+                  ("scheduler", "plan_migrations"), ("scheduler", "plan_rebalance"))
+SERVE_WALL_REPS = 3
+
+
+def serve_walls():
+    """Phase 8's load, SERVE_WALL_REPS times at K = 4 and at K = 1, through
+    whichever ``repro_torch`` comes first on ``sys.path``, without phase
+    8's checks: prints one JSON line with the package's path, each run's
+    wall, B3's launches and kernel seconds, host steps and the seconds in
+    BOUNDARY_STEPS that the package has, and a digest of every champion."""
+    import hashlib
+    import repro_torch
+    from repro_torch.service import EngineConfig, SAServeEngine
+    from repro_torch.service import engine as engine_mod, scheduler as scheduler_mod
+    boundary = {}
+    owners = {"engine": engine_mod.SAServeEngine, "scheduler": scheduler_mod.AdmissionScheduler}
+    for owner, name in BOUNDARY_STEPS:
+        fn = getattr(owners[owner], name, None)
+        if fn is None:
+            continue
+
+        def step(*a, _fn=fn, _name=name, **kw):
+            t = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                boundary[_name] = boundary.get(_name, 0.0) + time.perf_counter() - t
+        setattr(owners[owner], name, step)
+    reqs = qap_requests()
+    warm = SAServeEngine(EngineConfig(**SERVE_CFG))     # first calls of the torch ops
+    warm.submit(reqs[0])
+    warm.run()
+    out, digest = {"package": str(Path(repro_torch.__file__).parent)}, hashlib.sha256()
+    for k in (4, 1):
+        out[k] = []
+        for rep in range(SERVE_WALL_REPS):
+            boundary.clear()
+            got, wall, launches, kernel_s, engine, steps = serve_timed(
+                EngineConfig(**{**SERVE_CFG, "macro_k": k}), reqs)
+            if rep == 0:
+                for rid in sorted(got):
+                    digest.update(np.float64(got[rid].f_best).tobytes())
+                    digest.update(np.asarray(got[rid].x_best).tobytes())
+            out[k].append(dict(wall_s=wall, kernel_s=kernel_s, launches=launches,
+                               ticks=engine.tick_count, steps=steps,
+                               boundary=dict(boundary)))
+    out["digest"] = digest.hexdigest()
+    print(json.dumps(out))
+
+
+def serve_against(root):
+    """Phase 8's load through this tree's engine and the engine of the
+    tree at ``root``, each run in a process of its own that imports only
+    that tree's package, in turns (that, this, this, that, twice); the
+    champions must be the same bits."""
+    code = ("import sys; sys.path.insert(0, {here!r}); import chip_smoke as cs; "
+            "sys.path.remove(str(cs.ROOT / 'src')); sys.path.insert(0, {src!r}); "
+            "cs.serve_walls()")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    log(f"phase 8's load ({len(qap_requests())} QAP requests, EngineConfig({SERVE_CFG}), "
+        f"{SERVE_WALL_REPS} runs at K = 4 then at K = 1) through each tree's engine")
+    digests, walls = set(), collections.defaultdict(list)
+    for label, tree in (("that", root), ("this", ROOT), ("this", ROOT), ("that", root)) * 2:
+        src = str(Path(tree).resolve() / "src")
+        proc = subprocess.run([sys.executable, "-c", code.format(here=str(ROOT), src=src)],
+                              capture_output=True, text=True, timeout=900, env=env)
+        check(proc.returncode == 0, f"{label} tree's serving run failed:\n{proc.stderr[-4000:]}")
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(got["package"] == str(Path(src) / "repro_torch"),
+              f"{label} tree's run imported {got['package']}, not {src}")
+        digests.add(got["digest"])
+        for k in ("4", "1"):
+            for r in got[k]:
+                extra = ", ".join(f"{n.lstrip('_')} {v * 1e3:.2f} ms"
+                                  for n, v in r["boundary"].items()) or "none"
+                log(f"  {label} tree K={k}: wall {r['wall_s']:.3f} s, ticks {r['ticks']}, "
+                    f"B3 launches {r['launches']}, B3 kernel {r['kernel_s']:.4f} s; host "
+                    f"steps: {host_steps(r['steps'], r['wall_s'])}; boundary steps: {extra}")
+            walls[label, k].extend(r["wall_s"] for r in got[k])
+    check(len(digests) == 1, "phase 8's champions differ between the trees")
+    for k in ("4", "1"):
+        log(f"  K={k} least wall: that tree {min(walls['that', k]):.3f} s, "
+            f"this tree {min(walls['this', k]):.3f} s "
+            f"(median {statistics.median(walls['that', k]):.3f} s, "
+            f"{statistics.median(walls['this', k]):.3f} s)")
+    log("  champions bit-equal between the trees")
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
     if not (args == [] or (len(args) == 2 and args[0] == "--against")):
@@ -1327,6 +1709,7 @@ def main(argv=None) -> int:
     smi = phase0_device()
     if args:                      # --against DIR: two trees on one card
         against(Path(args[1]), gen)
+        serve_against(Path(args[1]))
         log(smi)
         return 0
     b1_err = phase1_sweep(gen)
@@ -1340,11 +1723,15 @@ def main(argv=None) -> int:
     b3_launches, _ = phase8_serving()
     phase9_mixed()
     b3 = phase_b3_times(gen)
+    elastic_b1, elastic_b3 = phase10_elastic()
     b1 = dict(route="cuda", source="src/repro_torch/kernels/csrc/metropolis_sweep.cu",
               replaces="src/repro/kernels/metropolis_sweep.py:81", library_ms=None)
     kernels = [
         {"name": "metropolis_sweep_delta", **b1,
-         "launches": launches["metropolis_sweep"], "max_abs_err": b1_err["delta"],
+         "launches": launches["metropolis_sweep"],
+         "launches_by_path": {"phase 3": launches["metropolis_sweep"],
+                              "phase 10": elastic_b1},
+         "max_abs_err": b1_err["delta"],
          "ms": t["delta"][0], "wrapper_ms": t["delta"][1], "plain_ms": t["delta"][2],
          "bound_ms": t["delta"][3], "bound_by": t["delta"][4]},
         {"name": "metropolis_sweep_full", **b1,
@@ -1360,7 +1747,9 @@ def main(argv=None) -> int:
         {"name": "qap_sweep", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/qap_sweep.cu",
          "replaces": "src/repro/kernels/qap_sweep.py:165",
-         "launches": b3_launches, "max_abs_err": b3_err,
+         "launches": b3_launches,
+         "launches_by_path": {"phase 8": b3_launches, "phase 10": elastic_b3},
+         "max_abs_err": b3_err,
          "ms": b3[0], "wrapper_ms": b3[1], "plain_ms": b3[2], "bound_ms": b3[3],
          "bound_by": b3[4], "library_ms": None},
     ]

@@ -1,6 +1,8 @@
 """Multi-tenant SA serving engine on the card, the counterpart of
-``repro.service``: a slot pool, an admission scheduler, and a
-continuous-batching tick loop that co-batches the continuous family
+``repro.service``: slot pools on one or several engine shards, an
+admission scheduler with overload policies, migration, drain, resize,
+proactive degrade and completion deadlines, open-loop arrival processes,
+and a continuous-batching tick loop that co-batches the continuous family
 (kernel B1) and the QAP permutation family (kernel B3).
 
 Usage::
@@ -12,10 +14,11 @@ Usage::
     engine.submit(SARequest(req_id=0, objective="grid12", dim=12,
                             n_chains=512, T0=50.0, T_min=0.5, rho=0.9,
                             N=40, family="permutation"))
-    results = engine.run()
+    results = engine.run()          # or engine.run_stream(ArrivalProcess...)
 
 Or from the shell: ``python -m repro_torch.service.serve_sa --family qap``.
 """
+from repro_torch.service.arrivals import ArrivalProcess, latency_summary
 from repro_torch.service.engine import (EngineConfig, F_OPT, SAServeEngine,
                                         run_standalone)
 from repro_torch.service.request import (OVERLOAD_POLICIES, RequestResult,
@@ -24,7 +27,7 @@ from repro_torch.service.request import (OVERLOAD_POLICIES, RequestResult,
 from repro_torch.service.scheduler import (AdmissionPlan, AdmissionScheduler,
                                            QueueEntry, SchedulerConfig,
                                            ShardView)
-from repro_torch.service.sharding import EngineShard
+from repro_torch.service.sharding import EngineShard, slot_pool_devices
 from repro_torch.service.slots import ActiveJob, SlotPool, SwappedJob
 
 __all__ = [
@@ -32,5 +35,6 @@ __all__ = [
     "SARequest", "RequestResult", "SERVABLE", "OVERLOAD_POLICIES",
     "TERMINAL_REASONS",
     "AdmissionScheduler", "AdmissionPlan", "QueueEntry", "SchedulerConfig",
-    "ShardView", "EngineShard", "SlotPool", "ActiveJob", "SwappedJob",
+    "ShardView", "EngineShard", "slot_pool_devices", "SlotPool",
+    "ActiveJob", "SwappedJob", "ArrivalProcess", "latency_summary",
 ]

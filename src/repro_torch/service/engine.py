@@ -37,15 +37,36 @@ On the card (``EngineConfig.device``, default ``cuda``):
   makes one device-to-host copy per macro-tick.
 * Every upload of a group's controls is one pinned, non-blocking copy.
 
+The elastic half, as the reference's:
+
+* ``EngineConfig.n_devices`` shards each own ``n_slots`` slots
+  (sharding.py); on one card they all live on it.  The scheduler homes
+  each request on the least-loaded shard and moves jobs between shards by
+  checkpoint and restore through host numpy (migration, watermark
+  rebalancing, drain evacuation).
+* Preemption checkpoints a job to a host
+  :class:`~repro_torch.service.slots.SwappedJob` and resumes it later,
+  possibly on other slots of another shard; proactive and admission-time
+  degrade run a job at fewer slots; ladder truncation meets a request's
+  ``finish_deadline``.  Every such trajectory is bit-exact against
+  :func:`run_standalone` with the same width and ladder schedules,
+  because the RNG keys on logical (chain, step) coordinates.
+* A checkpoint at a boundary reads the buffer that holds the state after
+  the last macro-tick (``SlotPool.get_block``), before the next launch
+  writes into it; a restored slot holds host arrays, so its group misses
+  the buffer cache and is repacked.
+* :meth:`SAServeEngine.run_stream` admits from an arrival process while
+  ticking, and scripted operations (:meth:`SAServeEngine.schedule_op`)
+  land on their tick; no decision reads the wall clock.
+
 Not ported yet, each raising ``NotImplementedError``: parallel tempering
-and population annealing requests, completion deadlines, preemption,
-migration, drain and resize, proactive and admission-time degrade, the
-autoscaler hook, open-loop ``run_stream``, enabled telemetry and several
-shards.
+and population annealing requests, the autoscaler hook and enabled
+telemetry.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from collections import defaultdict
 from typing import Dict, Iterator, List, Optional, Tuple
@@ -59,11 +80,12 @@ from repro_torch.kernels import objective_math as om
 from repro_torch.kernels import ops
 from repro_torch.kernels import rng
 from repro_torch.objectives import families as fam_mod
+from repro_torch.service.arrivals import ArrivalProcess
 from repro_torch.service.request import RequestResult, SARequest
 from repro_torch.service.scheduler import (AdmissionScheduler, QueueEntry,
                                            SchedulerConfig, ShardView)
-from repro_torch.service.sharding import EngineShard, make_shards
-from repro_torch.service.slots import ActiveJob
+from repro_torch.service.sharding import EngineShard, make_shard, make_shards
+from repro_torch.service.slots import ActiveJob, SwappedJob
 from repro_torch.service.telemetry import NULL as NULL_TELEMETRY
 
 #: Known optima of the servable continuous objectives, keyed by kernel id,
@@ -82,11 +104,13 @@ def _not_ported(what: str):
 class EngineConfig:
     n_slots: int = 8            # slots per shard
     chains_per_slot: int = 64   # chains per slot == kernel block size
-    n_devices: int = 1          # engine shards; only 1 is ported
+    n_devices: int = 1          # engine shards; logical shards share the
+                                # cards round-robin (sharding.py)
     variant: str = "delta"      # continuous sweep: 'delta' | 'full'
     device: object = None       # None = the card; "cpu" runs the plain
                                 # versions of the kernels
-    migration_budget: int = 1   # max cross-shard moves per tick
+    migration_budget: int = 1   # max cross-shard moves per tick (0 = no
+                                # automatic rebalancing)
     macro_k: int = 1            # ladder levels per tick; trajectories are
                                 # bit-exact at any K
     scheduler: SchedulerConfig = dataclasses.field(
@@ -212,26 +236,35 @@ class SAServeEngine:
         self.n_submitted = 0          # requests offered via submit()
         self.sweeps_done = 0          # block-sweeps (slot x level)
         self.group_launches = 0
+        self.preemptions = 0          # swap-outs performed
         self.rejections = 0           # SLO admission-control drops
-        self.slot_ticks = 0           # occupancy denominator
+        self.migrations = 0           # cross-shard moves
+        self.shrinks = 0              # width reductions of running jobs
+        self.truncations = 0          # finish-deadline ladder truncations
+        self.slot_ticks = 0           # occupancy denominator: the sum over
+                                      # ticks of the fleet's slot count
+        self.retired_shards: List[Tuple[int, int]] = []  # (index, tick)
+        self._next_shard_index = cfg.n_devices   # shard ids are never reused
+        self._ops: List[Tuple[int, int, object]] = []  # (tick, seq, fn)
+        self._op_seq = 0
         self._epoch = time.perf_counter()
         self._pt = self.telemetry.make_phase_timer(self._now)
         #: req_id -> (arrival_time in ticks, submit wall time)
         self._submit_info: Dict[int, Tuple[float, float]] = {}
 
     def _now(self) -> float:
-        """Monotonic wall seconds since engine construction."""
+        """Monotonic wall seconds since engine construction: every wall
+        stamp and ``wall_s`` share this epoch."""
         return time.perf_counter() - self._epoch
 
     # ------------------------------------------------------------ frontend
     def submit(self, req: SARequest, arrival_time: Optional[float] = None
                ) -> None:
-        """Enqueue ``req``.  ``arrival_time`` (in ticks) defaults to the
+        """Enqueue ``req``.  ``arrival_time`` (in ticks, may be fractional)
+        is the offered-load timestamp of open-loop runs; it defaults to the
         submit tick."""
         if req.method != "sa":
             raise _not_ported(f"method {req.method!r}")
-        if req.finish_deadline is not None:
-            raise _not_ported("finish_deadline (ladder truncation)")
         need = req.slots_needed(self.cfg.chains_per_slot)
         if need > self.cfg.n_slots:
             raise ValueError(
@@ -273,10 +306,17 @@ class SAServeEngine:
                              for j in jobs))
 
     def _shard(self, index: int) -> EngineShard:
+        """Shard by stable index: a retired shard leaves a gap and added
+        shards get fresh ids."""
         for shard in self.shards:
             if shard.index == index:
                 return shard
         raise ValueError(f"no live shard with index {index}")
+
+    @property
+    def live_shards(self) -> List[EngineShard]:
+        """Shards accepting new placements (not draining)."""
+        return [s for s in self.shards if not s.draining]
 
     @property
     def n_active(self) -> int:
@@ -288,34 +328,70 @@ class SAServeEngine:
 
     # ----------------------------------------------------------- admission
     def _admit(self) -> None:
-        """Plan this boundary's admissions and execute them.  Plans that
-        would shrink, preempt or degrade running or queued work need
-        features of a later slice and raise before anything changes.  The
-        cross-shard plans (migration, watermark rebalancing) are not run:
-        on the one shard this slice serves they never return a move."""
+        """Plan this boundary's moves and admissions, then execute them, in
+        the reference's order: drain evacuation (first claim on the move
+        budget), head defrag by migration, proactive shrinks (only when no
+        migration fired), watermark rebalancing (only when neither did),
+        then one queue walk across the live shards: rejections, evictions,
+        placements."""
         cps = self.cfg.chains_per_slot
+        budget = self.cfg.migration_budget
         pt = self._pt
+        if any(s.draining for s in self.shards):
+            budget -= self._evacuate_draining(budget)
+            self._retire_drained()
         with pt("schedule"):
-            views = [self._view(s) for s in self.shards]
-            if self.cfg.scheduler.proactive_degrade and \
-                    self.scheduler.plan_shrinks(
-                        views, cps, self.tick_count,
-                        self.cfg.scheduler.shrink_budget):
-                raise _not_ported("proactive degrade")
-            plan = self.scheduler.admit_sharded(views, cps, self.tick_count)
-        if plan.evict:
-            raise _not_ported("preemption")
-        for entry, granted_slots, _si in plan.admitted:
-            if granted_slots < entry.req.slots_needed(cps):
-                raise _not_ported("admission at reduced width (degrade)")
+            views = {s.index: self._view(s) for s in self.live_shards}
+            moves = self.scheduler.plan_migrations(
+                list(views.values()), cps, self.tick_count, budget)
+        with pt("admit"):
+            for rid, src, dst in moves:
+                self._migrate_job(self._shard(src), rid, self._shard(dst))
+        budget -= len(moves)
+        for si in {si for move in moves for si in move[1:]}:
+            views[si] = self._view(self._shard(si))
+        shrinks = []
+        if not moves and self.cfg.scheduler.proactive_degrade:
+            with pt("schedule"):
+                shrinks = self.scheduler.plan_shrinks(
+                    list(views.values()), cps, self.tick_count,
+                    self.cfg.scheduler.shrink_budget)
+            with pt("admit"):
+                for rid, si, keep_slots in shrinks:
+                    self._shrink_job(self._shard(si), rid, keep_slots)
+                    views[si] = self._view(self._shard(si))
+        # The slots a defrag or a shrink freed are the head's: no
+        # rebalance move may land on them before admission seats it.
+        if not moves and not shrinks:
+            with pt("schedule"):
+                rmoves = self.scheduler.plan_rebalance(
+                    list(views.values()), self.tick_count, budget)
+            with pt("admit"):
+                for rid, src, dst in rmoves:
+                    self._migrate_job(self._shard(src), rid,
+                                      self._shard(dst))
+            for si in {si for move in rmoves for si in move[1:]}:
+                views[si] = self._view(self._shard(si))
+        with pt("schedule"):
+            plan = self.scheduler.admit_sharded(
+                list(views.values()), cps, self.tick_count)
         with pt("admit"):
             for entry in plan.rejected:
                 self._reject(entry)
+            for rid, si in plan.evict:
+                self._swap_out(self._shard(si), rid)
             for entry, granted_slots, si in plan.admitted:
                 self._place(self._shard(si), entry, granted_slots)
 
     def _place(self, shard: EngineShard, entry: QueueEntry,
                granted_slots: int) -> None:
+        if entry.swapped is not None:       # swap-in: bit-exact resume
+            job = entry.swapped.job
+            job.resumed_ticks.append(self.tick_count)
+            shard.rids.alloc(job)
+            job.slots = shard.pool.restore(job.rid, entry.swapped.blocks)
+            job.home_shard = shard.index
+            return
         req = entry.req
         arrival, submit_wall = self._submit_info.pop(
             req.req_id, (float(entry.submit_tick), float("nan")))
@@ -330,6 +406,249 @@ class SAServeEngine:
         shard.rids.alloc(job)
         job.slots = shard.pool.assign(job.rid, req, n_slots=granted_slots)
         job.granted_chains = granted_slots * self.cfg.chains_per_slot
+
+    @staticmethod
+    def _checkpoint_release(shard: EngineShard, rid: int, keep_slots=None):
+        """Checkpoint ``rid``'s first ``keep_slots`` blocks (all when None)
+        to the host and free its slots on ``shard``."""
+        blocks = shard.pool.checkpoint(rid)[:keep_slots]
+        shard.pool.release(rid)
+        return blocks
+
+    def _take(self, shard: EngineShard, rid: int, keep_slots=None):
+        """Take ``rid`` off ``shard``: its checkpointed blocks, its slots
+        and its rid freed; the job keeps its cursors.  Returns (job,
+        blocks)."""
+        job = shard.rids.jobs[rid]
+        blocks = self._checkpoint_release(shard, rid, keep_slots)
+        shard.rids.free(rid)
+        return job, blocks
+
+    def _swap_out(self, shard: EngineShard, rid: int) -> None:
+        """Preempt: checkpoint a job to the host, free its slots and
+        re-queue it for a bit-exact resume on whichever shard next has
+        room."""
+        job, blocks = self._take(shard, rid)
+        job.slots = []
+        job.rid = -1
+        job.preempted_ticks.append(self.tick_count)
+        self.scheduler.requeue(SwappedJob(job=job, blocks=blocks))
+        self.preemptions += 1
+
+    def _migrate_job(self, src: EngineShard, rid: int, dst: EngineShard,
+                     keep_slots: Optional[int] = None) -> None:
+        """Move a resident job between shards in one boundary: checkpoint
+        on ``src``, restore on ``dst`` (only the first ``keep_slots``
+        blocks when set: the drain's shrink-migrate)."""
+        job, blocks = self._take(src, rid, keep_slots)
+        from_chains = job.granted_chains
+        dst.rids.alloc(job)
+        job.slots = dst.pool.restore(job.rid, blocks)
+        job.home_shard = dst.index
+        job.migrated_ticks.append(self.tick_count)
+        self.migrations += 1
+        if keep_slots is not None:
+            self._record_shrink(job, from_chains)
+
+    def migrate(self, req_id: int, to_shard: int) -> bool:
+        """Move the in-flight request ``req_id`` to shard ``to_shard``.
+        False if the request is not active, already there, the target
+        lacks room or is draining; ValueError for an unknown shard."""
+        dst = self._shard(to_shard)
+        if dst.draining:
+            return False
+        for shard, job in self._iter_jobs():
+            if job.req.req_id == req_id:
+                if shard.index == to_shard \
+                        or dst.pool.n_free < len(job.slots):
+                    return False
+                self._migrate_job(shard, job.rid, dst)
+                return True
+        return False
+
+    def preempt(self, req_id: int) -> bool:
+        """Swap out the in-flight request ``req_id`` (False if not
+        active)."""
+        for shard, job in list(self._iter_jobs()):
+            if job.req.req_id == req_id:
+                self._swap_out(shard, job.rid)
+                return True
+        return False
+
+    # -------------------------------------------------------- elastic fleet
+    def _record_shrink(self, job: ActiveJob, from_chains: int) -> None:
+        job.granted_chains = len(job.slots) * self.cfg.chains_per_slot
+        job.shrunk_ticks.append(self.tick_count)
+        job.shrink_events.append((job.level, from_chains,
+                                  job.granted_chains))
+        self.shrinks += 1
+
+    def _shrink_job(self, shard: EngineShard, rid: int,
+                    keep_slots: int) -> None:
+        """Degrade in place: checkpoint, drop the tail blocks, restore
+        ``keep_slots`` blocks on the same shard.  The surviving chains
+        keep logical indices [0, keep_slots * cps), so only the width
+        schedule changes, which ``run_standalone`` replays."""
+        job = shard.rids.jobs[rid]
+        if not 0 < keep_slots < len(job.slots):
+            raise ValueError(
+                f"keep_slots must be in [1, {len(job.slots) - 1}], "
+                f"got {keep_slots}")
+        from_chains = job.granted_chains
+        blocks = self._checkpoint_release(shard, rid, keep_slots)
+        job.slots = shard.pool.restore(rid, blocks)
+        self._record_shrink(job, from_chains)
+
+    def degrade_active(self, req_id: int, n_chains: int) -> bool:
+        """Shrink the running request ``req_id`` to ``n_chains`` chains
+        (rounded up to whole slots).  False if it is not active or already
+        at or below that width."""
+        slots_new = max(1, -(-n_chains // self.cfg.chains_per_slot))
+        for shard, job in self._iter_jobs():
+            if job.req.req_id == req_id:
+                if slots_new >= len(job.slots):
+                    return False
+                self._shrink_job(shard, job.rid, slots_new)
+                return True
+        return False
+
+    # -------------------------------------------- completion-deadline SLO
+    def _truncate_job(self, job: ActiveJob, to_levels: int) -> None:
+        """Cut the job's ladder to ``to_levels`` total levels (never below
+        ``min_levels`` or the levels already run).  No level's arithmetic
+        changes, only where the ladder ends."""
+        limit = self._levels_limit(job)
+        floor = max(int(job.req.min_levels), min(job.level, limit))
+        to_levels = max(int(to_levels), floor)
+        if to_levels >= limit:
+            return
+        job.truncated_ticks.append(self.tick_count)
+        job.truncate_events.append((job.level, limit, to_levels))
+        job.levels_limit = to_levels
+        self.truncations += 1
+
+    def truncate_active(self, req_id: int, n_levels: int) -> bool:
+        """Shorten the running request ``req_id``'s ladder to ``n_levels``
+        total levels, clamped to its ``min_levels``.  False if it is not
+        active or the cut shortens nothing."""
+        for _shard, job in self._iter_jobs():
+            if job.req.req_id == req_id:
+                before = self._levels_limit(job)
+                self._truncate_job(job, n_levels)
+                return self._levels_limit(job) < before
+        return False
+
+    def _plan_truncations(self) -> None:
+        """Apply this boundary's finish-deadline truncations."""
+        if all(job.req.finish_deadline is None
+               for _, job in self._iter_jobs()):
+            return
+        views = [self._view(s) for s in self.shards]
+        with self._pt("schedule"):
+            plan = self.scheduler.plan_truncations(views, self.tick_count)
+        with self._pt("admit"):
+            for rid, si, to_levels in plan:
+                self._truncate_job(self._shard(si).rids.jobs[rid],
+                                   to_levels)
+
+    def _evacuate_draining(self, budget: int) -> int:
+        """Execute this boundary's drain plan; returns the actions taken."""
+        with self._pt("schedule"):
+            draining = [self._view(s) for s in self.shards if s.draining]
+            survivors = [self._view(s) for s in self.live_shards]
+            actions = self.scheduler.plan_evacuation(
+                draining, survivors, self.cfg.chains_per_slot,
+                self.tick_count, budget)
+        with self._pt("admit"):
+            for kind, rid, src, dst, width in actions:
+                if kind == "migrate":
+                    self._migrate_job(self._shard(src), rid,
+                                      self._shard(dst))
+                elif kind == "shrink":
+                    self._migrate_job(self._shard(src), rid,
+                                      self._shard(dst), keep_slots=width)
+                else:
+                    self._swap_out(self._shard(src), rid)
+        return len(actions)
+
+    def _retire_drained(self) -> None:
+        """Remove empty draining shards from the fleet; their state
+        buffers on the card go with their group cache."""
+        for shard in [s for s in self.shards
+                      if s.draining and not s.rids.jobs]:
+            shard.group_cache.clear()
+            self.shards.remove(shard)
+            self.retired_shards.append((shard.index, self.tick_count))
+
+    def drain(self, shard_index: int) -> None:
+        """Begin draining shard ``shard_index``: no new placements, its
+        jobs evacuate at each boundary (``migration_budget`` actions) and
+        it retires once empty.  Idempotent; raises if it would leave no
+        live shard."""
+        shard = self._shard(shard_index)
+        if shard.draining:
+            return
+        if len(self.live_shards) <= 1:
+            raise ValueError(
+                "cannot drain the last live shard; resize up first")
+        shard.draining = True
+        if not shard.rids.jobs:
+            self._retire_drained()
+
+    def add_shards(self, n: int) -> List[int]:
+        """Grow the fleet by ``n`` fresh shards; returns their (never
+        reused) indices."""
+        if n < 0:
+            raise ValueError(f"n must be >= 0, got {n}")
+        new = []
+        for _ in range(n):
+            idx = self._next_shard_index
+            self._next_shard_index += 1
+            self.shards.append(make_shard(
+                idx, self.cfg.n_slots, self.cfg.chains_per_slot,
+                self.device))
+            new.append(idx)
+        return new
+
+    def resize(self, n_devices: int) -> None:
+        """Resize the fleet to ``n_devices`` live shards.  Growing first
+        cancels drains in progress, then adds shards; shrinking drains the
+        emptiest live shards (ties to the highest index)."""
+        if n_devices < 1:
+            raise ValueError(f"n_devices must be >= 1, got {n_devices}")
+        live = self.live_shards
+        if n_devices > len(live):
+            grow = n_devices - len(live)
+            for shard in sorted((s for s in self.shards if s.draining),
+                                key=lambda s: s.index):
+                if grow == 0:
+                    break
+                shard.draining = False
+                grow -= 1
+            self.add_shards(grow)
+        elif n_devices < len(live):
+            doomed = sorted(live, key=lambda s: (s.pool.n_active, -s.index))
+            for shard in doomed[:len(live) - n_devices]:
+                self.drain(shard.index)
+
+    def attach_controller(self, controller) -> None:
+        raise _not_ported("attach_controller (the autoscaler)")
+
+    def schedule_op(self, tick: int, fn) -> None:
+        """Run ``fn()`` at the start of the first tick >= ``tick`` (the
+        hook of ``serve_sa --drain-at/--resize``)."""
+        self._ops.append((int(tick), self._op_seq, fn))
+        self._op_seq += 1
+        self._ops.sort(key=lambda op: op[:2])
+
+    @property
+    def _next_op_tick(self) -> float:
+        return self._ops[0][0] if self._ops else float("inf")
+
+    def _run_due_ops(self) -> None:
+        while self._ops and self._ops[0][0] <= self.tick_count:
+            _, _, fn = self._ops.pop(0)
+            fn()
 
     def _reject(self, entry: QueueEntry) -> None:
         """SLO fast-fail: terminal 'rejected' result, no solution."""
@@ -346,34 +665,6 @@ class SAServeEngine:
             granted_chains=0, home_shard=-1))
         self.rejections += 1
 
-    # -------------------------------------------------- not ported yet
-    def preempt(self, req_id: int) -> bool:
-        raise _not_ported("preempt")
-
-    def migrate(self, req_id: int, to_shard: int) -> bool:
-        raise _not_ported("migrate")
-
-    def drain(self, shard_index: int) -> None:
-        raise _not_ported("drain")
-
-    def resize(self, n_devices: int) -> None:
-        raise _not_ported("resize")
-
-    def add_shards(self, n: int) -> List[int]:
-        raise _not_ported("add_shards")
-
-    def degrade_active(self, req_id: int, n_chains: int) -> bool:
-        raise _not_ported("degrade_active")
-
-    def truncate_active(self, req_id: int, n_levels: int) -> bool:
-        raise _not_ported("truncate_active")
-
-    def attach_controller(self, controller) -> None:
-        raise _not_ported("attach_controller (the autoscaler)")
-
-    def run_stream(self, arrivals, max_ticks: Optional[int] = None):
-        raise _not_ported("run_stream (open-loop arrivals)")
-
     def _maybe_pa_shrink(self, shard, job, fx_job) -> None:
         raise _not_ported("population annealing")
 
@@ -382,15 +673,22 @@ class SAServeEngine:
         """Admit, then advance every active slot by ``macro_k`` temperature
         levels (one when K = 1).
 
-        Two passes: *launch* every group's work first (launches are
-        asynchronous), then *collect*: bring results to the host, fold
-        champions and retire finished requests.  ``tick_count`` advances
-        on the ladder-level clock by the most levels any job consumed."""
+        The top of a tick is a macro-tick boundary: scripted operations,
+        then admission (with evacuation, migration, shrinks and
+        evictions), then finish-deadline truncations.  Then two passes:
+        *launch* every group's work first (launches are asynchronous),
+        then *collect*: bring results to the host, fold champions and
+        retire finished requests.  ``tick_count`` advances on the
+        ladder-level clock by the most levels any job consumed (1 on an
+        idle tick)."""
+        self._run_due_ops()
         for shard in self.shards:
             shard.resident_ticks += 1
             self.slot_ticks += shard.pool.n_slots
         self._admit()
+        self._plan_truncations()
         if self.n_active == 0:
+            self._retire_drained()
             self.tick_count += 1
             return
         K = self.cfg.macro_k
@@ -425,6 +723,9 @@ class SAServeEngine:
         with self._pt("retire"):
             for shard, job, reason, finish_tick in finished:
                 self._retire(shard, job, reason, finish_tick=finish_tick)
+        # A draining shard whose last job just retired leaves now, so a
+        # run that ends this tick leaves no empty draining shard behind.
+        self._retire_drained()
         self.tick_count += advance
 
     def _fold_level(self, shard: EngineShard, job: ActiveJob, n_steps: int,
@@ -585,10 +886,11 @@ class SAServeEngine:
             adopt=d["adopt"] != 0,
             is_sos=d["is_sos"] != 0 if "is_sos" in d else None)
 
-    def _sweep(self, family: str, d: Dict[str, torch.Tensor], n_steps: int):
-        """The group's sweep, ``sweep(x, T, step0, live, out)``: kernel B1
-        for the continuous family, B3 for QAP."""
-        cps, dev = self.cfg.chains_per_slot, self.device
+    def _sweep(self, family: str, d: Dict[str, torch.Tensor], n_steps: int,
+               dev: torch.device):
+        """The group's sweep on ``dev``, ``sweep(x, T, step0, live, out)``:
+        kernel B1 for the continuous family, B3 for QAP."""
+        cps = self.cfg.chains_per_slot
         seed, base = d["seed"], d["base"]
         if family == fam_mod.FAMILY_PERMUTATION:
             F, D = d["F"], d["D"]
@@ -653,13 +955,14 @@ class SAServeEngine:
         if not hit:
             a["x"] = self._host_state(shard, slot_list, n_padded,
                                       jobs[0].req.state_dtype)
-        d = _upload(a, self.device)
+        d = _upload(a, shard.device)
         if hit:
             x, spare = cache["x"], cache["spare"]
         else:
             x, spare = d["x"], torch.empty_like(d["x"])
         champ = _group_tick_fused(
-            x, spare, self._sweep(family, d, n_steps), self._controls(d),
+            x, spare, self._sweep(family, d, n_steps, shard.device),
+            self._controls(d),
             k=K, blk=cps, num_segments=self.cfg.n_slots + 1)
         # The group's state lives in x: point every slot there
         # (materialized only on a cache-miss repack) for the next boundary.
@@ -677,9 +980,10 @@ class SAServeEngine:
                                             jobs, 1, None)
         a["x"] = self._host_state(shard, slot_list, n_padded,
                                   jobs[0].req.state_dtype)
-        d = _upload(a, self.device)
+        d = _upload(a, shard.device)
         x2, _, xb, fb = _group_tick(
-            d["x"], self._sweep(family, d, n_steps), self._controls(d),
+            d["x"], self._sweep(family, d, n_steps, shard.device),
+            self._controls(d),
             blk=self.cfg.chains_per_slot, num_segments=self.cfg.n_slots + 1)
         return shard, n_steps, jobs, slot_list, (x2, fb, xb)
 
@@ -694,7 +998,8 @@ class SAServeEngine:
         if req.max_evals is not None and job.evals >= req.max_evals:
             return "budget"
         if job.level >= self._levels_limit(job):
-            return "ladder"
+            # 'truncated' only when a finish-deadline cut moved the end.
+            return "truncated" if job.truncate_events else "ladder"
         return None
 
     @staticmethod
@@ -717,18 +1022,57 @@ class SAServeEngine:
             first_tick_wall=job.first_tick_wall, finish_wall=self._now(),
             requested_chains=job.req.n_chains,
             granted_chains=job.granted_chains,
+            preempted_ticks=list(job.preempted_ticks),
+            resumed_ticks=list(job.resumed_ticks),
             champion_history=list(job.history),
-            home_shard=job.home_shard))
+            home_shard=job.home_shard,
+            migrated_ticks=list(job.migrated_ticks),
+            shrunk_ticks=list(job.shrunk_ticks),
+            shrink_events=list(job.shrink_events),
+            truncated_ticks=list(job.truncated_ticks),
+            truncate_events=list(job.truncate_events)))
         shard.pool.release(job.rid)
         shard.rids.free(job.rid)
 
     # ----------------------------------------------------------------- run
     def run(self, max_ticks: Optional[int] = None) -> List[RequestResult]:
         """Drive ticks until queue and pool drain (or ``max_ticks``):
-        closed-loop serving of whatever was submitted."""
+        closed-loop serving of whatever was submitted, the open-loop run
+        of an exhausted arrival stream."""
+        return self.run_stream(ArrivalProcess.batch([]), max_ticks=max_ticks)
+
+    def run_stream(self, arrivals, max_ticks: Optional[int] = None
+                   ) -> List[RequestResult]:
+        """Open-loop serving: submit each request of ``arrivals`` (an
+        :class:`~repro_torch.service.arrivals.ArrivalProcess`, or anything
+        with ``due(now)`` and ``exhausted``) when its arrival time comes
+        due, while ticking.  With nothing in flight the clock jumps to the
+        next arrival (``next_time``), never past a scheduled operation, so
+        arrival timestamps stay on the tick axis."""
         t0 = self._now()
-        while not self.done and (max_ticks is None
-                                 or self.tick_count < max_ticks):
+        while True:
+            if max_ticks is not None and self.tick_count >= max_ticks:
+                break
+            for t_arr, req in arrivals.due(self.tick_count):
+                self.submit(req, arrival_time=t_arr)
+            if self.done:
+                if arrivals.exhausted:
+                    break
+                nxt = getattr(arrivals, "next_time", None)
+                if nxt is not None and math.isfinite(nxt):
+                    jump = int(math.ceil(nxt))
+                    if max_ticks is not None:
+                        jump = min(jump, max_ticks)
+                    if self._ops:
+                        jump = min(jump, int(self._next_op_tick))
+                    if jump > self.tick_count:
+                        # The fleet held its slots across the jumped ticks.
+                        delta = jump - self.tick_count
+                        for shard in self.shards:
+                            shard.resident_ticks += delta
+                            self.slot_ticks += delta * shard.pool.n_slots
+                        self.tick_count = jump
+                        continue
             self.tick()
         self.wall_s = self._now() - t0
         return self.results
@@ -743,16 +1087,16 @@ class SAServeEngine:
         return {
             "ticks": self.tick_count,
             "devices": len(self.shards),
-            "draining": 0,
-            "shards_retired": 0,
+            "draining": sum(s.draining for s in self.shards),
+            "shards_retired": len(self.retired_shards),
             "group_launches": self.group_launches,
             "submitted": self.n_submitted,
             "completed": sum(r.completed for r in self.results),
             "rejected": self.rejections,
-            "preemptions": 0,
-            "migrations": 0,
-            "shrinks": 0,
-            "truncations": 0,
+            "preemptions": self.preemptions,
+            "migrations": self.migrations,
+            "shrinks": self.shrinks,
+            "truncations": self.truncations,
             "sweeps": self.sweeps_done,
             "occupancy": self.sweeps_done / max(self.slot_ticks, 1),
             "shard_occupancy": [s.occupancy() for s in self.shards],
@@ -772,13 +1116,41 @@ def _pa_dbeta(t: float, rho: float) -> float:
     raise _not_ported("population annealing")
 
 
-def run_standalone(req: SARequest, cfg: EngineConfig) -> RequestResult:
-    """Serve ``req`` alone on a dedicated pool: the per-tenant baseline.
+def run_standalone(req: SARequest, cfg: EngineConfig,
+                   shrink_schedule=None,
+                   truncate_schedule=None) -> RequestResult:
+    """Serve ``req`` alone on a dedicated one-shard pool: the per-tenant
+    baseline.
 
     Placement-invariant RNG and the segmented exchange make the packed
     engine produce the same trajectory as this single-tenant run, bit for
-    bit, at any macro-K; the tests and ``serve_sa --check`` hold it."""
+    bit, at any macro-K, on any shard, across preemption and migration.
+
+    ``shrink_schedule`` replays width cuts as ``(level, n_chains)`` pairs
+    and ``truncate_schedule`` ladder cuts as ``(level, n_levels)`` pairs,
+    each applied once the job has completed ``level`` levels
+    (``RequestResult.shrink_events`` and ``truncate_events`` record them
+    as ``(level, from, to)``).  They apply at macro-tick boundaries, so at
+    ``cfg.macro_k > 1`` the levels must be K-aligned, which the engine's
+    recorded events always are."""
     alone = SAServeEngine(dataclasses.replace(
         cfg, n_slots=req.slots_needed(cfg.chains_per_slot), n_devices=1))
     alone.submit(req)
-    return alone.run()[0]
+    pending = sorted((int(lvl), int(chains))
+                     for lvl, chains in (shrink_schedule or ()))
+    cuts = sorted((int(lvl), int(levels))
+                  for lvl, levels in (truncate_schedule or ()))
+    guard = 0
+    while not alone.done:
+        guard += 1
+        if guard >= 100000:
+            raise RuntimeError("standalone replay failed to drain")
+        job = next((j for _, j in alone._iter_jobs()), None)
+        while pending and job is not None and job.level >= pending[0][0]:
+            alone.degrade_active(req.req_id, pending[0][1])
+            pending.pop(0)
+        while cuts and job is not None and job.level >= cuts[0][0]:
+            alone.truncate_active(req.req_id, cuts[0][1])
+            cuts.pop(0)
+        alone.tick()
+    return alone.results[0]

@@ -376,8 +376,8 @@ class AdmissionScheduler:
         Returns ``(rid, donor shard, recipient shard)`` moves in execution
         order; empty when the head fits somewhere (or nothing can help).
         """
-        if budget <= 0 or not self._queue:
-            return []
+        if budget <= 0 or len(shards) < 2 or not self._queue:
+            return []                   # one shard has no recipient
         head = self._head(tick)
         if head is None:
             return []

@@ -322,32 +322,80 @@ _CFG = EngineConfig(n_slots=2, chains_per_slot=CPS, device="cpu")
 
 
 @pytest.mark.parametrize("call", [
-    lambda e: e.preempt(0), lambda e: e.migrate(0, 0), lambda e: e.drain(0),
-    lambda e: e.resize(2), lambda e: e.add_shards(1),
-    lambda e: e.degrade_active(0, 4), lambda e: e.truncate_active(0, 2),
-    lambda e: e.attach_controller(object()), lambda e: e.run_stream([]),
+    lambda e: e.attach_controller(object()),
     lambda e: e._maybe_pa_shrink(None, None, None),
     lambda e: tengine._pt_partners(4, 0), lambda e: tengine._pa_dbeta(1.0, 0.9),
     lambda e: e.submit(_creq(0, method="pt")),
     lambda e: e.submit(_creq(0, method="pa")),
-    lambda e: e.submit(_creq(0, finish_deadline=20.0)),
-    lambda e: SAServeEngine(dataclasses.replace(_CFG, n_devices=2)),
 ])
 def test_deferred_features_raise(call):
     with pytest.raises(NotImplementedError):
         call(SAServeEngine(_CFG))
 
 
+def _outcome(fn, *args):
+    """(return value or (error type, message), the engine's fleet, queue
+    and submit count afterwards) of ``fn(engine, request class, engine
+    class)``."""
+    eng, req_cls, eng_cls = args
+    try:
+        out = fn(eng, req_cls, eng_cls)
+    except Exception as err:                  # noqa: BLE001 (compared below)
+        out = (type(err).__name__, str(err))
+    return out, [(s.index, s.draining) for s in eng.shards], \
+        [r.req_id for r in eng.scheduler.pending], eng.n_submitted
+
+
+@pytest.mark.parametrize("call", [
+    lambda e, R, E: e.preempt(0),
+    lambda e, R, E: e.migrate(0, 0),
+    lambda e, R, E: e.drain(0),
+    lambda e, R, E: e.resize(2),
+    lambda e, R, E: e.add_shards(1),
+    lambda e, R, E: e.degrade_active(0, 4),
+    lambda e, R, E: e.truncate_active(0, 2),
+    lambda e, R, E: e.run_stream([]),
+    lambda e, R, E: e.submit(R(**dataclasses.asdict(_creq(0, finish_deadline=20.0)))),
+    lambda e, R, E: [(s.index, s.pool.n_slots) for s in E(
+        dataclasses.replace(e.cfg, n_devices=2)).shards],
+], ids=["preempt", "migrate", "drain", "resize", "add_shards",
+        "degrade_active", "truncate_active", "run_stream", "finish_deadline",
+        "n_devices"])
+def test_elastic_calls_match_reference_on_small_engine(call):
+    """The calls that raised before the elastic slice, on a one-shard
+    engine with nothing in flight: same return values, same errors and
+    the same fleet and queue afterwards as the reference engine."""
+    port = _outcome(call, SAServeEngine(_CFG), trequest.SARequest, SAServeEngine)
+    ref = _outcome(call, JEngine(JConfig(n_slots=2, chains_per_slot=CPS,
+                                         use_pallas=False)),
+                   jrequest.SARequest, JEngine)
+    assert port == ref
+
+
 @pytest.mark.parametrize("policy, req_kw", [
-    ("preempt", dict(priority=5)), ("degrade", dict(min_chains=CPS))])
-def test_plans_that_need_later_slices_raise(policy, req_kw):
-    eng = SAServeEngine(dataclasses.replace(_CFG, scheduler=tsched.SchedulerConfig(
-        overload=policy, default_deadline=5.0)))
-    eng.submit(_creq(0))
+    ("preempt", dict(priority=5)), ("degrade", dict(min_chains=CPS))],
+    ids=["preempt", "degrade"])
+def test_overload_plans_execute_bit_exact(policy, req_kw):
+    """A two-slot arrival on a pool with one free slot: 'preempt' evicts
+    the running request, 'degrade' admits at one slot.  Both results equal
+    their standalone runs (the degraded one at its admitted width)."""
+    cfg = dataclasses.replace(_CFG, scheduler=tsched.SchedulerConfig(
+        overload=policy, default_deadline=5.0))
+    eng = SAServeEngine(cfg)
+    first, second = _creq(0), _creq(1, n_chains=2 * CPS, **req_kw)
+    eng.submit(first)
     eng.tick()
-    eng.submit(_creq(1, n_chains=2 * CPS, **req_kw))
-    with pytest.raises(NotImplementedError):
-        eng.tick()
+    eng.submit(second)
+    eng.tick()
+    got = {r.req_id: r for r in eng.run()}
+    if policy == "preempt":
+        assert eng.preemptions == 1 and got[0].preempted_ticks == [1]
+        _assert_exact(got[1], run_standalone(second, cfg))
+    else:
+        assert got[1].granted_chains == CPS and got[1].degraded
+        _assert_exact(got[1], run_standalone(
+            dataclasses.replace(second, n_chains=CPS), cfg))
+    _assert_exact(got[0], run_standalone(first, cfg))
 
 
 def test_serve_sa_cli_on_cpu(capsys):
@@ -361,5 +409,5 @@ def test_serve_sa_cli_on_cpu(capsys):
     assert doc["check"]["bit_exact"] == doc["check"]["served"] == 4
     assert doc["config"]["device"] == "cpu"
     with pytest.raises(SystemExit):
-        serve_sa.main(argv + ["--devices", "4"])
+        serve_sa.main(argv + ["--autoscale"])
     assert "not ported" in capsys.readouterr().err
