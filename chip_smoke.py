@@ -60,7 +60,22 @@ and runs, in order, failing on the first phase that fails:
     every event kind, every completed request bit-exact against its
     standalone replay of its width and ladder schedules, the QAP quality
     gate, latency percentiles, checkpoint cost and card memory around the
-    retired shard; then the reference's K-boundary scenario at K = 1 and 4.
+    retired shard; then the reference's K-boundary scenario at K = 1 and 4;
+11. the paper's Table 9: all 41 suite problems, V1 and V2, 16384 chains,
+    N = 100, on the quick bench's 39-level ladder: |f - f*|, wall and
+    route of each (B1 full + B2 for the 18 registry objectives, the torch
+    sweep + B2 for the 23 others, checked by launch counts);
+12. the paper's Table 7: Schwefel-16 at T0 = 1000, T_min = 0.01,
+    rho = 0.99, N = 100, 16384 chains (1146 levels) in float32 (B1 full +
+    B2) and float64 (the torch sweep), a warm run first; wall, |f - f*|
+    and relative x error, and the device time per level of the torch
+    sweep in both precisions beside B1 full's;
+13. parallel tempering and population annealing served: 96 requests of
+    make_mix(method="mixed", family="mixed") on 64 slots x 512 chains at
+    K = 1 and 4, each bit-exact against its standalone run with its PA
+    self-shrinks re-derived; the reference's preempt / resize / drain
+    scenario at 512 chains per slot; a pure-PA load on 128 slots x 512
+    chains whose weights sum past 2^31 - 1, each tenant bit-exact.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a card, or without
@@ -150,6 +165,27 @@ OPS_AT = dict(preempt=12, migrate=16, degrade=20)
 # float32 operations of one move's O(n) delta: per location k, two
 # products of two differences and their sums.
 QAP_DELTA_OPS_PER_N = 10
+# Slice 6.  Phase 11, the paper's Table 9: every suite problem at the width
+# and N of the reference bench's full mode (benchmarks/table9_suite.py:21),
+# the depth cut to its quick ladder (T0 = 50, T_min = 0.1, rho = 0.85).
+SUITE_CFG = dict(T0=50.0, T_min=0.1, rho=0.85, N=100, n_chains=16384, seed=0,
+                 record_history=False)
+SUITE_LEVELS = 39
+SUITE_WIN = 1.05                       # V2 <= 1.05 V1, as the bench counts it
+# Phase 12, the paper's Table 7 at the bench's full configuration
+# (benchmarks/table7_precision.py:30-31); the device time per level of the
+# torch sweep is profiled over its first levels.
+TABLE7_CFG = dict(T0=1000.0, T_min=0.01, rho=0.99, N=100, n_chains=16384,
+                  record_history=False)
+TABLE7_DIM = 16
+TABLE7_PROFILE_LEVELS = 3
+TABLE7_WARM_LEVELS = 20     # the warm run: the ladder's first levels
+# Phase 13, PT and PA serving: the mixed load on phase 9's pool, and a
+# pure-PA load on phase 8's pool for the first levels of a ladder (where
+# every weight is near the full scale).
+TEMPER_REQUESTS = 96
+TEMPER_CFG = MIXED_CFG
+PA_LOAD = dict(objective="schwefel", dim=16, T0=1000.0, T_min=500.0, rho=0.9, N=25)
 
 
 class SmokeFailure(RuntimeError):
@@ -281,25 +317,86 @@ def cuda_ms(fn, n=25, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(fn, n=50):
-    """Device time per fn() call from a torch.profiler (CUPTI) trace of n
-    calls: the kernels and memory operations it holds, summed.  Returns
-    (ms or None when the trace holds no device activity, device ops per
-    call, their names)."""
+# The CUDA calls (`cuda*` and the lower-level `cu*`) that put work on the
+# card, as a torch.profiler trace names them.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def trace_gap(n_launched, n_done, busy_ms, wall_ms, bound_ms=None):
+    """Why a profiler trace's device time cannot be taken, or None: it
+    holds device work for fewer of its ``n_launched`` launches than all
+    (``n_done``), its device time (``busy_ms``) exceeds the CUDA-event
+    wall of the same calls (``wall_ms``; one stream runs one kernel at a
+    time), or it lies under ``bound_ms``, the least time the work can
+    take."""
+    if n_done == 0:
+        return "no device activity in the trace"
+    if n_done < n_launched:
+        return f"the trace holds device work for {n_done} of {n_launched} launches"
+    if busy_ms > 1.05 * wall_ms + 0.002:
+        return f"device {busy_ms:.4f} ms exceeds the wall {wall_ms:.4f} ms"
+    if bound_ms is not None and busy_ms < bound_ms:
+        return f"device {busy_ms:.4f} ms under the bound {bound_ms:.4f} ms"
+    return None
+
+
+def profile_calls(fn, n, bound_ms=None, attempts=3, warm_s=0.01):
+    """A torch.profiler (CUPTI) trace of n calls of fn with CUDA events
+    around them, taken again, up to ``attempts`` times, while
+    ``trace_gap`` finds it incomplete.  A trace that starts cold can lose
+    the kernels of its first launches (seen after phase 11), so calls run
+    for ``warm_s`` (one at least) before the span ``measured``, and only
+    the device work of launches inside it counts, matched to them by
+    correlation id.  Returns
+    ([(name, ms) of each device op], device ms per call, complete or
+    not)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not dev:
-        return None, 0, []
-    total_us = sum(e.time_range.elapsed_us() for e in dev)
-    return total_us / n / 1e3, len(dev) / n, sorted({e.name[:60] for e in dev})
+    for attempt in range(1, attempts + 1):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t_warm = time.perf_counter()
+            while True:
+                fn()
+                torch.cuda.synchronize()
+                if time.perf_counter() - t_warm >= warm_s:
+                    break
+            with record_function("measured"):
+                a.record()
+                for _ in range(n):
+                    fn()
+                b.record()
+                torch.cuda.synchronize()
+        raw = list(prof.profiler.kineto_results.events())
+        span = next(e for e in raw if e.name() == "measured")
+        lo, hi = span.start_ns(), span.start_ns() + span.duration_ns()
+        launched = {e.correlation_id() for e in raw
+                    if e.device_type() == DeviceType.CPU and e.name() in LAUNCH_CALLS
+                    and lo <= e.start_ns() <= hi}
+        dev = [(e.name(), e.duration_ns() / 1e6) for e in raw
+               if e.device_type() == DeviceType.CUDA and e.correlation_id() in launched]
+        done = len({e.correlation_id() for e in raw
+                    if e.device_type() == DeviceType.CUDA} & launched)
+        busy = sum(ms for _, ms in dev) / n
+        gap = trace_gap(len(launched), done, busy, a.elapsed_time(b) / n, bound_ms)
+        if gap is None:
+            return dev, busy, True
+        log(f"  trace {attempt} of {attempts} not taken: {gap}")
+    return dev, busy, False
+
+
+def device_ms(fn, n=50, bound_ms=None):
+    """Device time per fn() call from a complete profiler trace of n calls
+    (``profile_calls``): the kernels and memory operations it holds,
+    summed.  Returns (ms, or None when no trace was complete, device ops
+    per call, their names)."""
+    dev, busy, ok = profile_calls(fn, n, bound_ms)
+    return (busy if ok else None), len(dev) / n, sorted({name[:60] for name, _ in dev})
 
 
 # ---------------------------------------------------------------- phases
@@ -629,31 +726,22 @@ def sa_device_share(obj, cfg_kw, wall_per_level, b1_kernel, levels=100):
     """The SA ladder of ``cfg_kw`` cut to its first ``levels`` levels under a
     torch.profiler trace: device time per level by kernel (B1 is the
     kernel named ``b1_kernel``), against the wall time per level of the
-    unprofiled run.  Returns the busy share, or None when the trace holds
-    no device activity."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    unprofiled run.  Returns the busy share, or None when no trace was
+    complete (``profile_calls``)."""
     from repro_torch.core import SAConfig, sa_minimize
     cfg = SAConfig(**{**cfg_kw, "T_min": cfg_kw["T0"] * cfg_kw["rho"] ** (levels - 0.5)})
     check(cfg.n_levels == levels, "profiled ladder cut")
-    sa_minimize(obj, cfg)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        sa_minimize(obj, cfg)
-        torch.cuda.synchronize()
-    per = {"B1": 0.0, "B2": 0.0, "other": 0.0}
-    n_ops = 0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        key = ("B1" if b1_kernel in e.name else
-               "B2" if "argmin_kernel" in e.name else "other")
-        per[key] += e.time_range.elapsed_us() / 1e3 / levels
-        n_ops += 1
-    busy = sum(per.values())
-    if n_ops == 0:
-        log("  SA device time per level: not measured (no device activity in the trace)")
+    dev, busy, ok = profile_calls(lambda: sa_minimize(obj, cfg), 1)
+    if not ok:
+        log("  SA device time per level: not measured")
         return None
+    per = {"B1": 0.0, "B2": 0.0, "other": 0.0}
+    for name, ms in dev:
+        key = ("B1" if b1_kernel in name else
+               "B2" if "argmin_kernel" in name else "other")
+        per[key] += ms / levels
+    n_ops = len(dev)
+    busy /= levels
     log(f"  SA device time per level (profiled, first {levels} levels): {busy:.4f} ms "
         f"(B1 {per['B1']:.4f}, B2 {per['B2']:.4f}, other {per['other']:.4f} ms in "
         f"{n_ops / levels:.1f} device ops), against {wall_per_level * 1e3:.4f} ms of "
@@ -782,16 +870,15 @@ def phase6_times(gen):
     log(f"  B2: kernel {b2:.4f} ms (call {b2w:.4f} ms), plain {b2p:.4f} ms, "
         f"torch.min(f, 0) {lib_min:.4f} ms, torch.argmin {lib_argmin:.4f} ms, "
         f"bound {b2_bound:.6f} ms (bytes)")
-    for name, fn in (("B1 delta", lambda: ms.metropolis_sweep_kernel(
-                         x, T, 0, 0, variant="delta", **sweep)),
-                     ("B1 full", lambda: ms.metropolis_sweep_kernel(
-                         x, T, 0, 0, variant="full", **sweep)),
-                     ("B2", lambda: rm.argmin_reduce(f)),
-                     ("torch.min(f, 0)", lambda: torch.min(f, 0)),
-                     ("torch.argmin", lambda: torch.argmin(f))):
-        dev_ms, per_call, names = device_ms(fn)
-        shown = "not measured (no device activity in the trace)" if dev_ms is None \
-            else f"{dev_ms:.4f} ms"
+    for name, fn, bound in (("B1 delta", lambda: ms.metropolis_sweep_kernel(
+                                x, T, 0, 0, variant="delta", **sweep), bounds["delta"][0]),
+                            ("B1 full", lambda: ms.metropolis_sweep_kernel(
+                                x, T, 0, 0, variant="full", **sweep), bounds["full"][0]),
+                            ("B2", lambda: rm.argmin_reduce(f), b2_bound),
+                            ("torch.min(f, 0)", lambda: torch.min(f, 0), b2_bound),
+                            ("torch.argmin", lambda: torch.argmin(f), b2_bound)):
+        dev_ms, per_call, names = device_ms(fn, bound_ms=bound)
+        shown = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
         log(f"  {name}: device time per call {shown}, {per_call:g} device op(s) per "
             f"call ({', '.join(names)})")
     # Where B1's time goes: the copy and the initial evaluation alone
@@ -800,7 +887,8 @@ def phase6_times(gen):
         shown = []
         for steps in (0, 1, 16, N):
             dev_ms, _, _ = device_ms(lambda: ms.metropolis_sweep_kernel(
-                x, T, 0, 0, variant=variant, kid=0, n_steps=steps, blk=256), n=20)
+                x, T, 0, 0, variant=variant, kid=0, n_steps=steps, blk=256), n=20,
+                bound_ms=b1_bounds(n, dim, steps)[variant][0])
             shown.append(f"N={steps} {dev_ms:.4f} ms" if dev_ms is not None
                          else f"N={steps} not measured")
         log(f"  B1 {variant} device time by steps: " + ", ".join(shown))
@@ -817,7 +905,8 @@ def b2_route_times(gen):
         g = torch.randn(n, generator=gen, device=DEV)
         shown = []
         for route in ("one CTA", "grid"):
-            dev_ms, per_call, _ = device_ms(lambda: argmin_route(g, route))
+            dev_ms, per_call, _ = device_ms(lambda: argmin_route(g, route),
+                                            bound_ms=n * 4 / HBM_BYTES_PER_S * 1e3)
             shown.append(f"{route} {dev_ms:.4f} ms ({per_call:g} op/call)"
                          if dev_ms is not None else f"{route} not measured")
         log(f"  B2 routes at n={n} (ONE_CTA_MAX {rm.ONE_CTA_MAX}), device time: "
@@ -1450,6 +1539,480 @@ def boundary_case(device):
         f"result bit-exact against its standalone replay")
 
 
+# ------------------------------------------------------------- slice 6
+def counted_launches():
+    """Zero B1's, B2's and B3's launch counters; returns a function that
+    reads them as {"b1", "b2", "b3"}."""
+    from repro_torch.kernels import metropolis_sweep as ms
+    from repro_torch.kernels import qap_sweep as qs
+    from repro_torch.kernels import reduce_min as rm
+    ms.counter.launches = rm.counter.launches = qs.counter.launches = 0
+    return lambda: {"b1": ms.counter.launches, "b2": rm.counter.launches,
+                    "b3": qs.counter.launches}
+
+
+def sync():
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def level_parity(name, obj, x, T, seed, step0, N):
+    """One ladder level of kernel B1 full, as ``sa_minimize`` launches it
+    (``ops.metropolis_sweep`` on every chain, scalar controls), held
+    against its plain version on the same inputs by ``compare_sweep``.
+    Returns the largest |f_kernel - f_plain|."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.metropolis_sweep import metropolis_sweep_plain
+    n = x.shape[0]
+    kid = obj.kernel_id
+
+    def run(k):
+        out_k = ops.metropolis_sweep(x, T, seed, step0, kid=kid, n_steps=k, variant="full")
+        sync()
+        return out_k, metropolis_sweep_plain(x, T, seed, step0, kid=kid, n_steps=k,
+                                             blk=min(256, n), variant="full")
+    ctl = dict(kid=np.full(n, kid), T=np.full(n, T, np.float32), seed=np.full(n, seed),
+               step0=np.full(n, step0), cidx=np.arange(n))
+    return compare_sweep(name, x, run, ctl, N, "full")
+
+
+def phase11_suite():
+    """The paper's Table 9: every problem of the 41-problem suite, V1
+    (async) and V2 (sync), at the width and N of the reference bench's
+    full mode with the depth of its quick ladder."""
+    from repro_torch.core import SAConfig, annealing, sa_minimize
+    from repro_torch.objectives import SUITE
+    probe = SAConfig(**SUITE_CFG)
+    log(f"phase 11: Table 9, the 41-problem suite, V1 and V2 at {SUITE_CFG} "
+        f"({probe.n_levels} levels)")
+    check(probe.n_levels == SUITE_LEVELS, f"suite ladder has {probe.n_levels} levels")
+    total = {"b1": 0, "b2": 0}
+    wins = known = 0
+    worst = 0.0
+    t_phase = time.perf_counter()
+    for key, factory in SUITE.items():
+        obj = factory()
+        kernel = annealing.sweeps_in_kernel(obj, probe)
+        if kernel:
+            # Level 0 as sa_minimize runs it: its chains, T0, seed, step 0.
+            gen = torch.Generator(device=DEV)
+            gen.manual_seed(probe.seed)
+            x0 = obj.sample_uniform(gen, (probe.n_chains,))
+            worst = max(worst, level_parity(f"{key} {obj.name}({obj.dim}) level 0", obj, x0,
+                                            probe.T0, probe.seed, 0, probe.N))
+        errs, walls = {}, {}
+        for tag, ex in (("V1", "async"), ("V2", "sync")):
+            cfg = SAConfig(**SUITE_CFG, exchange=ex)
+            sync()
+            read = counted_launches()
+            t0 = time.perf_counter()
+            r = sa_minimize(obj, cfg)
+            sync()
+            walls[tag] = time.perf_counter() - t0
+            got = read()
+            total["b1"] += got["b1"]
+            total["b2"] += got["b2"]
+            check(math.isfinite(r.f_best) and r.x_best.shape == (obj.dim,),
+                  f"{key} {tag}: f_best {r.f_best}")
+            if kernel:
+                check(got["b1"] == cfg.n_levels and got["b2"] >= cfg.n_levels,
+                      f"{key} {tag}: a kernel objective launched B1 {got['b1']}, B2 "
+                      f"{got['b2']} times")
+            else:
+                check(got["b1"] == 0 and got["b2"] >= cfg.n_levels,
+                      f"{key} {tag}: launched B1 {got['b1']}, B2 {got['b2']} times")
+            errs[tag] = abs(r.f_best - obj.f_opt) if obj.f_opt is not None else float("nan")
+        win = ""
+        if math.isfinite(errs["V2"]):
+            known += 1
+            ok = errs["V2"] <= SUITE_WIN * errs["V1"] + 1e-9
+            wins += ok
+            win = "y" if ok else "n"
+        log(f"  {key:<6} {obj.name:<17} n={obj.dim:<4} "
+            f"{'B1 full + B2' if kernel else 'torch sweep + B2':<16} |f-f*| V1 "
+            f"{errs['V1']:.4e} V2 {errs['V2']:.4e} V2<=1.05V1 {win or '-'}  wall V1 "
+            f"{walls['V1']:.3f} s V2 {walls['V2']:.3f} s")
+    log(f"  V2 <= 1.05 V1 on {wins}/{known} problems with a known optimum; B1 full "
+        f"launches {total['b1']}, B2 reductions {total['b2']}; B1 full against its plain "
+        f"version on level 0 of each kernel objective, max |f_kernel - f_plain| {worst:.3e}; "
+        f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    total["max_abs_err"] = worst
+    return total
+
+
+def phase12_precision(gen):
+    """The paper's Table 7: Schwefel-16 at the reference bench's full
+    configuration in float32 (B1 full + B2) and float64 (the torch sweep,
+    torch.argmin), a warm run first as the bench's child does (here the
+    ladder's first TABLE7_WARM_LEVELS levels: the port compiles nothing,
+    so a warm run only makes the first calls of its ops)."""
+    import dataclasses
+    from repro_torch.core import SAConfig, metropolis, sa_minimize
+    from repro_torch.kernels import ops
+    from repro_torch.objectives import functions as F
+    obj = F.schwefel(TABLE7_DIM)
+    log(f"phase 12: Table 7, schwefel({TABLE7_DIM}) at {TABLE7_CFG}, "
+        f"{SAConfig(**TABLE7_CFG).n_levels} levels, float32 and float64")
+    rows = {}
+    total = {"b1": 0, "b2": 0}
+    for dtype in ("float32", "float64"):
+        cfg = SAConfig(**TABLE7_CFG, dtype=dtype)
+        warm_t_min = cfg.T0 * cfg.rho ** (TABLE7_WARM_LEVELS - 0.5)
+        sa_minimize(obj, dataclasses.replace(cfg, seed=0, T_min=warm_t_min))
+        sync()
+        read = counted_launches()
+        t0 = time.perf_counter()
+        r = sa_minimize(obj, dataclasses.replace(cfg, seed=1))
+        sync()
+        wall = time.perf_counter() - t0
+        got = read()
+        total["b1"] += got["b1"]
+        total["b2"] += got["b2"]
+        df, dx = obj.error_to_opt(r.x_best, r.f_best)
+        rows[dtype] = dict(wall=wall, df=float(df), dx=float(dx))
+        check(r.x_best.dtype == np.dtype(dtype) and math.isfinite(r.f_best),
+              f"{dtype}: result {r.f_best} {r.x_best.dtype}")
+        want_b1 = cfg.n_levels if dtype == "float32" else 0
+        want_b2 = 2 * cfg.n_levels + 2 if dtype == "float32" else 0
+        check(got["b1"] == want_b1 and got["b2"] == want_b2,
+              f"{dtype}: B1 {got['b1']} / B2 {got['b2']} launches, expected "
+              f"{want_b1} / {want_b2}")
+        log(f"  {dtype}: wall {wall:.3f} s ({1e3 * wall / cfg.n_levels:.3f} ms per level), "
+            f"|f - f*| {df:.4e}, relative x error {dx:.4e}, f_best {r.f_best:.9f}; B1 "
+            f"{got['b1']}, B2 {got['b2']} launches")
+    check(rows["float64"]["df"] <= rows["float32"]["df"],
+          f"float64 |f - f*| {rows['float64']['df']} worse than float32's "
+          f"{rows['float32']['df']}")
+    log(f"  wall float64 / float32: {rows['float64']['wall'] / rows['float32']['wall']:.2f}")
+    # B1 full against its plain version on the float32 run's first level.
+    gen1 = torch.Generator(device=DEV)
+    gen1.manual_seed(1)
+    x32 = obj.sample_uniform(gen1, (TABLE7_CFG["n_chains"],))
+    err = level_parity(f"schwefel({TABLE7_DIM}) level 0 of the float32 run", obj, x32,
+                       TABLE7_CFG["T0"], 1, 0, TABLE7_CFG["N"])
+    # The same code path in both precisions: device time per level of the
+    # torch sweep, with B1 full's beside it.  A trace counts only when it
+    # holds every launch and fits between its bound and its wall.
+    n, N = TABLE7_CFG["n_chains"], TABLE7_CFG["N"]
+    runs = {}
+    for dtype in (torch.float32, torch.float64):
+        x = obj.sample_uniform(gen, (n,), dtype)
+        runs[dtype] = lambda x=x, fx=obj(x): metropolis.sweep_full(
+            x, fx, 10.0, 3, 0, objective=obj, n_steps=N)
+        runs[dtype]()
+    # Wall per level (CUDA events) in turns: f32, f64, f64, f32.
+    walls = {torch.float32: [], torch.float64: []}
+    for dtype in (torch.float32, torch.float64, torch.float64, torch.float32):
+        walls[dtype].append(cuda_ms(runs[dtype], n=3, warmup=1))
+    per = {}
+    for dtype, run in runs.items():
+        # Bytes: x and f read once and written once.
+        item = torch.tensor([], dtype=dtype).element_size()
+        bound = 2 * n * (TABLE7_DIM + 1) * item / HBM_BYTES_PER_S * 1e3
+        ms_dev, ops_per, _ = device_ms(run, n=TABLE7_PROFILE_LEVELS, bound_ms=bound)
+        per[dtype] = (ms_dev, ops_per, statistics.median(walls[dtype]))
+    b1_bound = b1_bounds(n, TABLE7_DIM, N)["full"] if TERM_INSTR else (None, "")
+
+    def b1_level():
+        return ops.metropolis_sweep(x32, 10.0, 3, 0, kid=0, n_steps=N, variant="full")
+    b1_dev, _, _ = device_ms(b1_level, n=20, bound_ms=b1_bound[0])
+    b1_entry = kernel_ms(b1_level, "sa_metropolis_sweep")
+
+    def shown(v):
+        return "not measured" if v is None else f"{v:.4f} ms"
+    f32, f64 = per[torch.float32], per[torch.float64]
+    ratio = (f"{f64[0] / f32[0]:.2f}" if f32[0] and f64[0] is not None
+             else "not measured")
+    busy = ", ".join(f"{name} {100 * d[0] / d[2]:.1f}%" if d[0] is not None
+                     else f"{name} not measured" for name, d in (("float32", f32),
+                                                                 ("float64", f64)))
+    log(f"  one level ({n} chains x {N} steps) of the torch sweep: device float32 "
+        f"{shown(f32[0])} ({f32[1]:.0f} device ops), float64 {shown(f64[0])} "
+        f"({f64[1]:.0f} ops), ratio {ratio}; wall (CUDA events) float32 {f32[2]:.4f} ms, "
+        f"float64 {f64[2]:.4f} ms, ratio {f64[2] / f32[2]:.2f}; device busy {busy}; "
+        f"B1 full device {shown(b1_dev)}, C entry (CUDA events) {b1_entry:.4f} ms"
+        + (f" (bound {b1_bound[0]:.4f} ms, {b1_bound[1]})" if b1_bound[0] else ""))
+    total["max_abs_err"] = err
+    return total, rows
+
+
+def temper_spies(weights=False):
+    """Count, while inside, the B1 launches with a per-chain temperature
+    (keeping the inputs of the widest, for a parity check after the run),
+    the PT swaps and passes and the PA rows resampled to another ancestor
+    and passes, from the masks the exchange stages return; with
+    ``weights`` also the largest sum of a pass's quantized PA weights,
+    which recomputes them.  The device counts are read at the end."""
+    from repro_torch.core import exchange as exch
+    from repro_torch.kernels import ops
+    acc = {"pt_swaps": 0, "pt_passes": 0, "pa_rows": 0, "pa_passes": 0,
+           "pa_max_sum": 0, "t_chain_launches": 0, "t_chain_call": None}
+    dev = {k: None for k in ("pt_swaps", "pa_rows", "pa_max_sum")}
+    real = (exch.pt_swap_segmented, exch.pa_resample_segmented, ops.metropolis_sweep_slots)
+
+    def add(name, v, fn=torch.add):
+        dev[name] = v if dev[name] is None else fn(dev[name], v)
+
+    def pt_spy(*a, **kw):
+        x, fx, swap = real[0](*a, **kw)
+        add("pt_swaps", swap.sum())
+        acc["pt_passes"] += 1
+        return x, fx, swap
+
+    def pa_spy(x, fx, fb_seg, seg, seg_lo, seg_hi, dbeta_c, is_pa, u, out=None):
+        if weights:
+            wq = exch.pa_weights(fx, fb_seg, seg, dbeta_c, is_pa)
+            add("pa_max_sum", wq.sum(dtype=torch.int64), torch.maximum)
+        x, fx, anc, take = real[1](x, fx, fb_seg, seg, seg_lo, seg_hi, dbeta_c, is_pa, u,
+                                   out=out)
+        rows = torch.arange(fx.shape[0], device=fx.device)
+        add("pa_rows", (take & (anc != rows)).sum())
+        acc["pa_passes"] += 1
+        return x, fx, anc, take
+
+    def sweep_spy(*a, **kw):
+        if kw.get("T_chain") is not None:
+            acc["t_chain_launches"] += 1
+            kept = acc["t_chain_call"]
+            if kept is None or a[0].shape[0] > kept[0][0].shape[0]:
+                acc["t_chain_call"] = (
+                    [v.clone() if isinstance(v, torch.Tensor) else np.copy(v) for v in a],
+                    {k: v.clone() if isinstance(v, torch.Tensor) else v
+                     for k, v in kw.items() if k != "out"})
+        return real[2](*a, **kw)
+
+    @contextlib.contextmanager
+    def inside():
+        exch.pt_swap_segmented, exch.pa_resample_segmented = pt_spy, pa_spy
+        ops.metropolis_sweep_slots = sweep_spy
+        try:
+            yield acc
+        finally:
+            exch.pt_swap_segmented, exch.pa_resample_segmented, \
+                ops.metropolis_sweep_slots = real
+            for k, v in dev.items():
+                if v is not None:
+                    acc[k] = int(v)
+    return inside()
+
+
+def t_chain_parity(call):
+    """The packed group sweep that ``temper_spies`` kept, B1 with a
+    per-chain temperature as the engine launched it, against its plain
+    version on the same inputs (``compare_sweep``)."""
+    from repro_torch.kernels.metropolis_sweep import (metropolis_sweep_kernel,
+                                                      metropolis_sweep_plain)
+    (x, kids, T, seeds, step0s, chain_base), kw = call
+    x = torch.as_tensor(x, dtype=torch.float32, device=DEV)
+    blk, n_steps, variant = kw["blk"], kw["n_steps"], kw.get("variant", "delta")
+    n = x.shape[0]
+    sweep = dict(kid=kids, blk=blk, variant=variant, chain_base=chain_base,
+                 live=kw.get("live"), t_chain=kw["T_chain"])
+
+    def run(k):
+        out_k = metropolis_sweep_kernel(x, T, seeds, step0s, **sweep, n_steps=k)
+        sync()
+        return out_k, metropolis_sweep_plain(x, T, seeds, step0s, **sweep, n_steps=k)
+    lane = np.tile(np.arange(blk), n // blk)
+    ctl = dict(kid=_per_row(kids, blk, n),
+               T=torch.as_tensor(kw["T_chain"]).cpu().numpy().reshape(-1),
+               seed=_per_row(seeds, blk, n), step0=_per_row(step0s, blk, n),
+               cidx=_per_row(chain_base, blk, n) + lane)
+    dead = None
+    if kw.get("live") is not None:
+        dead = torch.from_numpy(_per_row(kw["live"], blk, n) == 0).to(DEV)
+    return compare_sweep(f"B1 {variant} with t_chain, a packed PT group ({n // blk} slots "
+                         f"x {blk}, dim {x.shape[1]}, {n_steps} steps)",
+                         x, run, ctl, n_steps, variant, dead_rows=dead)
+
+
+def temper_replay(req, res, cfg, what):
+    """``res`` against its standalone run at its admitted width with its
+    recorded external shrinks; the PA self-shrinks must be re-derived."""
+    import dataclasses
+    from repro_torch.service import run_standalone
+    solo_req = req if res.admitted_chains >= req.n_chains else \
+        dataclasses.replace(req, n_chains=res.admitted_chains)
+    solo = run_standalone(solo_req, cfg, shrink_schedule=[
+        (lvl, to) for lvl, _frm, to in res.shrink_events])
+    assert_exact(res, solo, what)
+    check(solo.pa_shrink_events == res.pa_shrink_events,
+          f"{what}: req {req.req_id} PA self-shrinks {res.pa_shrink_events} not re-derived "
+          f"({solo.pa_shrink_events})")
+
+
+def exchange_ops_per_level(cps, device=None):
+    """Top-level torch ops per level inside the engine's exchange
+    (``engine._exchange``), from a torch.profiler trace of one K = 4 tick,
+    for a group of each workload class alone and of all four together.
+    Returns {class: ops per level}."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.service import EngineConfig, SAServeEngine, SARequest
+    from repro_torch.service import engine as eng_mod
+    real = eng_mod._exchange
+
+    def exchange(*a, **kw):
+        with record_function("serving_exchange"):
+            return real(*a, **kw)
+    mixes = {"sa": [{}], "sos": [dict(exchange="sos")], "pt": [dict(method="pt")],
+             "pa": [dict(method="pa")],
+             "all": [{}, dict(exchange="sos"), dict(method="pt"), dict(method="pa")]}
+    out = {}
+    eng_mod._exchange = exchange
+    try:
+        for name, mix in mixes.items():
+            engine = SAServeEngine(EngineConfig(n_slots=4, chains_per_slot=cps, macro_k=4,
+                                                device=device))
+            for i, kw in enumerate(mix):
+                engine.submit(SARequest(req_id=i, seed=100 + i, **{**dict(
+                    objective="rastrigin", dim=4, n_chains=cps, T0=50.0, T_min=1.0,
+                    rho=0.8, N=10), **kw}))
+            engine.tick()
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                engine.tick()
+            spans = [e for e in prof.events() if e.name == "serving_exchange"]
+            ops = sum(1 for e in prof.events() if e.name.startswith("aten::")
+                      and e.cpu_parent is not None and e.cpu_parent.name == "serving_exchange")
+            out[name] = ops / max(len(spans), 1)
+    finally:
+        eng_mod._exchange = real
+    return out
+
+
+def phase13_tempering():
+    """Parallel tempering and population annealing through the serving
+    engine: the mixed load at K = 1 and 4, the reference's preempt /
+    resize / drain scenario at 512 chains per slot, and a pure-PA load on
+    phase 8's pool whose weights sum past the reference's int32 bound."""
+    from repro_torch.service import EngineConfig, SAServeEngine, SARequest
+    from repro_torch.service.serve_sa import make_mix
+    reqs = make_mix(TEMPER_REQUESTS, TEMPER_CFG["chains_per_slot"], seed=0,
+                    method="mixed", family="mixed")
+    by_method = collections.Counter(r.method for r in reqs if r.family == "continuous")
+    log(f"phase 13: PT/PA serving, {len(reqs)} requests of make_mix(method='mixed', "
+        f"family='mixed') (continuous {dict(by_method)}, "
+        f"{sum(r.family == 'permutation' for r in reqs)} QAP SA), EngineConfig({TEMPER_CFG})")
+    warm = SAServeEngine(EngineConfig(**TEMPER_CFG))         # first calls of the ops
+    for r in reqs[:3]:
+        warm.submit(r)
+    warm.run()
+    total = {"b1": 0, "b3": 0}
+
+    def serve(k):
+        engine = SAServeEngine(EngineConfig(**TEMPER_CFG, macro_k=k))
+        for r in reqs:
+            engine.submit(r)
+        steps = time_host_steps(engine)
+        with temper_spies() as spied:
+            sync()
+            read = counted_launches()
+            t0 = time.perf_counter()
+            got = {r.req_id: r for r in engine.run()}
+            sync()
+            wall = time.perf_counter() - t0
+            launches = read()
+        check(len(got) == len(reqs) and all(r.completed for r in got.values()),
+              f"K={k}: not every request completed")
+        check(launches["b1"] > 0 and launches["b3"] > 0 and spied["t_chain_launches"] > 0,
+              f"K={k}: B1 {launches['b1']}, B3 {launches['b3']}, B1 with t_chain "
+              f"{spied['t_chain_launches']}")
+        return engine, got, wall, launches, spied, steps
+
+    counts = {}
+    for k in (1, 4):
+        engine, got, wall, launches, spied, steps = serve(k)
+        counts[k] = spied
+        total["b1"] += launches["b1"]
+        total["b3"] += launches["b3"]
+        pa_shrinks = sum(len(r.pa_shrink_events) for r in got.values())
+        evals = sum(r.n_evals for r in got.values())
+        t1 = time.perf_counter()
+        for req in reqs:
+            res = got[req.req_id]
+            check(np.isfinite(res.f_best) and res.x_best.shape == (req.dim,),
+                  f"K={k}: req {req.req_id} output")
+            temper_replay(req, res, engine.cfg, f"phase 13 K={k}")
+        log(f"  K={k}: wall {wall:.3f} s, {len(got) / wall:.2f} requests/s, "
+            f"{evals / wall:.4e} proposals/s, {engine.tick_count} ticks, "
+            f"{engine.group_launches} group launches; B1 {launches['b1']} launches "
+            f"({spied['t_chain_launches']} with t_chain), B3 {launches['b3']}; PA "
+            f"self-shrinks {pa_shrinks}; all {len(reqs)} champions bit-exact against "
+            f"run_standalone, PA self-shrinks re-derived ({time.perf_counter() - t1:.1f} s)")
+        log(f"  K={k} host steps: {host_steps(steps, wall)}")
+    for k, spied in counts.items():
+        check(spied["pt_swaps"] > 0 and spied["pa_rows"] > 0,
+              f"K={k}: PT swaps {spied['pt_swaps']}, PA resampled rows {spied['pa_rows']}")
+        log(f"  K={k} exchange: PT swaps accepted {spied['pt_swaps']} in "
+            f"{spied['pt_passes']} passes; PA rows resampled to another ancestor "
+            f"{spied['pa_rows']} in {spied['pa_passes']} passes")
+    total["max_abs_err"] = t_chain_parity(counts[4]["t_chain_call"])
+    ops = exchange_ops_per_level(TEMPER_CFG["chains_per_slot"])
+    log("  exchange, top-level torch ops per level by class (one K=4 tick, "
+        "torch.profiler): " + ", ".join(f"{k} {v:.0f}" for k, v in ops.items()))
+    # The reference's test_classes_survive_preempt_resize_drain at 512
+    # chains per slot.
+    cps = TEMPER_CFG["chains_per_slot"]
+    base = dict(dim=4, n_chains=cps, T0=50.0, T_min=1.0, rho=0.8, N=10)
+    mix = [dict(objective="rastrigin", method="pt"),
+           dict(objective="ackley", dim=8, method="pa"),
+           dict(objective="schwefel", exchange="sos"),
+           dict(objective="griewank", n_chains=2 * cps, method="pt"),
+           dict(objective="rastrigin", dim=8)]
+    sreqs = [SARequest(req_id=i, seed=100 + i, **{**base, **kw}) for i, kw in enumerate(mix)]
+    runs = {}
+    for k in (1, 4):
+        cfg = EngineConfig(n_slots=4, chains_per_slot=cps, n_devices=2, macro_k=k)
+        engine = SAServeEngine(cfg)
+        for r in sreqs:
+            engine.submit(r)
+        engine.schedule_op(8, lambda e=engine: e.preempt(0))
+        engine.schedule_op(8, lambda e=engine: e.resize(3))
+        engine.schedule_op(16, lambda e=engine: e.drain(1))
+        runs[k] = {r.req_id: r for r in engine.run()}
+        check(engine.preemptions >= 1 and engine.retired_shards,
+              f"scenario K={k}: the preempt or the drain did not act")
+        for req in sreqs:
+            temper_replay(req, runs[k][req.req_id], cfg, f"scenario K={k}")
+    stamps = ("champion_history", "f_best", "levels_run", "finish_tick", "first_tick")
+    for rid, a in runs[1].items():
+        b = runs[4][rid]
+        check(all(getattr(a, s) == getattr(b, s) for s in stamps)
+              and np.array_equal(a.x_best, b.x_best), f"scenario: req {rid} K=4 != K=1")
+    log(f"  preempt/resize/drain scenario ({len(sreqs)} requests, PT, PA, SOS, sync, "
+        f"{cps} chains per slot): K=4 equals K=1, every result bit-exact against its "
+        f"standalone replay")
+    # A pure-PA load on phase 8's pool, for its first levels: near T0 every
+    # weight is close to the full scale, so the group's prefix sum passes
+    # 2^31 - 1, where the reference's int32 sum would wrap.
+    pcfg = EngineConfig(**SERVE_CFG)
+    preqs = [SARequest(req_id=i, seed=7000 + i, n_chains=pcfg.chains_per_slot,
+                       method="pa", **PA_LOAD) for i in range(pcfg.n_slots)]
+    engine = SAServeEngine(pcfg)
+    for r in preqs:
+        engine.submit(r)
+    with temper_spies(weights=True) as spied:
+        sync()
+        read = counted_launches()
+        t0 = time.perf_counter()
+        pgot = {r.req_id: r for r in engine.run()}
+        sync()
+        wall = time.perf_counter() - t0
+        launches = read()
+    total["b1"] += launches["b1"]
+    check(len(pgot) == len(preqs) and launches["b1"] > 0, "pure-PA load did not complete")
+    check(spied["pa_max_sum"] > 2**31 - 1,
+          f"the PA weights summed to {spied['pa_max_sum']}, not past 2^31 - 1")
+    for req in preqs:
+        temper_replay(req, pgot[req.req_id], pcfg, "pure PA")
+    log(f"  pure PA: {len(preqs)} requests x {pcfg.chains_per_slot} chains in one group "
+        f"({len(preqs) * pcfg.chains_per_slot} chains), {preqs[0].n_levels} levels of "
+        f"{PA_LOAD}, K={pcfg.macro_k}: wall {wall:.3f} s, B1 {launches['b1']} launches; "
+        f"largest prefix sum of the quantized weights {spied['pa_max_sum']} "
+        f"({spied['pa_max_sum'] / (2**31 - 1):.2f} x 2^31 - 1); PA rows resampled "
+        f"{spied['pa_rows']}; every tenant bit-exact against its standalone run")
+    return total
+
+
 def b3_bound(chains, n, n_slots, n_steps=QAP_STEPS):
     """The least time of B3: p read and written once, f and the blocks' F
     and D; two threefry2x32 per move on the integer lanes plus the
@@ -1483,7 +2046,7 @@ def phase_b3_times(gen):
     shown = []
     for steps in (0, 1, 16, QAP_STEPS):
         dev_ms, _, _ = device_ms(lambda: qs.qap_sweep_kernel(*args, **{**kw, "n_steps": steps}),
-                                 n=20)
+                                 n=20, bound_ms=b3_bound(chains, n, n_slots, steps)[0])
         shown.append(f"N={steps} {dev_ms:.4f} ms" if dev_ms is not None
                      else f"N={steps} not measured")
     log("  B3 device time by steps: " + ", ".join(shown))
@@ -1578,7 +2141,7 @@ def against(root, gen):
         with use_lib(lib):
             for name, (fn, entry) in calls.items():
                 k = kernel_ms(fn, entry)
-                dev_ms, _, _ = device_ms(fn, n=20)
+                dev_ms, _, _ = device_ms(fn, n=20, bound_ms=bounds[name][0])
                 b, by = bounds[name]
                 shown = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
                 log(f"  {label} tree {name}: C entry {k:.4f} ms, device {shown}, "
@@ -1724,31 +2287,41 @@ def main(argv=None) -> int:
     phase9_mixed()
     b3 = phase_b3_times(gen)
     elastic_b1, elastic_b3 = phase10_elastic()
+    suite = phase11_suite()
+    table7, _ = phase12_precision(gen)
+    temper = phase13_tempering()
     b1 = dict(route="cuda", source="src/repro_torch/kernels/csrc/metropolis_sweep.cu",
               replaces="src/repro/kernels/metropolis_sweep.py:81", library_ms=None)
     kernels = [
         {"name": "metropolis_sweep_delta", **b1,
          "launches": launches["metropolis_sweep"],
          "launches_by_path": {"phase 3": launches["metropolis_sweep"],
-                              "phase 10": elastic_b1},
-         "max_abs_err": b1_err["delta"],
+                              "phase 10": elastic_b1, "phase 13": temper["b1"]},
+         "max_abs_err": max(b1_err["delta"], temper["max_abs_err"]),
          "ms": t["delta"][0], "wrapper_ms": t["delta"][1], "plain_ms": t["delta"][2],
          "bound_ms": t["delta"][3], "bound_by": t["delta"][4]},
         {"name": "metropolis_sweep_full", **b1,
-         "launches": full_launches, "max_abs_err": b1_err["full"],
+         "launches": full_launches,
+         "launches_by_path": {"phase 4": full_launches, "phase 11": suite["b1"],
+                              "phase 12": table7["b1"]},
+         "max_abs_err": max(b1_err["full"], suite["max_abs_err"], table7["max_abs_err"]),
          "ms": t["full"][0], "wrapper_ms": t["full"][1], "plain_ms": t["full"][2],
          "bound_ms": t["full"][3], "bound_by": t["full"][4]},
         {"name": "argmin_reduce", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/reduce_min.cu",
          "replaces": "src/repro/kernels/reduce_min.py:24",
-         "launches": launches["argmin_reduce"], "max_abs_err": b2_err,
+         "launches": launches["argmin_reduce"],
+         "launches_by_path": {"phase 3": launches["argmin_reduce"],
+                              "phase 11": suite["b2"], "phase 12": table7["b2"]},
+         "max_abs_err": b2_err,
          "ms": t["b2"][0], "wrapper_ms": t["b2"][1], "plain_ms": t["b2"][2],
          "bound_ms": t["b2"][3], "bound_by": "bytes", "library_ms": t["b2"][4]},
         {"name": "qap_sweep", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/qap_sweep.cu",
          "replaces": "src/repro/kernels/qap_sweep.py:165",
          "launches": b3_launches,
-         "launches_by_path": {"phase 8": b3_launches, "phase 10": elastic_b3},
+         "launches_by_path": {"phase 8": b3_launches, "phase 10": elastic_b3,
+                              "phase 13": temper["b3"]},
          "max_abs_err": b3_err,
          "ms": b3[0], "wrapper_ms": b3[1], "plain_ms": b3[2], "bound_ms": b3[3],
          "bound_by": b3[4], "library_ms": None},

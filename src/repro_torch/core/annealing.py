@@ -3,10 +3,18 @@ V2 synchronous, the counterpart of ``repro.core.annealing``.
 
 Where the reference compiles the whole ladder into one XLA program, the
 port runs the paper's CUDA design: a Python loop over temperature levels,
-each level one launch of kernel B1 (the N-step Metropolis sweep of every
-chain), then the exchange and the best-so-far update through kernel B2.
-Nothing in the loop synchronises with the host; the history stays on the
-device and is copied once at the end.
+each level one N-step Metropolis sweep of every chain, then the exchange
+and the best-so-far update.  Nothing in the loop synchronises with the
+host; the history stays on the device and is copied once at the end.
+
+The route of a level is fixed by the objective and ``cfg.dtype``
+(:func:`sweeps_in_kernel`): a float32 objective with a ``kernel_id`` is
+swept by kernel B1 (``full`` or ``delta``) and its champions come from
+kernel B2; any other objective, and every float64 run, is swept by the
+plain ``core/metropolis.py`` (the reference's float64 never reaches a
+Pallas kernel either), float32 champions still through B2 and float64 ones
+through ``torch.argmin``.  No route stands in for another when a kernel
+fails.
 
 The sweep is counter-based (``kernels/rng.py``): level ``lvl`` draws steps
 ``lvl*N .. lvl*N + N-1`` of chain ``c``'s stream under ``cfg.seed``.  The
@@ -25,8 +33,9 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core import exchange as exch
+from repro_torch.core import metropolis
+from repro_torch.core.metropolis import DTYPES
 from repro_torch.kernels import ops
-from repro_torch.kernels.reduce_min import argmin_reduce
 from repro_torch.objectives.base import Objective
 
 
@@ -46,7 +55,7 @@ class SAConfig:
     exchange: str = "sync"      # 'async' (V1) | 'sync' (V2) | 'sos'
     exchange_period: int = 1    # levels between exchanges (1 = every level)
     seed: int = 0
-    dtype: str = "float32"      # only float32 is ported
+    dtype: str = "float32"      # 'float32' | 'float64' (paper Table 7)
     use_delta_eval: bool = False  # beyond-paper O(1) delta evaluation
     record_history: bool = True   # per-level champion trace
     unroll: bool = False          # kept for round trips; no effect
@@ -88,18 +97,34 @@ class LadderState:
     hist: Optional[torch.Tensor]  # (n_levels,) or None
 
 
-def _check_supported(objective: Objective, cfg: SAConfig) -> None:
-    """Raise on what this slice of the port does not run yet."""
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"SAConfig.dtype={cfg.dtype!r} is not ported yet (float32 only)")
-    if objective.kernel_id is None:
-        raise NotImplementedError(
-            f"{objective.name} has no kernel_id: objectives outside the sweep "
-            "kernel's registry are not ported into sa_minimize yet")
+def _check_config(cfg: SAConfig) -> None:
+    if cfg.dtype not in DTYPES:
+        raise ValueError(f"unknown dtype {cfg.dtype!r}; "
+                         f"expected one of {sorted(DTYPES)}")
     if cfg.exchange not in exch.EXCHANGES:
         raise ValueError(f"unknown exchange {cfg.exchange!r}; "
                          f"expected one of {sorted(exch.EXCHANGES)}")
+
+
+def sweeps_in_kernel(objective: Objective, cfg: SAConfig) -> bool:
+    """Whether kernel B1 sweeps the levels: a registry objective
+    (``kernel_id``) in float32.  Otherwise ``core/metropolis.py`` does."""
+    return objective.kernel_id is not None and cfg.dtype == "float32"
+
+
+def _sweep(state: "LadderState", lvl: int, T: float, objective: Objective,
+           cfg: SAConfig):
+    step0 = lvl * cfg.N
+    if sweeps_in_kernel(objective, cfg):
+        return ops.metropolis_sweep(
+            state.x, T, cfg.seed, step0, kid=objective.kernel_id,
+            n_steps=cfg.N, variant="delta" if cfg.use_delta_eval else "full",
+            device=state.x.device)
+    if cfg.use_delta_eval:
+        return metropolis.sweep_delta(state.x, T, cfg.seed, step0,
+                                      objective=objective, n_steps=cfg.N)
+    return metropolis.sweep_full(state.x, state.fx, T, cfg.seed, step0,
+                                 objective=objective, n_steps=cfg.N)
 
 
 def init_state(x0c: torch.Tensor, *, objective: Objective,
@@ -114,10 +139,7 @@ def init_state(x0c: torch.Tensor, *, objective: Objective,
 def level_step(state: LadderState, lvl: int, T: float, *,
                objective: Objective, cfg: SAConfig) -> LadderState:
     """One temperature level: sweep of length N, exchange, best-so-far."""
-    x, fx = ops.metropolis_sweep(
-        state.x, T, cfg.seed, lvl * cfg.N, kid=objective.kernel_id,
-        n_steps=cfg.N, variant="delta" if cfg.use_delta_eval else "full",
-        device=state.x.device)
+    x, fx = _sweep(state, lvl, T, objective, cfg)
     if cfg.exchange != "async" and lvl % cfg.exchange_period == 0:
         x, fx = exch.EXCHANGES[cfg.exchange](x, fx, T, seed=cfg.seed, lvl=lvl)
     xb, fb = exch.local_champion(x, fx)
@@ -133,8 +155,8 @@ def run_ladder(x0c: torch.Tensor, *, objective: Objective, cfg: SAConfig):
     """Run the whole ladder from per-chain states ``x0c`` (chains, dim).
 
     Returns (best_x (dim,), best_f 0-d, hist (n_levels,) or None), all on
-    x0c's device."""
-    _check_supported(objective, cfg)
+    x0c's device.  ``cfg`` is taken as :func:`sa_minimize` has checked
+    it."""
     state = init_state(x0c, objective=objective, cfg=cfg)
     for lvl, T in enumerate(cfg.ladder().tolist()):
         state = level_step(state, lvl, T, objective=objective, cfg=cfg)
@@ -142,7 +164,7 @@ def run_ladder(x0c: torch.Tensor, *, objective: Objective, cfg: SAConfig):
     # V1's reduceMin; a refinement no-op for V2).
     n = state.fx.shape[0]
     fa = torch.cat([state.fx, state.best_f.reshape(1)])
-    fb, j = argmin_reduce(fa)
+    fb, j = exch.champion_index(fa)
     xa = state.x.index_select(0, torch.clamp(j, max=n - 1).reshape(1).long())[0]
     best_x = torch.where(j == n, state.best_x, xa)
     return best_x, fb, state.hist
@@ -151,7 +173,7 @@ def run_ladder(x0c: torch.Tensor, *, objective: Objective, cfg: SAConfig):
 def sa_minimize(objective: Objective, cfg: SAConfig, x0=None, *,
                 device=None, mesh=None, mesh_axes=None) -> SAResult:
     """Minimize ``objective`` with parallel SA on ``device`` (default: the
-    card).
+    card), in ``cfg.dtype``.
 
     Without ``x0`` the chains start uniform over the box, drawn from a
     ``torch.Generator`` on the device seeded with ``cfg.seed``; a given
@@ -160,13 +182,15 @@ def sa_minimize(objective: Objective, cfg: SAConfig, x0=None, *,
         raise NotImplementedError(
             "sa_minimize(mesh=...): the sharded ladder "
             "(build_sharded_ladder) is not ported yet")
+    _check_config(cfg)
     dev = resolve_device(device)
+    dtype = DTYPES[cfg.dtype]
     if x0 is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(cfg.seed)
-        x0c = objective.sample_uniform(gen, (cfg.n_chains,))
+        x0c = objective.sample_uniform(gen, (cfg.n_chains,), dtype)
     else:
-        x0c = torch.as_tensor(x0, dtype=torch.float32, device=dev).reshape(
+        x0c = torch.as_tensor(x0, dtype=dtype, device=dev).reshape(
             1, objective.dim).expand(cfg.n_chains, objective.dim).contiguous()
     best_x, best_f, hist = run_ladder(x0c, objective=objective, cfg=cfg)
     return SAResult(

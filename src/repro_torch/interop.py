@@ -14,6 +14,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.annealing import SAConfig
+from repro_torch.objectives import SUITE
 from repro_torch.objectives import functions as F
 from repro_torch.objectives.base import Objective
 from repro_torch.service.engine import EngineConfig
@@ -60,22 +61,30 @@ def engine_config_from_dict(d: dict, device=None) -> EngineConfig:
                       drop=("use_pallas", "interpret"))
 
 
-def objective_from_ref(name: str, dim: int) -> Objective:
-    """The port's registry objective ``name`` (``"schwefel"``, ...) at
-    ``dim``: same kernel_id, box, f_opt and x_opt as the reference's."""
-    try:
+def objective_from_ref(name: str, dim: int = None) -> Objective:
+    """The port's objective for a reference name: a paper suite key
+    (``"F2"``, ``"F0_b"``, ...; ``dim`` omitted) or a registry objective
+    at ``dim`` (``"schwefel", 16``).  Same box, f_opt, x_opt, decomposable
+    structure and kernel_id as the reference's."""
+    if name in SUITE:
+        obj = SUITE[name]()
+        if dim is not None and dim != obj.dim:
+            raise ValueError(f"suite problem {name} has dim {obj.dim}, "
+                             f"not {dim}")
+        return obj
+    if name in _BY_NAME and dim is not None:
         return _BY_NAME[name](dim)
-    except KeyError:
-        raise ValueError(f"{name!r} is not a registry objective; "
-                         f"expected one of {sorted(_BY_NAME)}") from None
+    raise ValueError(f"{name!r} is not a registry objective with a dim nor "
+                     f"a suite key; expected one of {sorted(_BY_NAME)} with "
+                     "a dim, or a key of SUITE")
 
 
-def chains_from_numpy(x, fx, device=None):
-    """(chains, dim) states and (chains,) values -> float32 tensors on
-    ``device`` (default: the card)."""
+def chains_from_numpy(x, fx, device=None, dtype=torch.float32):
+    """(chains, dim) states and (chains,) values -> tensors of ``dtype``
+    on ``device`` (default: the card)."""
     dev = resolve_device(device)
-    return (torch.as_tensor(np.asarray(x, np.float32), device=dev),
-            torch.as_tensor(np.asarray(fx, np.float32), device=dev))
+    return (torch.as_tensor(np.asarray(x), dtype=dtype, device=dev),
+            torch.as_tensor(np.asarray(fx), dtype=dtype, device=dev))
 
 
 def chains_to_numpy(x, fx):

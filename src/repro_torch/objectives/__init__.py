@@ -2,10 +2,10 @@
 the counterpart of ``repro.objectives``."""
 from __future__ import annotations
 
-from .base import Objective
+from .base import DecomposableSpec, Objective
 from . import functions as F
 
-__all__ = ["Objective", "get", "SUITE", "suite_objectives"]
+__all__ = ["Objective", "DecomposableSpec", "get", "SUITE", "suite_objectives"]
 
 # Paper Table 8 — reference id -> factory call.
 SUITE = {

@@ -2,8 +2,10 @@
 problem instances, the counterpart of ``repro.objectives.functions``.
 
 Each factory returns an :class:`Objective` whose ``fn`` computes the same
-expression as the reference, in float32 on the tensor's device.  Data
-tables (ICEO, Shekel) are copied from the reference.
+expression as the reference, in the tensor's dtype on its device.  Where
+the reference attaches a :class:`DecomposableSpec` (the nine decomposable
+objectives) the port attaches the same one, for the O(1) delta sweep.
+Data tables (ICEO, Shekel) are copied from the reference.
 
 Notes (as in the reference)
 ---------------------------
@@ -15,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .base import Objective, box
+from .base import DecomposableSpec, Objective, box
 
 _E = float(np.e)
 _PI = float(np.pi)
@@ -30,6 +32,11 @@ def _index1(n, x):
     return torch.arange(1, n + 1, device=x.device).to(x.dtype)
 
 
+def _no_terms(x):
+    """An empty sum or product term vector (..., 0)."""
+    return x.new_zeros(x.shape + (0,))
+
+
 # ---------------------------------------------------------------- F0 Schwefel
 def schwefel(n: int) -> Objective:
     """Normalized Schwefel: f(x) = -(1/n) Σ x_i sin(√|x_i|), x ∈ [-512,512]^n."""
@@ -37,10 +44,20 @@ def schwefel(n: int) -> Objective:
     def fn(x):
         return -torch.mean(x * torch.sin(torch.sqrt(torch.abs(x))), dim=-1)
 
+    spec = DecomposableSpec(
+        n_sum=1,
+        n_prod=0,
+        terms=lambda x, i: (
+            (x * torch.sin(torch.sqrt(torch.abs(x))))[..., None],
+            _no_terms(x),
+        ),
+        combine=lambda S, P, n: -S[..., 0] / n,
+    )
     lo, hi = box(-512.0, 512.0, n)
     return Objective(
         name=f"schwefel_{n}", dim=n, lower=lo, upper=hi, fn=fn,
-        f_opt=-418.982887, x_opt=np.full((n,), 420.968746), kernel_id=0,
+        f_opt=-418.982887, x_opt=np.full((n,), 420.968746),
+        decomposable=spec, kernel_id=0,
     )
 
 
@@ -51,10 +68,22 @@ def ackley(n: int) -> Objective:
         s2 = torch.mean(torch.cos(2 * _PI * x), dim=-1)
         return -20.0 * torch.exp(-0.2 * torch.sqrt(s1)) - torch.exp(s2) + 20.0 + _E
 
+    spec = DecomposableSpec(
+        n_sum=2,
+        n_prod=0,
+        terms=lambda x, i: (
+            torch.stack([x * x, torch.cos(2 * _PI * x)], dim=-1),
+            _no_terms(x),
+        ),
+        combine=lambda S, P, n: (
+            -20.0 * torch.exp(-0.2 * torch.sqrt(S[..., 0] / n))
+            - torch.exp(S[..., 1] / n) + 20.0 + _E
+        ),
+    )
     lo, hi = box(-30.0, 30.0, n)
     return Objective(
         name=f"ackley_{n}", dim=n, lower=lo, upper=hi, fn=fn,
-        f_opt=0.0, x_opt=np.zeros((n,)), kernel_id=2,
+        f_opt=0.0, x_opt=np.zeros((n,)), decomposable=spec, kernel_id=2,
     )
 
 
@@ -78,10 +107,19 @@ def cosine_mixture(n: int) -> Objective:
         return (-0.1 * torch.sum(torch.cos(5 * _PI * x), dim=-1)
                 + torch.sum(x * x, dim=-1))
 
+    spec = DecomposableSpec(
+        n_sum=2,
+        n_prod=0,
+        terms=lambda x, i: (
+            torch.stack([torch.cos(5 * _PI * x), x * x], dim=-1),
+            _no_terms(x),
+        ),
+        combine=lambda S, P, n: -0.1 * S[..., 0] + S[..., 1],
+    )
     lo, hi = box(-1.0, 1.0, n)
     return Objective(
         name=f"cosine_{n}", dim=n, lower=lo, upper=hi, fn=fn,
-        f_opt=-0.1 * n, x_opt=np.zeros((n,)),
+        f_opt=-0.1 * n, x_opt=np.zeros((n,)), decomposable=spec,
     )
 
 
@@ -118,10 +156,16 @@ def exponential(n: int = 4) -> Objective:
     def fn(x):
         return -torch.exp(-0.5 * torch.sum(x * x, dim=-1))
 
+    spec = DecomposableSpec(
+        n_sum=1,
+        n_prod=0,
+        terms=lambda x, i: ((x * x)[..., None], _no_terms(x)),
+        combine=lambda S, P, n: -torch.exp(-0.5 * S[..., 0]),
+    )
     lo, hi = box(-1.0, 1.0, n)
     return Objective(
         name=f"exponential_{n}", dim=n, lower=lo, upper=hi, fn=fn,
-        f_opt=-1.0, x_opt=np.zeros((n,)), kernel_id=4,
+        f_opt=-1.0, x_opt=np.zeros((n,)), decomposable=spec, kernel_id=4,
     )
 
 
@@ -151,10 +195,19 @@ def griewank(n: int) -> Objective:
         p = torch.prod(torch.cos(x / torch.sqrt(_index1(n, x))), dim=-1)
         return 1.0 + s - p
 
+    spec = DecomposableSpec(
+        n_sum=1,
+        n_prod=1,
+        terms=lambda x, i: (
+            (x * x / 4000.0)[..., None],
+            torch.cos(x / torch.sqrt(i.to(x.dtype) + 1.0))[..., None],
+        ),
+        combine=lambda S, P, n: 1.0 + S[..., 0] - P[..., 0],
+    )
     lo, hi = box(-600.0, 600.0, n)
     return Objective(
         name=f"griewank_{n}", dim=n, lower=lo, upper=hi, fn=fn,
-        f_opt=0.0, x_opt=np.zeros((n,)), kernel_id=3,
+        f_opt=0.0, x_opt=np.zeros((n,)), decomposable=spec, kernel_id=3,
     )
 
 
@@ -254,11 +307,21 @@ def michalewicz(n: int, m: int = 10) -> Objective:
         i = _index1(n, x)
         return -torch.sum(torch.sin(x) * torch.sin(i * x * x / _PI) ** (2 * m), dim=-1)
 
+    spec = DecomposableSpec(
+        n_sum=1,
+        n_prod=0,
+        terms=lambda x, i: (
+            (torch.sin(x) * torch.sin((i.to(x.dtype) + 1.0) * x * x / _PI)
+             ** (2 * m))[..., None],
+            _no_terms(x),
+        ),
+        combine=lambda S, P, n: -S[..., 0],
+    )
     lo, hi = box(0.0, _PI, n)
     f_opt = {2: -1.8013, 5: -4.6877, 10: -9.6602}.get(n)
     return Objective(
         name=f"michalewicz_{n}", dim=n, lower=lo, upper=hi, fn=fn,
-        f_opt=f_opt, x_opt=None,
+        f_opt=f_opt, x_opt=None, decomposable=spec,
     )
 
 
@@ -267,10 +330,19 @@ def rastrigin(n: int) -> Objective:
     def fn(x):
         return 10.0 * n + torch.sum(x * x - 10.0 * torch.cos(2 * _PI * x), dim=-1)
 
+    spec = DecomposableSpec(
+        n_sum=1,
+        n_prod=0,
+        terms=lambda x, i: (
+            (x * x - 10.0 * torch.cos(2 * _PI * x))[..., None],
+            _no_terms(x),
+        ),
+        combine=lambda S, P, n: 10.0 * n + S[..., 0],
+    )
     lo, hi = box(-5.12, 5.12, n)
     return Objective(
         name=f"rastrigin_{n}", dim=n, lower=lo, upper=hi, fn=fn,
-        f_opt=0.0, x_opt=np.zeros((n,)), kernel_id=1,
+        f_opt=0.0, x_opt=np.zeros((n,)), decomposable=spec, kernel_id=1,
     )
 
 
@@ -295,10 +367,19 @@ def salomon(n: int = 10) -> Objective:
         r = torch.sqrt(torch.sum(x * x, dim=-1))
         return 1.0 - torch.cos(2 * _PI * r) + 0.1 * r
 
+    spec = DecomposableSpec(
+        n_sum=1,
+        n_prod=0,
+        terms=lambda x, i: ((x * x)[..., None], _no_terms(x)),
+        combine=lambda S, P, n: (
+            1.0 - torch.cos(2 * _PI * torch.sqrt(S[..., 0]))
+            + 0.1 * torch.sqrt(S[..., 0])
+        ),
+    )
     lo, hi = box(-100.0, 100.0, n)
     return Objective(
         name=f"salomon_{n}", dim=n, lower=lo, upper=hi, fn=fn,
-        f_opt=0.0, x_opt=np.zeros((n,)), kernel_id=5,
+        f_opt=0.0, x_opt=np.zeros((n,)), decomposable=spec, kernel_id=5,
     )
 
 
@@ -322,16 +403,25 @@ def six_hump_camel() -> Objective:
 
 # ---------------------------------------------------------------- F17 Shubert
 def shubert(n: int = 2) -> Objective:
-    def fn(x):
-        j = torch.arange(1, 6, device=x.device).to(x.dtype)
-        inner = torch.sum(j * torch.cos((j + 1.0) * x[..., None] + j), dim=-1)
-        return torch.prod(inner, dim=-1)
+    def inner(xi):
+        j = torch.arange(1, 6, device=xi.device).to(xi.dtype)
+        return torch.sum(j * torch.cos((j + 1.0) * xi[..., None] + j), dim=-1)
 
+    def fn(x):
+        return torch.prod(inner(x), dim=-1)
+
+    spec = DecomposableSpec(
+        n_sum=0,
+        n_prod=1,
+        terms=lambda x, i: (_no_terms(x), inner(x)[..., None]),
+        combine=lambda S, P, n: P[..., 0],
+    )
     lo, hi = box(-10.0, 10.0, n)
     return Objective(
         name=f"shubert_{n}", dim=n, lower=lo, upper=hi, fn=fn,
         f_opt=-186.7309 if n == 2 else None,
         x_opt=np.array([-7.0835, 4.8580]) if n == 2 else None,
+        decomposable=spec,
     )
 
 

@@ -59,9 +59,23 @@ The elastic half, as the reference's:
   ticking, and scripted operations (:meth:`SAServeEngine.schedule_op`)
   land on their tick; no decision reads the wall clock.
 
-Not ported yet, each raising ``NotImplementedError``: parallel tempering
-and population annealing requests, the autoscaler hook and enabled
-telemetry.
+The replica-exchange workload classes, as the reference's:
+
+* A parallel-tempering (``pt``) request's chains each hold one rung of its
+  temperature ladder (``SARequest.pt_rungs``, computed once on the host):
+  kernel B1 sweeps them at their rung (``t_chain``), and after the
+  exchange an even/odd swap pass alternates parity with the job's level.
+  Partners are packed rows, so the device pass is a gather.  A PT job's
+  width is its ladder's resolution: it is never shrunk mid-flight.
+* A population-annealing (``pa``) request's chains are resampled from
+  their own request's rows at each level transition; with
+  ``pa_ess_ratio > 0`` the job halves its own width when the effective
+  sample size of the next reweighting falls below that share, from its
+  post-exchange f read back at the boundary.  A standalone run re-derives
+  those shrinks (``RequestResult.pa_shrink_events``).
+
+Not ported yet, each raising ``NotImplementedError``: the autoscaler hook
+and enabled telemetry.
 """
 from __future__ import annotations
 
@@ -140,13 +154,29 @@ class _GroupControls:
     base: torch.Tensor          # (n_blocks,) global chain-index base
     seg: torch.Tensor           # (chains,) segment (request) id
     adopt: torch.Tensor         # (chains,) bool: sync adoption
-    is_sos: Optional[torch.Tensor]  # (chains,) bool, None if no SOS chain
+    # Each class's masks and operands are None when the group has no
+    # chain of that class, so its stage is skipped (and a group of plain
+    # chains uploads no class codes at all).
+    is_sos: Optional[torch.Tensor]    # (chains,) bool
+    is_pt: Optional[torch.Tensor]     # (chains,) bool
+    t_rung: Optional[torch.Tensor]    # (chains,) float32 PT rung
+    partner: Optional[torch.Tensor]   # (2, chains) int32 packed partner
+                                      # row, row j at parity level + j
+    pairlo: Optional[torch.Tensor]    # (2, chains) lower logical rung
+    is_pa: Optional[torch.Tensor]     # (chains,) bool
+    seg_lo: Optional[torch.Tensor]    # (chains,) int32 PA request rows
+    seg_hi: Optional[torch.Tensor]    #   [seg_lo, seg_hi)
+    dbeta: Optional[torch.Tensor]     # (k, n_blocks) float32 PA increment
+
+    @property
+    def replicas(self) -> bool:
+        return self.is_pt is not None or self.is_pa is not None
 
 
 def _chain_controls(T_blk, seed_blk, base_blk, lvl0, blk: int):
-    """Expand per-block controls to the per-chain arrays the SOS stage of
-    the exchange consumes: the schedule temperature, the request seed, the
-    logical chain index and the absolute ladder level."""
+    """Expand per-block controls to the per-chain arrays the SOS, PT and
+    PA stages of the exchange consume: the schedule temperature, the
+    request seed, the logical chain index and the absolute ladder level."""
     lane = torch.arange(blk, device=T_blk.device).repeat(T_blk.shape[0])
     sched = T_blk.repeat_interleave(blk)
     seed_c = seed_blk.repeat_interleave(blk)
@@ -155,27 +185,47 @@ def _chain_controls(T_blk, seed_blk, base_blk, lvl0, blk: int):
     return sched, seed_c, cidx, lvl_abs
 
 
+def _t_chain(ctl: _GroupControls, i: int, blk: int):
+    """Level ``i``'s per-chain sweep temperature when the group holds PT
+    chains (each at its rung, the rest at their block's ladder value),
+    else None: B1 then reads the per-block temperature."""
+    if ctl.is_pt is None:
+        return None
+    return torch.where(ctl.is_pt, ctl.t_rung, ctl.T[i].repeat_interleave(blk))
+
+
 def _exchange(x, fx, ctl: _GroupControls, i: int, live_c, blk: int,
               num_segments: int, out=None):
-    sos = (None,) * 4 if ctl.is_sos is None else _chain_controls(
-        ctl.T[i], ctl.seed, ctl.base, ctl.lvl[i], blk)
+    per_chain = (None,) * 4
+    if ctl.is_sos is not None or ctl.replicas:
+        per_chain = _chain_controls(ctl.T[i], ctl.seed, ctl.base, ctl.lvl[i],
+                                    blk)
+    pt = pa = None
+    if ctl.is_pt is not None:
+        pt = (ctl.t_rung, ctl.partner[i % 2], ctl.pairlo[i % 2],
+              ctl.is_pt & live_c)
+    if ctl.is_pa is not None:
+        pa = (ctl.seg_lo, ctl.seg_hi, ctl.dbeta[i].repeat_interleave(blk),
+              ctl.is_pa & live_c)
     return exch._serving_exchange(x, fx, ctl.seg, num_segments, ctl.adopt,
-                                  ctl.is_sos, *sos, live_c, out=out)
+                                  ctl.is_sos, *per_chain, live_c, pt=pt,
+                                  pa=pa, out=out)
 
 
 def _group_tick(x, sweep, ctl: _GroupControls, *, blk: int,
                 num_segments: int):
     """One temperature level for one dispatch group: ``sweep`` (kernel B1
-    or B3 over every block at its own temperature and step cursor), then
-    the segmented exchange.  Returns (x, fx, xb, fb), the champions of
+    or B3 over every block at its own temperature and step cursor, PT
+    chains at their rungs), then the segmented exchange.  Returns (x, fx,
+    xb, fb): the post-exchange states and values and the champions of
     every segment."""
-    x, fx = sweep(x, ctl.T[0], ctl.step0[0], None, None)
+    x, fx = sweep(x, ctl.T[0], ctl.step0[0], None, None, _t_chain(ctl, 0, blk))
     live = torch.ones(fx.shape, dtype=torch.bool, device=fx.device)
     return _exchange(x, fx, ctl, 0, live, blk, num_segments)
 
 
 def _group_tick_fused(x, spare, sweep, ctl: _GroupControls, *, k: int,
-                      blk: int, num_segments: int):
+                      blk: int, num_segments: int, keep_fx: bool = False):
     """K temperature levels for one dispatch group, with no host
     synchronisation: exactly the :func:`_group_tick` body K times, so each
     level computes what K separate ticks would.
@@ -185,21 +235,28 @@ def _group_tick_fused(x, spare, sweep, ctl: _GroupControls, *, k: int,
     its adoption back into ``x``, so the state ends in ``x`` with no copy
     and no allocation of its size.  A block whose request has fewer than
     K planned levels goes dead (``ctl.live``): the kernel passes its state
-    through and the exchange leaves its chains alone.  Returns the
-    champions ``(k, num_segments, dim + 1)`` float32 on the card: each
-    level's champion states, bit-cast to float32, and their values in the
-    last column."""
+    through and the exchange leaves its chains alone.  Returns (champ,
+    fx_keep): the champions ``(k, num_segments, dim + 1)`` float32 on the
+    card (each level's champion states, bit-cast to float32, and their
+    values in the last column) and, with ``keep_fx``, each chain's
+    post-exchange value at its last live level (the PA width controller
+    reads it), else None."""
     dim = x.shape[1]
     champ = torch.empty((k, num_segments, dim + 1), dtype=torch.float32,
                         device=x.device)
+    fx_keep = None
     for i in range(k):
-        swept, fx = sweep(x, ctl.T[i], ctl.step0[i], ctl.live[i], spare)
+        swept, fx = sweep(x, ctl.T[i], ctl.step0[i], ctl.live[i], spare,
+                          _t_chain(ctl, i, blk))
         live_c = ctl.live[i].repeat_interleave(blk) != 0
-        _, _, xb, fb = _exchange(swept, fx, ctl, i, live_c, blk,
-                                 num_segments, out=x)
+        _, fx, xb, fb = _exchange(swept, fx, ctl, i, live_c, blk,
+                                  num_segments, out=x)
         champ[i, :, :dim] = xb.view(torch.float32)
         champ[i, :, dim] = fb
-    return champ
+        if keep_fx:
+            fx_keep = fx if fx_keep is None else torch.where(live_c, fx,
+                                                             fx_keep)
+    return champ, fx_keep
 
 
 def _upload(arrays: Dict[str, np.ndarray], device: torch.device):
@@ -263,8 +320,6 @@ class SAServeEngine:
         """Enqueue ``req``.  ``arrival_time`` (in ticks, may be fractional)
         is the offered-load timestamp of open-loop runs; it defaults to the
         submit tick."""
-        if req.method != "sa":
-            raise _not_ported(f"method {req.method!r}")
         need = req.slots_needed(self.cfg.chains_per_slot)
         if need > self.cfg.n_slots:
             raise ValueError(
@@ -476,15 +531,20 @@ class SAServeEngine:
         return False
 
     # -------------------------------------------------------- elastic fleet
-    def _record_shrink(self, job: ActiveJob, from_chains: int) -> None:
+    def _record_shrink(self, job: ActiveJob, from_chains: int,
+                       self_driven: bool = False) -> None:
+        """Record a width cut.  A PA job's own ESS shrink goes to
+        ``pa_shrink_events``: a standalone run re-derives it from the same
+        f stream, so it must not be replayed as an external schedule."""
         job.granted_chains = len(job.slots) * self.cfg.chains_per_slot
         job.shrunk_ticks.append(self.tick_count)
-        job.shrink_events.append((job.level, from_chains,
-                                  job.granted_chains))
+        event = (job.level, from_chains, job.granted_chains)
+        (job.pa_shrink_events if self_driven else job.shrink_events).append(
+            event)
         self.shrinks += 1
 
-    def _shrink_job(self, shard: EngineShard, rid: int,
-                    keep_slots: int) -> None:
+    def _shrink_job(self, shard: EngineShard, rid: int, keep_slots: int,
+                    self_driven: bool = False) -> None:
         """Degrade in place: checkpoint, drop the tail blocks, restore
         ``keep_slots`` blocks on the same shard.  The surviving chains
         keep logical indices [0, keep_slots * cps), so only the width
@@ -497,16 +557,17 @@ class SAServeEngine:
         from_chains = job.granted_chains
         blocks = self._checkpoint_release(shard, rid, keep_slots)
         job.slots = shard.pool.restore(rid, blocks)
-        self._record_shrink(job, from_chains)
+        self._record_shrink(job, from_chains, self_driven=self_driven)
 
     def degrade_active(self, req_id: int, n_chains: int) -> bool:
         """Shrink the running request ``req_id`` to ``n_chains`` chains
-        (rounded up to whole slots).  False if it is not active or already
-        at or below that width."""
+        (rounded up to whole slots).  False if it is not active, already at
+        or below that width, or a parallel-tempering job (its width is its
+        temperature ladder's resolution; the scheduler skips PT too)."""
         slots_new = max(1, -(-n_chains // self.cfg.chains_per_slot))
         for shard, job in self._iter_jobs():
             if job.req.req_id == req_id:
-                if slots_new >= len(job.slots):
+                if slots_new >= len(job.slots) or job.req.method == "pt":
                     return False
                 self._shrink_job(shard, job.rid, slots_new)
                 return True
@@ -665,8 +726,38 @@ class SAServeEngine:
             granted_chains=0, home_shard=-1))
         self.rejections += 1
 
-    def _maybe_pa_shrink(self, shard, job, fx_job) -> None:
-        raise _not_ported("population annealing")
+    def _maybe_pa_shrink(self, shard: EngineShard, job: ActiveJob,
+                         fx_job: np.ndarray) -> None:
+        """Population annealing's own width controller, at a boundary:
+        estimate the effective sample size of the job's population under
+        the next level transition's reweighting (``job.T`` has advanced,
+        so the increment is ``1/(T rho) - 1/T``) and halve the job's slots
+        when ``ESS / width`` falls below ``pa_ess_ratio``.  A function of
+        the job's own bit-exact f stream in float64 host math, so a
+        standalone run re-derives every such shrink at the same level."""
+        req = job.req
+        if req.method != "pa" or len(job.slots) <= 1:
+            return
+        db = _pa_dbeta(job.T, req.rho)
+        w = np.exp(-db * (fx_job.astype(np.float64) - float(fx_job.min())))
+        ess = float(w.sum()) ** 2 / float((w * w).sum())
+        if ess / fx_job.shape[0] < req.pa_ess_ratio:
+            self._shrink_job(shard, job.rid, max(1, len(job.slots) // 2),
+                             self_driven=True)
+
+    def _pa_shrinks(self, shard: EngineShard, jobs: List[ActiveJob],
+                    fx: Optional[np.ndarray], finished) -> None:
+        """Run the PA width controller of each unfinished job of a group,
+        on its rows of the group's post-exchange values ``fx``."""
+        if fx is None:
+            return
+        done = {id(job) for _, job, _, _ in finished}
+        row0 = 0
+        for job in jobs:
+            rows = slice(row0, row0 + job.granted_chains)
+            row0 += job.granted_chains
+            if id(job) not in done:
+                self._maybe_pa_shrink(shard, job, fx[rows])
 
     # ---------------------------------------------------------------- tick
     def tick(self) -> None:
@@ -757,9 +848,10 @@ class SAServeEngine:
         reference does at K = 1) and its champions; advance its jobs one
         level.  Returns the finished ``(shard, job, reason, tick)``."""
         cps = self.cfg.chains_per_slot
-        x2, fb, xb = outs
+        x2, fx, fb, xb = outs
         x2 = x2.cpu().numpy()
         fb, xb = fb.cpu().numpy(), xb.cpu().numpy()
+        fxh = fx.cpu().numpy() if self._needs_fx(jobs) else None
         for b, (s, _job) in enumerate(slot_list):
             # Copy: a bare slice would alias the whole padded buffer.
             shard.pool.set_block(s, x2[b * cps:(b + 1) * cps].copy())
@@ -772,10 +864,17 @@ class SAServeEngine:
                                       float(fb[job.rid]), xb[job.rid])
             if reason is not None:
                 finished.append((shard, job, reason, self.tick_count))
+        self._pa_shrinks(shard, jobs, fxh, finished)
         return finished
 
+    @staticmethod
+    def _needs_fx(jobs: List[ActiveJob]) -> bool:
+        """Whether the group's post-exchange f must come to the host: a
+        PA job with the ESS controller on."""
+        return any(j.req.pa_ess_ratio > 0 for j in jobs)
+
     def _collect_group_fused(self, shard: EngineShard, n_steps: int,
-                             jobs: List[ActiveJob], slot_list, champ,
+                             jobs: List[ActiveJob], slot_list, outs,
                              planned: Dict[int, int]):
         """Fold one macro-tick's per-level champions on the host (the
         chain state stays on the card).  Each job counts its levels as K
@@ -783,7 +882,9 @@ class SAServeEngine:
         is boundary + counted - 1.  Returns (finished, most levels any job
         consumed)."""
         boundary = self.tick_count
+        champ, fx_keep = outs
         fb_all, xb_all = self._champions(champ, jobs[0].req.state_dtype)
+        fxh = None if fx_keep is None else fx_keep.cpu().numpy()
         finished = []
         max_counted = 1
         for job in jobs:
@@ -802,6 +903,7 @@ class SAServeEngine:
             max_counted = max(max_counted, counted)
             if reason is not None:
                 finished.append((shard, job, reason, boundary + counted - 1))
+        self._pa_shrinks(shard, jobs, fxh, finished)
         return finished, max_counted
 
     def _pack(self, shard: EngineShard, family: str, dim: int, n_steps: int,
@@ -834,9 +936,9 @@ class SAServeEngine:
         a["base"] = np.empty((n_padded,), np.uint32)
         a["seg"] = np.empty((n_padded * cps,), np.int32)
         a["adopt"] = np.zeros((n_padded * cps,), np.int32)
-        # The reference's per-chain class codes reduce to the SOS mask here:
-        # parallel tempering and population annealing are not ported.
-        a["is_sos"] = np.zeros((n_padded * cps,), np.int32)
+        methods = {job.req.method for job in jobs}
+        if "pa" in methods:
+            a["dbeta"] = np.zeros((k, n_padded), np.float32)
         for b, (s, job) in enumerate(slot_list):
             req = job.req
             if is_qap:
@@ -850,6 +952,8 @@ class SAServeEngine:
                 # float64 iteration, float32 per level: identical to K
                 # ticks' pack-then-advance of the float ``job.T`` cursor.
                 a["T"][i, b] = t
+                if req.method == "pa":
+                    a["dbeta"][i, b] = _pa_dbeta(t, req.rho)
                 t *= req.rho
                 a["step0"][i, b] = (job.steps_done + i * n_steps) & rng.MASK32
                 a["lvl"][i, b] = (job.level + i) & rng.MASK32
@@ -858,8 +962,9 @@ class SAServeEngine:
             a["seed"][b] = req.seed & rng.MASK32
             a["base"][b] = shard.pool.chain_base[s]
             a["seg"][b * cps:(b + 1) * cps] = job.rid
-            a["adopt"][b * cps:(b + 1) * cps] = req.exchange == "sync"
-            a["is_sos"][b * cps:(b + 1) * cps] = req.exchange == "sos"
+            a["adopt"][b * cps:(b + 1) * cps] = (req.method == "sa"
+                                                 and req.exchange == "sync")
+        a.update(self._pack_class_controls(jobs, n_padded))
         # Pad blocks replicate block 0, claim the reserved segment n_slots
         # and never adopt; in the fused path they are dead.
         for b in range(n_blocks, n_padded):
@@ -875,38 +980,92 @@ class SAServeEngine:
             a["seed"][b] = a["seed"][0]
             a["base"][b] = a["base"][0]
             a["seg"][b * cps:(b + 1) * cps] = self.cfg.n_slots
-        if not a["is_sos"].any():
-            del a["is_sos"]   # the SOS stage is skipped, not masked off
         return slot_list, n_padded, a
 
-    def _controls(self, d: Dict[str, torch.Tensor]) -> _GroupControls:
+    def _pack_class_controls(self, jobs: List[ActiveJob], n_padded: int):
+        """Per-chain workload-class arrays of one packed group.
+
+        A request's chains are contiguous in the packed buffer in logical
+        order, so PT partner rows and PA row ranges are offsets from its
+        first row.  Only the operands of the classes present are built;
+        defaults are the identity of every stage (plain code, self
+        partner, self range), so pads and other tenants pass through bit
+        for bit.  Partner row ``j`` holds each PT chain's partner at the
+        parity of its job's ``level + j``: the fused loop's level ``i``
+        reads row ``i % 2``."""
+        nc = n_padded * self.cfg.chains_per_slot
+        rows = np.arange(nc, dtype=np.int32)
+        a = {"mcode": np.zeros((nc,), np.int32)}
+        methods = {job.req.method for job in jobs}
+        if "pt" in methods:
+            a["t_rung"] = np.ones((nc,), np.float32)
+            a["partner"] = np.tile(rows, (2, 1))
+            a["pairlo"] = np.zeros((2, nc), np.uint32)
+        if "pa" in methods:
+            a["seg_lo"] = rows.copy()
+            a["seg_hi"] = rows + 1
+        row0 = 0
+        for job in jobs:
+            n = job.granted_chains
+            a["mcode"][row0:row0 + n] = _job_mcode(job.req)
+            if job.req.method == "pt":
+                a["t_rung"][row0:row0 + n] = job.req.pt_rungs(n)
+                for j in range(2):
+                    prt, plo = _pt_partners(n, (job.level + j) % 2)
+                    a["partner"][j, row0:row0 + n] = row0 + prt
+                    a["pairlo"][j, row0:row0 + n] = plo
+            elif job.req.method == "pa":
+                a["seg_lo"][row0:row0 + n] = row0
+                a["seg_hi"][row0:row0 + n] = row0 + n
+            row0 += n
+        if not a["mcode"].any():
+            del a["mcode"]        # plain chains only: no stage to mask
+        return a
+
+    @staticmethod
+    def _controls(d: Dict[str, torch.Tensor], a: Dict[str, np.ndarray]
+                  ) -> _GroupControls:
+        """The uploaded controls ``d``; the host arrays ``a`` say which
+        classes the group holds, so no mask is read back from the card."""
+        codes = (set(np.unique(a["mcode"]).tolist()) if "mcode" in a
+                 else set())
+
+        def mask(code):
+            return d["mcode"] == code if code in codes else None
+
         return _GroupControls(
             T=d["T"], step0=d["step0"], lvl=d["lvl"], live=d.get("live"),
             seed=d["seed"], base=d["base"], seg=d["seg"],
-            adopt=d["adopt"] != 0,
-            is_sos=d["is_sos"] != 0 if "is_sos" in d else None)
+            adopt=d["adopt"] != 0, is_sos=mask(exch.MCODE_SOS),
+            is_pt=mask(exch.MCODE_PT), t_rung=d.get("t_rung"),
+            partner=d.get("partner"),
+            pairlo=d.get("pairlo"), is_pa=mask(exch.MCODE_PA),
+            seg_lo=d.get("seg_lo"), seg_hi=d.get("seg_hi"),
+            dbeta=d.get("dbeta"))
 
     def _sweep(self, family: str, d: Dict[str, torch.Tensor], n_steps: int,
                dev: torch.device):
-        """The group's sweep on ``dev``, ``sweep(x, T, step0, live, out)``:
-        kernel B1 for the continuous family, B3 for QAP."""
+        """The group's sweep on ``dev``, ``sweep(x, T, step0, live, out,
+        t_chain)``: kernel B1 for the continuous family (per-chain
+        temperatures ``t_chain`` when the group holds PT chains), B3 for
+        QAP (SA only, so never a ``t_chain``)."""
         cps = self.cfg.chains_per_slot
         seed, base = d["seed"], d["base"]
         if family == fam_mod.FAMILY_PERMUTATION:
             F, D = d["F"], d["D"]
 
-            def sweep(x, T, step0, live, out):
+            def sweep(x, T, step0, live, out, t_chain):
                 return ops.qap_sweep_slots(
                     x, F, D, T, seed, step0, base, n_steps=n_steps, blk=cps,
                     live=live, device=dev, out=out)
         else:
             kid, variant = d["kid"], self.cfg.variant
 
-            def sweep(x, T, step0, live, out):
+            def sweep(x, T, step0, live, out, t_chain):
                 return ops.metropolis_sweep_slots(
                     x, kid, T, seed, step0, base, n_steps=n_steps, blk=cps,
-                    variant=variant, live=live, device=dev, out=out,
-                    kid_checked=True)
+                    variant=variant, live=live, T_chain=t_chain, device=dev,
+                    out=out, kid_checked=True)
         return sweep
 
     def _host_state(self, shard: EngineShard, slot_list, n_padded: int,
@@ -960,17 +1119,18 @@ class SAServeEngine:
             x, spare = cache["x"], cache["spare"]
         else:
             x, spare = d["x"], torch.empty_like(d["x"])
-        champ = _group_tick_fused(
+        outs = _group_tick_fused(
             x, spare, self._sweep(family, d, n_steps, shard.device),
-            self._controls(d),
-            k=K, blk=cps, num_segments=self.cfg.n_slots + 1)
+            self._controls(d, a),
+            k=K, blk=cps, num_segments=self.cfg.n_slots + 1,
+            keep_fx=self._needs_fx(jobs))
         # The group's state lives in x: point every slot there
         # (materialized only on a cache-miss repack) for the next boundary.
         for b, (s, _job) in enumerate(slot_list):
             shard.pool.set_device_block(s, x, b * cps, (b + 1) * cps)
         shard.group_cache[key] = {"x": x, "spare": spare,
                                   "n_padded": n_padded}
-        return shard, n_steps, jobs, slot_list, champ, planned
+        return shard, n_steps, jobs, slot_list, outs, planned
 
     def _launch_group(self, shard: EngineShard, family: str, dim: int,
                       n_steps: int, jobs: List[ActiveJob]):
@@ -981,11 +1141,11 @@ class SAServeEngine:
         a["x"] = self._host_state(shard, slot_list, n_padded,
                                   jobs[0].req.state_dtype)
         d = _upload(a, shard.device)
-        x2, _, xb, fb = _group_tick(
+        x2, fx, xb, fb = _group_tick(
             d["x"], self._sweep(family, d, n_steps, shard.device),
-            self._controls(d),
+            self._controls(d, a),
             blk=self.cfg.chains_per_slot, num_segments=self.cfg.n_slots + 1)
-        return shard, n_steps, jobs, slot_list, (x2, fb, xb)
+        return shard, n_steps, jobs, slot_list, (x2, fx, fb, xb)
 
     def _finish_reason(self, job: ActiveJob) -> Optional[str]:
         req = job.req
@@ -1029,6 +1189,7 @@ class SAServeEngine:
             migrated_ticks=list(job.migrated_ticks),
             shrunk_ticks=list(job.shrunk_ticks),
             shrink_events=list(job.shrink_events),
+            pa_shrink_events=list(job.pa_shrink_events),
             truncated_ticks=list(job.truncated_ticks),
             truncate_events=list(job.truncate_events)))
         shard.pool.release(job.rid)
@@ -1109,11 +1270,36 @@ class SAServeEngine:
 
 
 def _pt_partners(n: int, parity: int):
-    raise _not_ported("parallel tempering")
+    """Logical even/odd swap partners of an ``n``-rung PT ladder.
+
+    Parity 0 pairs rungs (0,1)(2,3)..., parity 1 pairs (1,2)(3,4)...; a
+    rung without a partner at this parity is its own partner (no swap
+    proposed).  Returns ``(partner int32, pairlo uint32)``, ``pairlo`` the
+    lower logical rung of each pair: the shared key of both partners'
+    accept uniform."""
+    lg = np.arange(n, dtype=np.int64)
+    if parity == 0:
+        p = lg ^ 1
+    else:
+        p = np.where(lg == 0, lg, ((lg - 1) ^ 1) + 1)
+    p = np.where(p < n, p, lg)
+    return p.astype(np.int32), np.minimum(lg, p).astype(np.uint32)
+
+
+def _job_mcode(req: SARequest) -> int:
+    """Per-chain workload-class code (core/exchange) of a request."""
+    if req.method == "pt":
+        return exch.MCODE_PT
+    if req.method == "pa":
+        return exch.MCODE_PA
+    return exch.MCODE_SOS if req.exchange == "sos" else exch.MCODE_PLAIN
 
 
 def _pa_dbeta(t: float, rho: float) -> float:
-    raise _not_ported("population annealing")
+    """PA inverse-temperature increment across one cooling step, in
+    float64 host math (cast to float32 at upload): the reweighting
+    exponent between level temperature ``t`` and the next."""
+    return 1.0 / (t * rho) - 1.0 / t
 
 
 def run_standalone(req: SARequest, cfg: EngineConfig,

@@ -3,7 +3,8 @@
 
 Generates a deterministic heterogeneous request mix (the six registry
 objectives over several dims and cooling schedules, QAP instances, or
-both alternating) and serves it through the continuous-batching engine,
+both alternating; plain SA, parallel tempering, population annealing or
+the three rotating on the continuous requests) and serves it through the continuous-batching engine,
 closed-loop (``--arrivals batch``, the whole queue at t=0) or open-loop
 (``--arrivals poisson|bursty|diurnal`` at ``--rate`` requests per tick),
 on one or several engine shards with the reference's overload policies,
@@ -23,11 +24,13 @@ Usage::
   python -m repro_torch.service.serve_sa --device cpu --devices 2 \\
       --slots 2 --chains-per-slot 8 --arrivals poisson --rate 1.0 \\
       --overload-policy preempt --finish-deadline-factor 1.5 --drain-at 6
+  python -m repro_torch.service.serve_sa --device cpu --method mixed \\
+      --family mixed --requests 12 --slots 4 --chains-per-slot 16
 
 Not ported yet, and refused with "not ported": the autoscaler
 (``--autoscale`` and its ``--min-shards``/``--max-shards``/``--scale-*``
-flags), ``--method pt|pa|mixed`` and the telemetry sinks (``--trace``,
-``--events``, ``--metrics``).
+flags) and the telemetry sinks (``--trace``, ``--events``,
+``--metrics``).
 """
 from __future__ import annotations
 
@@ -66,16 +69,19 @@ MIX_QAP_SCHEDULES = [
 
 
 def make_mix(n_requests: int, chains_per_slot: int, seed: int = 0,
-             max_slots_per_req: int = 2,
+             max_slots_per_req: int = 2, method: str = "sa",
              family: str = "continuous",
              finish_deadline_factor: float = None,
              min_levels_frac: float = 0.5) -> list:
-    """Deterministic heterogeneous plain-SA request list, the same as the
-    reference's ``make_mix(..., method="sa")``.
+    """Deterministic heterogeneous request list, the same as the
+    reference's ``make_mix``.
 
-    ``family`` is 'continuous' (the six registry objectives), 'qap' (the
-    built-in QAP instances) or 'mixed': continuous and QAP requests
-    alternating in one slot pool.  ``finish_deadline_factor``, when set,
+    ``method`` is the workload class of the continuous requests: 'sa',
+    'pt', 'pa', or 'mixed' (sa, pt and pa in rotation); PA requests get
+    ``pa_ess_ratio=0.5``.  QAP requests are always plain SA.  ``family``
+    is 'continuous' (the six registry objectives), 'qap' (the built-in QAP
+    instances) or 'mixed': continuous and QAP requests alternating in one
+    slot pool.  ``finish_deadline_factor``, when set,
     gives every request a completion SLO of that many times its ladder
     length in ticks, with ``min_levels = max(1, min_levels_frac x
     n_levels)`` as the truncation floor."""
@@ -89,16 +95,17 @@ def make_mix(n_requests: int, chains_per_slot: int, seed: int = 0,
                 if family == "mixed" else \
                 MIX_QAP_PROBLEMS[i % len(MIX_QAP_PROBLEMS)]
             sched = MIX_QAP_SCHEDULES[i % len(MIX_QAP_SCHEDULES)]
-            fam = "permutation"
+            m, ess, fam = "sa", 0.0, "permutation"
         else:
             obj, dim = MIX_PROBLEMS[i % len(MIX_PROBLEMS)]
             sched = MIX_SCHEDULES[i % len(MIX_SCHEDULES)]
-            fam = "continuous"
+            m = ("sa", "pt", "pa")[i % 3] if method == "mixed" else method
+            ess, fam = 0.5 if m == "pa" else 0.0, "continuous"
         req = SARequest(
             req_id=i, objective=obj, dim=dim,
             n_chains=n_slots_i * chains_per_slot,
             seed=seed * 1000 + i, priority=int(rng.integers(0, 3)),
-            family=fam, **sched)
+            method=m, pa_ess_ratio=ess, family=fam, **sched)
         if finish_deadline_factor is not None:
             req = dataclasses.replace(
                 req,
@@ -201,7 +208,9 @@ def main(argv=None) -> int:
                          "request's ladder length")
     ap.add_argument("--method", default="sa",
                     choices=["sa", "pt", "pa", "mixed"],
-                    help="workload class of the mix; only sa is ported")
+                    help="workload class of the continuous requests: plain "
+                         "SA, parallel tempering, population annealing, or "
+                         "the three in rotation (QAP requests are SA)")
     ap.add_argument("--family", default="continuous",
                     choices=["continuous", "qap", "mixed"],
                     help="problem family of the mix: continuous, qap, or "
@@ -250,10 +259,13 @@ def main(argv=None) -> int:
                          "(default)")
     ap.add_argument("--no-check", dest="check", action="store_false")
     args, rest = ap.parse_known_args(argv)
-    if rest or args.method != "sa":
-        what = " ".join(rest) if rest else f"--method {args.method}"
-        ap.error(f"not ported to the PyTorch engine yet: {what} "
+    if rest:
+        ap.error(f"not ported to the PyTorch engine yet: {' '.join(rest)} "
                  "(see python -m repro.service.serve_sa --help)")
+    if args.family == "qap" and args.method != "sa":
+        ap.error("--family qap serves plain SA only (permutation requests "
+                 "have no pt/pa replica layout); drop --method " +
+                 args.method)
     if args.overload_policy in ("reject", "degrade") and args.deadline is None:
         ap.error(f"--overload-policy {args.overload_policy} requires "
                  "--deadline (the queueing-delay SLO it enforces)")
@@ -293,7 +305,7 @@ def main(argv=None) -> int:
             engine.drain(target)
         engine.schedule_op(args.drain_at, _drain)
     reqs = make_mix(args.requests, args.chains_per_slot, seed=args.seed,
-                    max_slots_per_req=min(args.max_slots_per_req, args.slots),
+                    method=args.method, max_slots_per_req=min(args.max_slots_per_req, args.slots),
                     family=args.family,
                     finish_deadline_factor=args.finish_deadline_factor,
                     min_levels_frac=args.min_levels_frac)

@@ -6,11 +6,16 @@
     exchange and best-so-far against repro.core.exchange applied to the
     port's swept state.
 (b) In distribution: the median champion over 8 seeds against
-    repro.core.sa_minimize, within the reference's own spread.
-(c) SAResult fields and n_evals.
+    repro.core.sa_minimize, within the reference's own spread; the same
+    over 6 seeds on six suite problems without a kernel id (two of them
+    through the decomposable delta sweep) and on Schwefel in float64 (the
+    reference under ``jax.enable_x64``).
+(c) SAResult fields and n_evals; the hybrid on a problem without a
+    kernel id.
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,11 +25,13 @@ from repro.core import SAConfig as JConfig
 from repro.core import exchange as jexch
 from repro.core import sa_minimize as j_sa
 from repro.kernels import ops as jops
+from repro.objectives import SUITE as JSUITE
 from repro.objectives import functions as JF
 from repro_torch.core import annealing as tann
 from repro_torch.core import exchange as texch
-from repro_torch.core import SAConfig, sa_minimize
+from repro_torch.core import SAConfig, hybrid_minimize, sa_minimize
 from repro_torch.interop import sa_config_from_dict
+from repro_torch.objectives import SUITE
 from repro_torch.objectives import functions as TF
 
 from torch_parity import assert_sweep_parity
@@ -97,6 +104,54 @@ def test_champion_in_distribution_matches_sa_minimize():
     assert np.all(np.abs(f_port - TF.schwefel(8).f_opt) < 0.1)
 
 
+def _median_within_reference_spread(j_obj, t_obj, kw, seeds=6, **ctx):
+    """Median f_best of the port within the reference's spread (max - min
+    over the same seeds) of the reference's median; the reference draws
+    from jax.random keys 0..seeds-1, the port from cfg.seed 0..seeds-1."""
+    jcfg = JConfig(**kw)
+    f_ref = np.array([j_sa(j_obj, jcfg, key=jax.random.PRNGKey(s)).f_best
+                      for s in range(seeds)])
+    f_port = np.array([sa_minimize(t_obj, SAConfig(**kw, seed=s),
+                                   device="cpu").f_best
+                       for s in range(seeds)])
+    spread = f_ref.max() - f_ref.min()
+    assert abs(np.median(f_port) - np.median(f_ref)) <= spread, (f_port, f_ref)
+    return f_port
+
+
+@pytest.mark.parametrize("key,delta", [
+    ("F2", False), ("F3_b", True), ("F5", False), ("F9", False),
+    ("F12_b", True), ("F16", False)])
+def test_objectives_without_kernel_in_distribution(key, delta):
+    """Suite problems the sweep kernel does not know run through the plain
+    sweep (core/metropolis.py) and reach the reference's quality."""
+    kw = dict(T0=10.0, T_min=0.01, rho=0.8, N=30, n_chains=128,
+              use_delta_eval=delta, record_history=False)
+    f_port = _median_within_reference_spread(JSUITE[key](), SUITE[key](), kw)
+    assert np.all(np.abs(f_port - SUITE[key]().f_opt) < 1e-2)
+
+
+def test_float64_schwefel_in_distribution():
+    kw = dict(T0=100.0, T_min=0.5, rho=0.8, N=30, n_chains=256,
+              record_history=False, dtype="float64")
+    with jax.enable_x64(True):
+        f_port = _median_within_reference_spread(JF.schwefel(8),
+                                                 TF.schwefel(8), kw)
+    assert np.all(np.abs(f_port - TF.schwefel(8).f_opt) < 0.1)
+
+
+def test_hybrid_on_a_problem_without_kernel():
+    obj = SUITE["F10_b"]()          # Levy-Montalvo 5, no kernel id
+    cfg = SAConfig(T0=10.0, T_min=0.5, rho=0.8, N=20, n_chains=128, seed=4)
+    h = hybrid_minimize(obj, cfg, nm_max_iters=500, device="cpu")
+    assert h.f_best == min(h.sa.f_best, h.nm.f_best) <= h.sa.f_best
+    assert abs(h.f_best - obj.f_opt) < 1e-3
+    assert h.x_best.dtype == np.float32
+    h64 = hybrid_minimize(obj, dataclasses.replace(cfg, dtype="float64"),
+                          nm_max_iters=500, device="cpu")
+    assert h64.x_best.dtype == np.float64 and h64.nm.x_best.dtype == np.float64
+
+
 @pytest.mark.parametrize("mode,n_chains", [("async", 1), ("async", 32),
                                            ("sync", 32), ("sos", 32)])
 def test_result_fields_and_n_evals(mode, n_chains):
@@ -123,10 +178,17 @@ def test_config_round_trips_and_deferred_paths_raise():
     assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg)
     assert cfg.n_levels == ref_cfg.n_levels and cfg.n_evals == ref_cfg.n_evals
     np.testing.assert_array_equal(cfg.ladder(), ref_cfg.ladder())
-    with pytest.raises(NotImplementedError, match="float64"):
-        sa_minimize(TF.schwefel(2), SAConfig(dtype="float64"), device="cpu")
-    with pytest.raises(NotImplementedError, match="kernel_id"):
-        sa_minimize(TF.branin(), SAConfig(), device="cpu")
+    # float64 and objectives without a kernel_id run (they raised before
+    # the plain sweep, core/metropolis.py, was ported).
+    small = SAConfig(T0=5.0, T_min=1.0, rho=0.5, N=4, n_chains=16)
+    res64 = sa_minimize(TF.schwefel(2), dataclasses.replace(small, dtype="float64"),
+                        device="cpu")
+    assert res64.x_best.dtype == np.float64 and res64.history_f.dtype == np.float64
+    res_b = sa_minimize(TF.branin(), small, device="cpu")
+    assert np.isfinite(res_b.f_best) and res_b.x_best.dtype == np.float32
+    with pytest.raises(ValueError, match="unknown dtype"):
+        sa_minimize(TF.schwefel(2), dataclasses.replace(small, dtype="float16"),
+                    device="cpu")
     with pytest.raises(NotImplementedError, match="sharded ladder"):
         sa_minimize(TF.schwefel(2), SAConfig(), device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="mesh"):

@@ -24,7 +24,6 @@ from repro.service import scheduler as jsched
 from repro.service import slots as jslots
 from repro_torch import interop
 from repro_torch.core import exchange as tex
-from repro_torch.service import engine as tengine
 from repro_torch.service import request as trequest
 from repro_torch.service import scheduler as tsched
 from repro_torch.service import serve_sa
@@ -73,8 +72,8 @@ def test_segment_champion_and_sync_match_reference(dtype):
 
 @pytest.mark.parametrize("dtype", [np.float32, np.int32])
 def test_serving_exchange_matches_reference(dtype):
-    """Plain and SOS chains, sync adoption, a live mask; the reference's
-    PT/PA stages get identity inputs."""
+    """Plain and SOS chains, sync adoption, a live mask; the PT/PA stages
+    get identity inputs (test_torch_tempering.py drives them)."""
     rs, x, fx, seg, S = _batch(dtype, seed=1)
     n = len(fx)
     adopt = rs.random(n) < 0.5
@@ -85,32 +84,15 @@ def test_serving_exchange_matches_reference(dtype):
     lvl = np.full(n, 7, np.uint32)
     live = rs.random(n) < 0.8
     rows = np.arange(n, dtype=np.int32)
-    ref = jex.serving_exchange(x, fx, seg, S, adopt, mcode,
-                               np.ones(n, np.float32), T, rows,
-                               np.zeros(n, np.uint32), rows, rows + 1,
-                               np.zeros(n, np.float32), seed_c, cidx, lvl, live)
-    port = tex.serving_exchange(_t(x), _t(fx), _t(seg), S, _t(adopt), _t(mcode),
-                                _t(T), _t(seed_c), _t(cidx), _t(lvl), _t(live))
+    args = (x, fx, seg, S, adopt, mcode, np.ones(n, np.float32), T, rows,
+            np.zeros(n, np.uint32), rows, rows + 1, np.zeros(n, np.float32),
+            seed_c, cidx, lvl, live)
+    ref = jex.serving_exchange(*args)
+    port = tex.serving_exchange(*(a if i == 3 else _t(a)
+                                  for i, a in enumerate(args)))
     _assert_same(port, ref)
     sos = mcode == tex.MCODE_SOS
     assert (port[1].numpy() != fx)[sos].any()    # the SOS stage adopted
-
-
-def test_serving_exchange_refuses_pt_and_pa():
-    _, x, fx, seg, S = _batch(np.float32)
-    n = len(fx)
-    for code in (tex.MCODE_PT, tex.MCODE_PA):
-        mcode = torch.zeros(n, dtype=torch.int8)
-        mcode[3] = code
-        with pytest.raises(NotImplementedError):
-            tex.serving_exchange(_t(x), _t(fx), _t(seg), S,
-                                 torch.ones(n, dtype=torch.bool), mcode,
-                                 torch.ones(n), 0, torch.arange(n), 0,
-                                 torch.ones(n, dtype=torch.bool))
-    assert (tex.MCODE_PLAIN, tex.MCODE_SOS, tex.MCODE_PT, tex.MCODE_PA) == \
-        (jex.MCODE_PLAIN, jex.MCODE_SOS, jex.MCODE_PT, jex.MCODE_PA)
-    assert (tex.SOS_SALT, tex.PT_SALT, tex.PA_SALT) == \
-        (jex.SOS_SALT, jex.PT_SALT, jex.PA_SALT)
 
 
 # -------------------------------------------------------------- requests
@@ -323,10 +305,6 @@ _CFG = EngineConfig(n_slots=2, chains_per_slot=CPS, device="cpu")
 
 @pytest.mark.parametrize("call", [
     lambda e: e.attach_controller(object()),
-    lambda e: e._maybe_pa_shrink(None, None, None),
-    lambda e: tengine._pt_partners(4, 0), lambda e: tengine._pa_dbeta(1.0, 0.9),
-    lambda e: e.submit(_creq(0, method="pt")),
-    lambda e: e.submit(_creq(0, method="pa")),
 ])
 def test_deferred_features_raise(call):
     with pytest.raises(NotImplementedError):

@@ -266,7 +266,7 @@ def test_make_mix_and_arrivals_match_reference():
 
 @pytest.mark.parametrize("flags", [
     ["--autoscale"], ["--min-shards", "1"], ["--scale-cooldown", "8"],
-    ["--method", "pt"], ["--method", "mixed"], ["--trace", "t.json"],
+    ["--trace", "t.json"],
     ["--events", "e.jsonl"], ["--metrics", "m.prom"],
 ])
 def test_serve_sa_refuses_flags_not_ported(flags, capsys):
