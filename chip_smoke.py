@@ -75,7 +75,18 @@ and runs, in order, failing on the first phase that fails:
     K = 1 and 4, each bit-exact against its standalone run with its PA
     self-shrinks re-derived; the reference's preempt / resize / drain
     scenario at 512 chains per slot; a pure-PA load on 128 slots x 512
-    chains whose weights sum past 2^31 - 1, each tenant bit-exact.
+    chains whose weights sum past 2^31 - 1, each tenant bit-exact;
+14. telemetry and the autoscaler: (a) phase 10's load with telemetry off,
+    then on twice with the Perfetto trace and the event log: champions,
+    launch counts and replays equal, no kernel build, equal event logs, a
+    valid trace; wall and CPU seconds per tick phase, device_wait per
+    shard (one CUDA event per group launch), on against off, and a fourth
+    run with the host seconds of dispatch's parts (packing, upload, the K
+    levels of launches); (b) the
+    reference's autoscaler bench (64 diurnal requests with completion
+    deadlines, 4 slots x 512 chains per shard) through static fleets of
+    1-4 shards and the autoscaler, with its autoscale_committed gates and
+    every champion against its standalone replay.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a card, or without
@@ -186,6 +197,18 @@ TABLE7_WARM_LEVELS = 20     # the warm run: the ladder's first levels
 TEMPER_REQUESTS = 96
 TEMPER_CFG = MIXED_CFG
 PA_LOAD = dict(objective="schwefel", dim=16, T0=1000.0, T_min=500.0, rho=0.9, N=25)
+# Slice 7.  Phase 14a serves phase 10's load with telemetry off, then on
+# twice.  Phase 14b is the reference's autoscaler bench
+# (benchmarks/serve_autoscale_bench.py:117-160) at 512 chains per slot in
+# place of its 8: the tick-clock dynamics depend on slots, not chains.
+AUTOSCALE_REQUESTS = 64
+AUTOSCALE_MIX = dict(max_slots_per_req=2, finish_deadline_factor=1.9, min_levels_frac=0.5,
+                     seed=0)
+AUTOSCALE_ARRIVALS = dict(rate=0.13, period=160.0, amplitude=1.0, seed=7)
+AUTOSCALE_CFG = dict(n_slots=4, chains_per_slot=512)
+AUTOSCALE_CTL = dict(min_shards=1, max_shards=4, sample_every=4, headroom=1.25, low_util=0.5,
+                     window=2, cooldown=8)
+AUTOSCALE_MIN_SAVING_PCT = 20.0        # scripts/bench_gates.toml, autoscale_committed
 
 
 class SmokeFailure(RuntimeError):
@@ -2013,6 +2036,204 @@ def phase13_tempering():
     return total
 
 
+# ------------------------------------------------------------- slice 7
+def elastic_engine(telemetry):
+    """An engine with ``telemetry`` for phase 10's load, its scripted
+    operations scheduled; returns (engine, arrivals)."""
+    from repro_torch.service import ArrivalProcess, EngineConfig, SAServeEngine, SchedulerConfig
+    cfg = EngineConfig(**ELASTIC_CFG, device=DEV, scheduler=SchedulerConfig(**ELASTIC_SCHED))
+    engine = SAServeEngine(cfg, telemetry=telemetry)
+    script_ops(engine, {})
+    return engine, ArrivalProcess.bursty(elastic_requests(), **ELASTIC_ARRIVALS)
+
+
+def serve_elastic(telemetry=None, engine=None, arrivals=None):
+    """Phase 10's load through an engine with ``telemetry`` (or through
+    ``engine`` from :func:`elastic_engine`); returns (engine, results by
+    id, wall, launches, kernel builds during the run)."""
+    from repro_torch.service import kernel_builds
+    if engine is None:
+        engine, arrivals = elastic_engine(telemetry)
+    sync()
+    read, builds = counted_launches(), kernel_builds()
+    t0 = time.perf_counter()
+    results = engine.run_stream(arrivals)
+    sync()
+    wall = time.perf_counter() - t0
+    return engine, {r.req_id: r for r in results}, wall, read(), kernel_builds() - builds
+
+
+def phase14a_telemetry():
+    """Phase 10's load served with telemetry off, then on twice (trace and
+    event log): the same champions and launches, no build, equal event
+    logs, a valid trace; wall and CPU seconds per tick phase, device_wait
+    per shard, the cost of the fence, and where dispatch's time goes."""
+    from repro_torch.service import EventLog, Telemetry, TICK_PHASES, TraceBuilder, validate_trace
+    from repro_torch.service.serve_sa import replay_check
+    log(f"phase 14a: telemetry on phase 10's load ({ELASTIC_REQUESTS} requests, "
+        f"EngineConfig({ELASTIC_CFG}), the scripted operations of phase 10): off, on, on")
+    runs = [serve_elastic(None)]
+    for _ in range(2):
+        runs.append(serve_elastic(Telemetry(trace=TraceBuilder(), events=EventLog())))
+    (_, off, off_wall, off_launches, _), on = runs[0], runs[1:]
+    stamps = ("f_best", "champion_history", "levels_run", "finish_tick", "finish_reason",
+              "preempted_ticks", "migrated_ticks", "shrink_events", "truncate_events")
+    for engine, got, wall, launches, builds in on:
+        check(got.keys() == off.keys(), "phase 14a: another set of results with telemetry on")
+        for rid, res in got.items():
+            ref = off[rid]
+            check(all(getattr(res, s) == getattr(ref, s) for s in stamps)
+                  and np.array_equal(res.x_best, ref.x_best),
+                  f"phase 14a: req {rid} differs with telemetry on")
+        check(launches == off_launches, f"phase 14a: launches on {launches}, off {off_launches}")
+        check(builds == 0, f"phase 14a: {builds} kernel builds with telemetry on")
+        errors = validate_trace(engine.telemetry.trace.to_json())
+        check(errors == [], f"phase 14a: trace invalid: {errors[:3]}")
+    (eng1, got1, wall1, _, _), (eng2, _, wall2, _, _) = on
+    check(eng1.telemetry.events.dumps() == eng2.telemetry.events.dumps(),
+          "phase 14a: the two event logs differ")
+    t0 = time.perf_counter()
+    by_req = {r.req_id: r for r in elastic_requests()}
+    done = [rid for rid, res in got1.items() if res.completed]
+    for rid in done:
+        check(replay_check(by_req[rid], got1[rid], eng1.cfg),
+              f"phase 14a: req {rid} differs from its standalone replay")
+    log(f"  champions of all {len(got1)} requests equal across the three runs, the "
+        f"{len(done)} completed ones bit-exact against run_standalone "
+        f"({time.perf_counter() - t0:.1f} s); B1 {off_launches['b1']} and B3 "
+        f"{off_launches['b3']} launches in every run; no kernel build; event logs equal "
+        f"({len(eng1.telemetry.events.records)} records); trace valid "
+        f"({len(eng1.telemetry.trace.events)} events)")
+    log(f"  wall: off {off_wall:.3f} s, on {wall1:.3f} s and {wall2:.3f} s "
+        f"(on/off {wall1 / off_wall:.3f}, {wall2 / off_wall:.3f})")
+    for i, (engine, _, wall, _, _) in enumerate(on, 1):
+        tel = engine.telemetry
+        phases = engine.stats()["phases"]
+        wall_s = {p: phases["aggregate"][p]["sum"] for p in TICK_PHASES}
+        cpu_s = phases["cpu_seconds"]
+        check(set(wall_s) == set(TICK_PHASES), f"phase 14a: phases {sorted(wall_s)}")
+        log(f"  on run {i}: per tick phase, wall / CPU seconds: " + ", ".join(
+            f"{p} {wall_s[p]:.4f} / {cpu_s[p]:.4f}" for p in TICK_PHASES)
+            + f"; spans {sum(wall_s.values()):.3f} s of {wall:.3f} s")
+        waits = {shard: secs for (shard, phase), secs
+                 in sorted(tel.registry["sa_shard_phase_seconds_total"].series.items())
+                 if phase == "device_wait"}
+        launches = tel.registry["sa_group_launches_total"].value()
+        log(f"  on run {i}: device_wait per shard (s): {waits}; dispatch wall "
+            f"{wall_s['dispatch']:.4f} s against CPU {cpu_s['dispatch']:.4f} s "
+            f"(CPU/wall {cpu_s['dispatch'] / wall_s['dispatch']:.3f}), "
+            f"{1e3 * wall_s['dispatch'] / launches:.3f} ms wall per group launch "
+            f"({launches:.0f})")
+    # Where dispatch goes: one more run with the launch path's parts
+    # timed, host packing against the K levels of launches.
+    engine, arrivals = elastic_engine(Telemetry())
+    with timed_dispatch_parts(engine) as parts:
+        serve_elastic(engine=engine, arrivals=arrivals)
+    dispatch = engine.stats()["phases"]["aggregate"]["dispatch"]["sum"]
+    parts["other"] = dispatch - sum(parts.values())
+    log("  dispatch split (one more on run, host clock around each part): " + ", ".join(
+        f"{name} {secs:.4f} s ({100 * secs / dispatch:.1f}%)" for name, secs in parts.items())
+        + f" of {dispatch:.4f} s")
+    return off_launches
+
+
+DISPATCH_PARTS = ("_pack", "_host_state", "_upload", "_group_tick_fused")
+
+
+@contextlib.contextmanager
+def timed_dispatch_parts(engine):
+    """Host seconds of the fused launch path's parts while inside: the
+    host packing of controls (``_pack``) and of state on a cache miss
+    (``_host_state``), the upload (``_upload``), and the K levels of
+    sweep and exchange launches (``_group_tick_fused``)."""
+    from repro_torch.service import engine as engine_mod
+    parts = time_host_steps(engine, DISPATCH_PARTS[:2])
+    reals = {name: getattr(engine_mod, name) for name in DISPATCH_PARTS[2:]}
+    for name, fn in reals.items():
+        def part(*a, _fn=fn, _name=name, **kw):
+            t = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                parts[_name] = parts.get(_name, 0.0) + time.perf_counter() - t
+        setattr(engine_mod, name, part)
+    try:
+        yield parts
+    finally:
+        for name, fn in reals.items():
+            setattr(engine_mod, name, fn)
+
+
+def phase14b_autoscaler(smi):
+    """The reference's autoscaler bench: a seeded diurnal trace with
+    completion deadlines served by static fleets of 1-4 shards and by the
+    autoscaler from one shard; its autoscale_committed gates, and every
+    champion against its standalone replay."""
+    from repro_torch.service import (ArrivalProcess, Autoscaler, AutoscalerConfig, EngineConfig,
+                                     SAServeEngine, SchedulerConfig, latency_summary)
+    from repro_torch.service.arrivals import percentile
+    from repro_torch.service.serve_sa import make_mix, replay_check
+    reqs = make_mix(AUTOSCALE_REQUESTS, AUTOSCALE_CFG["chains_per_slot"], **AUTOSCALE_MIX)
+    log(f"phase 14b: autoscaler against static fleets, {len(reqs)} requests of "
+        f"make_mix({AUTOSCALE_MIX}), diurnal arrivals {AUTOSCALE_ARRIVALS}, "
+        f"EngineConfig({AUTOSCALE_CFG}); AutoscalerConfig({AUTOSCALE_CTL}); {smi}")
+    fleets = [(f"static{n}", n, None) for n in range(1, AUTOSCALE_CTL["max_shards"] + 1)]
+    ctl = Autoscaler(AutoscalerConfig(**AUTOSCALE_CTL))
+    fleets.append(("auto", 1, ctl))
+    rows, b1 = {}, 0
+    for label, n, controller in fleets:
+        cfg = EngineConfig(**AUTOSCALE_CFG, n_devices=n, device=DEV,
+                           scheduler=SchedulerConfig())
+        engine = SAServeEngine(cfg)
+        if controller is not None:
+            engine.attach_controller(controller)
+        arrivals = ArrivalProcess.diurnal(reqs, **AUTOSCALE_ARRIVALS)
+        sync()
+        read = counted_launches()
+        t0 = time.perf_counter()
+        results = engine.run_stream(arrivals, max_ticks=20000)
+        sync()
+        wall = time.perf_counter() - t0
+        b1 += read()["b1"]
+        got = {r.req_id: r for r in results}
+        viol = [got[q.req_id].latency_ticks - q.finish_deadline
+                for q in reqs if q.req_id in got and got[q.req_id].completed]
+        lat = latency_summary(results, ticks=engine.tick_count, n_submitted=engine.n_submitted)
+        row = rows[label] = dict(
+            shard_ticks=engine.slot_ticks / cfg.n_slots, ticks=engine.tick_count,
+            completed=lat["completed"], lost=engine.n_submitted - len(results),
+            p99_violation=percentile(viol, 99), truncations=engine.truncations, wall=wall)
+        row["slo_met"] = bool(row["p99_violation"] <= 0.0)
+        t1 = time.perf_counter()
+        for req in reqs:
+            res = got[req.req_id]
+            check(res.completed and np.isfinite(res.f_best) and res.x_best.shape == (req.dim,),
+                  f"phase 14b {label}: req {req.req_id} output")
+            check(replay_check(req, res, cfg),
+                  f"phase 14b {label}: req {req.req_id} differs from its standalone replay "
+                  f"(cuts {res.truncate_events})")
+        log(f"  {label}: shard_ticks {row['shard_ticks']:.0f}, ticks {row['ticks']}, p99 "
+            f"violation {row['p99_violation']:.4f} ticks (SLO {'met' if row['slo_met'] else 'missed'}), "
+            f"truncations {row['truncations']}, completed {row['completed']}, lost {row['lost']}, "
+            f"wall {wall:.3f} s; every champion bit-exact against its standalone replay "
+            f"({time.perf_counter() - t1:.1f} s)")
+    auto = rows["auto"]
+    static_ok = [label for label, row in rows.items() if label != "auto" and row["slo_met"]]
+    best = min(static_ok, key=lambda label: rows[label]["shard_ticks"], default=None)
+    saving = 100.0 * (1.0 - auto["shard_ticks"] / rows[best]["shard_ticks"]) if best else math.nan
+    log(f"  autoscaler: {ctl.samples} samples, decisions {ctl.decisions}; shard-tick saving "
+        f"{saving:.2f}% against {best}")
+    check(all(row["lost"] == 0 for row in rows.values()), "phase 14b: a run lost a request")
+    check(all(row["completed"] == len(reqs) for row in rows.values()),
+          "phase 14b: a run did not complete every request")
+    check(auto["slo_met"], "phase 14b: the autoscaler missed the p99 completion SLO")
+    check(best is not None, "phase 14b: no static fleet meets the p99 completion SLO")
+    check(saving >= AUTOSCALE_MIN_SAVING_PCT,
+          f"phase 14b: shard-tick saving {saving:.2f}% < {AUTOSCALE_MIN_SAVING_PCT}%")
+    check(ctl.samples > 0 and ctl.decisions, "phase 14b: the controller never acted")
+    return b1
+
+
 def b3_bound(chains, n, n_slots, n_steps=QAP_STEPS):
     """The least time of B3: p read and written once, f and the blocks' F
     and D; two threefry2x32 per move on the integer lanes plus the
@@ -2290,13 +2511,16 @@ def main(argv=None) -> int:
     suite = phase11_suite()
     table7, _ = phase12_precision(gen)
     temper = phase13_tempering()
+    tel_launches = phase14a_telemetry()
+    auto_b1 = phase14b_autoscaler(smi)
     b1 = dict(route="cuda", source="src/repro_torch/kernels/csrc/metropolis_sweep.cu",
               replaces="src/repro/kernels/metropolis_sweep.py:81", library_ms=None)
     kernels = [
         {"name": "metropolis_sweep_delta", **b1,
          "launches": launches["metropolis_sweep"],
          "launches_by_path": {"phase 3": launches["metropolis_sweep"],
-                              "phase 10": elastic_b1, "phase 13": temper["b1"]},
+                              "phase 10": elastic_b1, "phase 13": temper["b1"],
+                              "phase 14a": tel_launches["b1"], "phase 14b": auto_b1},
          "max_abs_err": max(b1_err["delta"], temper["max_abs_err"]),
          "ms": t["delta"][0], "wrapper_ms": t["delta"][1], "plain_ms": t["delta"][2],
          "bound_ms": t["delta"][3], "bound_by": t["delta"][4]},
@@ -2321,7 +2545,7 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/qap_sweep.py:165",
          "launches": b3_launches,
          "launches_by_path": {"phase 8": b3_launches, "phase 10": elastic_b3,
-                              "phase 13": temper["b3"]},
+                              "phase 13": temper["b3"], "phase 14a": tel_launches["b3"]},
          "max_abs_err": b3_err,
          "ms": b3[0], "wrapper_ms": b3[1], "plain_ms": b3[2], "bound_ms": b3[3],
          "bound_by": b3[4], "library_ms": None},

@@ -42,6 +42,9 @@ _SIGNATURES = {
 
 _lib = None
 build_seconds = None  # wall time of the build (or load) in this process
+#: nvcc builds and ctypes.CDLL loads in this process (the service's
+#: telemetry reads it as ``sa_kernel_builds_total``).
+builds_and_loads = 0
 
 
 def _nvcc() -> str:
@@ -68,6 +71,7 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the library unless the one for these sources exists."""
+    global builds_and_loads
     out = library_path()
     if out.exists():
         return out
@@ -76,6 +80,7 @@ def build() -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cus)]
+    builds_and_loads += 1
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -91,10 +96,11 @@ def build() -> Path:
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
-    global _lib, build_seconds
+    global _lib, build_seconds, builds_and_loads
     if _lib is None:
         t0 = time.perf_counter()
         handle = ctypes.CDLL(str(build()))
+        builds_and_loads += 1
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes

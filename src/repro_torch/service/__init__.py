@@ -3,7 +3,9 @@
 admission scheduler with overload policies, migration, drain, resize,
 proactive degrade and completion deadlines, open-loop arrival processes,
 and a continuous-batching tick loop that co-batches the continuous family
-(kernel B1) and the QAP permutation family (kernel B3).
+(kernel B1) and the QAP permutation family (kernel B3); the opt-in
+observability bundle (metrics, per-phase tick spans, the decision event
+log, the Perfetto trace) and the closed-loop fleet autoscaler.
 
 Usage::
 
@@ -19,6 +21,7 @@ Usage::
 Or from the shell: ``python -m repro_torch.service.serve_sa --family qap``.
 """
 from repro_torch.service.arrivals import ArrivalProcess, latency_summary
+from repro_torch.service.autoscaler import Autoscaler, AutoscalerConfig
 from repro_torch.service.engine import (EngineConfig, F_OPT, SAServeEngine,
                                         run_standalone)
 from repro_torch.service.request import (OVERLOAD_POLICIES, RequestResult,
@@ -29,6 +32,10 @@ from repro_torch.service.scheduler import (AdmissionPlan, AdmissionScheduler,
                                            ShardView)
 from repro_torch.service.sharding import EngineShard, slot_pool_devices
 from repro_torch.service.slots import ActiveJob, SlotPool, SwappedJob
+from repro_torch.service.telemetry import (EventLog, MetricsRegistry,
+                                           PhaseTimer, Telemetry, TICK_PHASES,
+                                           kernel_builds)
+from repro_torch.service.trace import TraceBuilder, validate_trace
 
 __all__ = [
     "EngineConfig", "SAServeEngine", "run_standalone", "F_OPT",
@@ -37,4 +44,7 @@ __all__ = [
     "AdmissionScheduler", "AdmissionPlan", "QueueEntry", "SchedulerConfig",
     "ShardView", "EngineShard", "slot_pool_devices", "SlotPool",
     "ActiveJob", "SwappedJob", "ArrivalProcess", "latency_summary",
+    "Autoscaler", "AutoscalerConfig",
+    "Telemetry", "MetricsRegistry", "PhaseTimer", "EventLog",
+    "TICK_PHASES", "kernel_builds", "TraceBuilder", "validate_trace",
 ]

@@ -74,8 +74,20 @@ The replica-exchange workload classes, as the reference's:
   post-exchange f read back at the boundary.  A standalone run re-derives
   those shrinks (``RequestResult.pa_shrink_events``).
 
-Not ported yet, each raising ``NotImplementedError``: the autoscaler hook
-and enabled telemetry.
+Observability and control, as the reference's:
+
+* ``SAServeEngine(cfg, telemetry=Telemetry(...))`` turns on the metrics
+  registry, the per-phase tick spans (wall and thread CPU seconds), the
+  decision event log and the Perfetto trace (telemetry.py, trace.py).  The
+  default ``NULL`` bundle makes every hook a no-op.  On the card, each
+  group's launch is followed by a CUDA event, and the ``device_wait``
+  span of its shard waits on it, in launch order: every shard launches on
+  the card's one current stream, so a device-wide synchronise would charge
+  every shard's device time to the first.  With telemetry off no event is
+  recorded and nothing is synchronised.
+* :meth:`SAServeEngine.attach_controller` attaches the closed-loop
+  autoscaler (autoscaler.py), sampled at the top of each tick; the idle
+  jump of ``run_stream`` never passes its next sampling tick.
 """
 from __future__ import annotations
 
@@ -107,11 +119,6 @@ from repro_torch.service.telemetry import NULL as NULL_TELEMETRY
 #: their instance's ``best_known`` instead.
 F_OPT = {om.KID_BY_NAME[name]: v
          for name, v in fam_mod.F_OPT_BY_NAME.items()}
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to the PyTorch "
-                               "engine yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -280,14 +287,18 @@ def _upload(arrays: Dict[str, np.ndarray], device: torch.device):
 class SAServeEngine:
     """Multi-tenant annealing server: one launch per level per group."""
 
-    def __init__(self, cfg: Optional[EngineConfig] = None):
+    def __init__(self, cfg: Optional[EngineConfig] = None, telemetry=None):
         cfg = EngineConfig() if cfg is None else cfg
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.shards: List[EngineShard] = make_shards(
             cfg.n_devices, cfg.n_slots, cfg.chains_per_slot, self.device)
         self.scheduler = AdmissionScheduler(cfg.scheduler)
-        self.telemetry = NULL_TELEMETRY
+        # Observability is opt-in and host-side only: the NULL bundle
+        # no-ops every hook, and an enabled one changes no state on the
+        # card and no decision, so trajectories stay bit-exact.
+        self.telemetry = NULL_TELEMETRY if telemetry is None else telemetry
+        self.scheduler.telemetry = self.telemetry
         self.results: List[RequestResult] = []
         self.tick_count = 0
         self.n_submitted = 0          # requests offered via submit()
@@ -304,8 +315,13 @@ class SAServeEngine:
         self._next_shard_index = cfg.n_devices   # shard ids are never reused
         self._ops: List[Tuple[int, int, object]] = []  # (tick, seq, fn)
         self._op_seq = 0
+        # The closed-loop controller (autoscaler.py), sampled at the top of
+        # each tick; None = no control plane.
+        self.controller = None
         self._epoch = time.perf_counter()
         self._pt = self.telemetry.make_phase_timer(self._now)
+        if self.telemetry.trace is not None:
+            self.telemetry.trace.bind_clock(self._now)
         #: req_id -> (arrival_time in ticks, submit wall time)
         self._submit_info: Dict[int, Tuple[float, float]] = {}
 
@@ -346,6 +362,10 @@ class SAServeEngine:
             self._now())
         self.scheduler.submit(req, self.tick_count)
         self.n_submitted += 1
+        if self.telemetry.trace is not None:
+            self.telemetry.trace.request_begin(
+                req.req_id, objective=req.objective, dim=req.dim,
+                n_chains=req.n_chains, tick=self.tick_count)
 
     # ----------------------------------------------------------- shard views
     def _iter_jobs(self) -> Iterator[Tuple[EngineShard, ActiveJob]]:
@@ -440,12 +460,21 @@ class SAServeEngine:
 
     def _place(self, shard: EngineShard, entry: QueueEntry,
                granted_slots: int) -> None:
+        tel = self.telemetry
         if entry.swapped is not None:       # swap-in: bit-exact resume
             job = entry.swapped.job
             job.resumed_ticks.append(self.tick_count)
             shard.rids.alloc(job)
             job.slots = shard.pool.restore(job.rid, entry.swapped.blocks)
             job.home_shard = shard.index
+            if tel.enabled:
+                tel.decision(self.tick_count, "resume",
+                             req_id=job.req.req_id, shard=shard.index,
+                             slots=len(job.slots))
+                if tel.trace is not None:
+                    tel.trace.request_instant(
+                        job.req.req_id, "resume", shard=shard.index,
+                        tick=self.tick_count)
             return
         req = entry.req
         arrival, submit_wall = self._submit_info.pop(
@@ -461,6 +490,16 @@ class SAServeEngine:
         shard.rids.alloc(job)
         job.slots = shard.pool.assign(job.rid, req, n_slots=granted_slots)
         job.granted_chains = granted_slots * self.cfg.chains_per_slot
+        if tel.enabled:
+            tel.decision(self.tick_count, "admit", req_id=req.req_id,
+                         shard=shard.index, granted_slots=granted_slots,
+                         requested_chains=req.n_chains,
+                         granted_chains=job.granted_chains)
+            if tel.trace is not None:
+                tel.trace.request_instant(
+                    req.req_id, "admit", shard=shard.index,
+                    granted_chains=job.granted_chains,
+                    tick=self.tick_count)
 
     @staticmethod
     def _checkpoint_release(shard: EngineShard, rid: int, keep_slots=None):
@@ -489,6 +528,15 @@ class SAServeEngine:
         job.preempted_ticks.append(self.tick_count)
         self.scheduler.requeue(SwappedJob(job=job, blocks=blocks))
         self.preemptions += 1
+        tel = self.telemetry
+        if tel.enabled:
+            tel.decision(self.tick_count, "preempt",
+                         req_id=job.req.req_id, shard=shard.index,
+                         level=job.level)
+            if tel.trace is not None:
+                tel.trace.request_instant(
+                    job.req.req_id, "preempt", shard=shard.index,
+                    level=job.level, tick=self.tick_count)
 
     def _migrate_job(self, src: EngineShard, rid: int, dst: EngineShard,
                      keep_slots: Optional[int] = None) -> None:
@@ -502,8 +550,18 @@ class SAServeEngine:
         job.home_shard = dst.index
         job.migrated_ticks.append(self.tick_count)
         self.migrations += 1
-        if keep_slots is not None:
+        if keep_slots is not None:      # the shrink records the move
             self._record_shrink(job, from_chains)
+            return
+        tel = self.telemetry
+        if tel.enabled:
+            tel.decision(self.tick_count, "migrate",
+                         req_id=job.req.req_id, src=src.index,
+                         dst=dst.index, level=job.level)
+            if tel.trace is not None:
+                tel.trace.request_instant(
+                    job.req.req_id, "migrate", src=src.index,
+                    dst=dst.index, tick=self.tick_count)
 
     def migrate(self, req_id: int, to_shard: int) -> bool:
         """Move the in-flight request ``req_id`` to shard ``to_shard``.
@@ -542,6 +600,17 @@ class SAServeEngine:
         (job.pa_shrink_events if self_driven else job.shrink_events).append(
             event)
         self.shrinks += 1
+        tel = self.telemetry
+        if tel.enabled:
+            kind = "pa_shrink" if self_driven else "shrink"
+            tel.decision(self.tick_count, kind,
+                         req_id=job.req.req_id, shard=job.home_shard,
+                         level=job.level, from_chains=from_chains,
+                         to_chains=job.granted_chains)
+            if tel.trace is not None:
+                tel.trace.request_instant(
+                    job.req.req_id, kind, from_chains=from_chains,
+                    to_chains=job.granted_chains, tick=self.tick_count)
 
     def _shrink_job(self, shard: EngineShard, rid: int, keep_slots: int,
                     self_driven: bool = False) -> None:
@@ -587,6 +656,16 @@ class SAServeEngine:
         job.truncate_events.append((job.level, limit, to_levels))
         job.levels_limit = to_levels
         self.truncations += 1
+        tel = self.telemetry
+        if tel.enabled:
+            tel.decision(self.tick_count, "truncate",
+                         req_id=job.req.req_id, shard=job.home_shard,
+                         level=job.level, from_levels=limit,
+                         to_levels=to_levels)
+            if tel.trace is not None:
+                tel.trace.request_instant(
+                    job.req.req_id, "truncate", from_levels=limit,
+                    to_levels=to_levels, tick=self.tick_count)
 
     def truncate_active(self, req_id: int, n_levels: int) -> bool:
         """Shorten the running request ``req_id``'s ladder to ``n_levels``
@@ -603,6 +682,9 @@ class SAServeEngine:
         """Apply this boundary's finish-deadline truncations."""
         if all(job.req.finish_deadline is None
                for _, job in self._iter_jobs()):
+            # The planner would plan nothing: count its empty plan, as the
+            # reference's planner does.
+            self.telemetry.plan("truncate", 0)
             return
         views = [self._view(s) for s in self.shards]
         with self._pt("schedule"):
@@ -640,6 +722,8 @@ class SAServeEngine:
             shard.group_cache.clear()
             self.shards.remove(shard)
             self.retired_shards.append((shard.index, self.tick_count))
+            self.telemetry.decision(self.tick_count, "shard_retired",
+                                    shard=shard.index)
 
     def drain(self, shard_index: int) -> None:
         """Begin draining shard ``shard_index``: no new placements, its
@@ -653,6 +737,8 @@ class SAServeEngine:
             raise ValueError(
                 "cannot drain the last live shard; resize up first")
         shard.draining = True
+        self.telemetry.decision(self.tick_count, "drain", shard=shard_index,
+                                resident_jobs=len(shard.rids.jobs))
         if not shard.rids.jobs:
             self._retire_drained()
 
@@ -669,6 +755,8 @@ class SAServeEngine:
                 idx, self.cfg.n_slots, self.cfg.chains_per_slot,
                 self.device))
             new.append(idx)
+            self.telemetry.decision(self.tick_count, "shard_added",
+                                    shard=idx)
         return new
 
     def resize(self, n_devices: int) -> None:
@@ -693,7 +781,11 @@ class SAServeEngine:
                 self.drain(shard.index)
 
     def attach_controller(self, controller) -> None:
-        raise _not_ported("attach_controller (the autoscaler)")
+        """Attach a closed-loop controller (autoscaler.py): an object with
+        ``maybe_sample(engine)``, called at the top of every tick before
+        admission, and ``next_sample_tick``, which ``run_stream``'s idle
+        jump never passes."""
+        self.controller = controller
 
     def schedule_op(self, tick: int, fn) -> None:
         """Run ``fn()`` at the start of the first tick >= ``tick`` (the
@@ -725,6 +817,13 @@ class SAServeEngine:
             finish_wall=self._now(), requested_chains=req.n_chains,
             granted_chains=0, home_shard=-1))
         self.rejections += 1
+        tel = self.telemetry
+        if tel.enabled:
+            tel.decision(self.tick_count, "reject", req_id=req.req_id,
+                         waited=self.tick_count - entry.submit_tick)
+            if tel.trace is not None:
+                tel.trace.request_end(req.req_id, reason="rejected",
+                                      tick=self.tick_count)
 
     def _maybe_pa_shrink(self, shard: EngineShard, job: ActiveJob,
                          fx_job: np.ndarray) -> None:
@@ -771,8 +870,21 @@ class SAServeEngine:
         then *collect*: bring results to the host, fold champions and
         retire finished requests.  ``tick_count`` advances on the
         ladder-level clock by the most levels any job consumed (1 on an
-        idle tick)."""
+        idle tick).
+
+        With telemetry on, each phase runs inside a span (``schedule /
+        admit / dispatch / device_wait / materialize / retire``); on the
+        card each group's launch is followed by a CUDA event, and
+        ``device_wait`` waits on the events in launch order, so the host's
+        launch cost and the device time it then waits on land in separate
+        spans.  Waiting earlier changes when the host sees the results,
+        never what was computed."""
         self._run_due_ops()
+        if self.controller is not None:
+            # The controller may resize before this boundary's admission
+            # sees the fleet, like a scripted operation.
+            with self._pt("schedule"):
+                self.controller.maybe_sample(self)
         for shard in self.shards:
             shard.resident_ticks += 1
             self.slot_ticks += shard.pool.n_slots
@@ -780,10 +892,13 @@ class SAServeEngine:
         self._plan_truncations()
         if self.n_active == 0:
             self._retire_drained()
+            self._end_tick_telemetry()
             self.tick_count += 1
             return
         K = self.cfg.macro_k
+        fence = self.telemetry.enabled and self.device.type == "cuda"
         launches = []
+        waits = []      # with fence: one CUDA event per launch
         for shard in self.shards:
             groups: Dict[Tuple[str, int, int], List[ActiveJob]] = \
                 defaultdict(list)
@@ -797,6 +912,14 @@ class SAServeEngine:
                         self._launch_group_fused(shard, family, dim,
                                                  n_steps, jobs))
                     self.group_launches += 1
+                    if fence:
+                        waits.append(_launch_done(shard.device))
+        if self.telemetry.enabled:
+            self.telemetry.m_launches.inc(len(launches))
+            for i, launch in enumerate(launches):
+                with self._pt("device_wait", launch[0].index):
+                    if fence:
+                        waits[i].synchronize()
         finished = []
         advance = 1
         for launch in launches:
@@ -817,7 +940,26 @@ class SAServeEngine:
         # A draining shard whose last job just retired leaves now, so a
         # run that ends this tick leaves no empty draining shard behind.
         self._retire_drained()
+        self._end_tick_telemetry(levels=advance)
         self.tick_count += advance
+
+    def _end_tick_telemetry(self, levels: int = 1) -> None:
+        """Fold this tick's spans into the registry, the shards' phase
+        seconds and the trace (nothing when telemetry is off).  ``levels``
+        is the tick's advance on the ladder-level clock."""
+        tel = self.telemetry
+        if not tel.enabled:
+            return
+        acc, shard_acc, raw, cpu = self._pt.drain()
+        for (shard_idx, phase), secs in shard_acc.items():
+            shard = next((s for s in self.shards if s.index == shard_idx),
+                         None)
+            if shard is not None:
+                shard.phase_seconds[phase] = \
+                    shard.phase_seconds.get(phase, 0.0) + secs
+        tel.end_tick(self.tick_count, acc, shard_acc, raw, self.shards,
+                     len(self.scheduler), self.n_active, levels=levels,
+                     cpu=cpu)
 
     def _fold_level(self, shard: EngineShard, job: ActiveJob, n_steps: int,
                     f: float, xb: np.ndarray) -> Optional[str]:
@@ -833,6 +975,8 @@ class SAServeEngine:
         job.evals += n_steps * job.granted_chains
         job.T *= job.req.rho
         job.history.append(job.best_f)       # champion trajectory/level
+        if self.telemetry.enabled:
+            self.telemetry.tenant_slot_ticks(job.req.req_id, len(job.slots))
         return self._finish_reason(job)
 
     @staticmethod
@@ -1194,6 +1338,15 @@ class SAServeEngine:
             truncate_events=list(job.truncate_events)))
         shard.pool.release(job.rid)
         shard.rids.free(job.rid)
+        tel = self.telemetry
+        if tel.enabled:
+            tel.decision(self.tick_count, "retire", req_id=job.req.req_id,
+                         shard=shard.index, reason=reason, level=job.level,
+                         best_f=job.best_f)
+            if tel.trace is not None:
+                tel.trace.request_end(job.req.req_id, reason=reason,
+                                      tick=self.tick_count,
+                                      levels=job.level, best_f=job.best_f)
 
     # ----------------------------------------------------------------- run
     def run(self, max_ticks: Optional[int] = None) -> List[RequestResult]:
@@ -1226,6 +1379,11 @@ class SAServeEngine:
                         jump = min(jump, max_ticks)
                     if self._ops:
                         jump = min(jump, int(self._next_op_tick))
+                    if self.controller is not None:
+                        # Nor past the controller's next sample: idle gaps
+                        # are when scale-down decisions fire.
+                        jump = min(jump,
+                                   int(self.controller.next_sample_tick))
                     if jump > self.tick_count:
                         # The fleet held its slots across the jumped ticks.
                         delta = jump - self.tick_count
@@ -1265,8 +1423,32 @@ class SAServeEngine:
             "requests_per_s": per_s(len(self.results)),
             "sweeps_per_s": per_s(self.sweeps_done),
             "chain_steps_per_s": per_s(evals),
-            "phases": {},
+            # Per-phase wall seconds, aggregate and per shard, and CPU
+            # seconds (empty unless telemetry is on).
+            "phases": self._phase_stats(),
         }
+
+    def _phase_stats(self) -> dict:
+        if not self.telemetry.enabled:
+            return {}
+        hist = self.telemetry.m_tick_phase
+        agg = {phase: hist.summary(phase)
+               for (phase,) in sorted(hist.series)}
+        per_shard = {
+            str(s.index): dict(sorted(s.phase_seconds.items()))
+            for s in self.shards if s.phase_seconds}
+        cpu = {phase: secs for (phase,), secs
+               in sorted(self.telemetry.m_phase_cpu.series.items())}
+        return {"aggregate": agg, "per_shard": per_shard,
+                "cpu_seconds": cpu}
+
+
+def _launch_done(device: torch.device) -> torch.cuda.Event:
+    """A CUDA event recorded on ``device``'s current stream behind the
+    work enqueued so far: the ``device_wait`` fence of one launch."""
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(device))
+    return done
 
 
 def _pt_partners(n: int, parity: int):

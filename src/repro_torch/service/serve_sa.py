@@ -8,12 +8,15 @@ the three rotating on the continuous requests) and serves it through the continu
 closed-loop (``--arrivals batch``, the whole queue at t=0) or open-loop
 (``--arrivals poisson|bursty|diurnal`` at ``--rate`` requests per tick),
 on one or several engine shards with the reference's overload policies,
-migration, drain, resize, proactive degrade and completion deadlines.
+migration, drain, resize, proactive degrade and completion deadlines, and
+optionally under the closed-loop autoscaler (``--autoscale``).
 With ``--check`` (the default) every champion is compared with its
 standalone single-tenant run, replaying the request's recorded width
 (``shrink_events``) and ladder (``truncate_events``) schedules, which
 placement invariance makes bit-exact; with ``--json`` the run is reported
-as one JSON document.
+as one JSON document.  ``--trace``, ``--events`` and ``--metrics`` turn
+telemetry on and write the Perfetto trace, the decision event log and the
+Prometheus text of the run.
 
 Usage::
 
@@ -26,11 +29,11 @@ Usage::
       --overload-policy preempt --finish-deadline-factor 1.5 --drain-at 6
   python -m repro_torch.service.serve_sa --device cpu --method mixed \\
       --family mixed --requests 12 --slots 4 --chains-per-slot 16
-
-Not ported yet, and refused with "not ported": the autoscaler
-(``--autoscale`` and its ``--min-shards``/``--max-shards``/``--scale-*``
-flags) and the telemetry sinks (``--trace``, ``--events``,
-``--metrics``).
+  python -m repro_torch.service.serve_sa --device cpu --autoscale \\
+      --min-shards 1 --max-shards 4 --slots 4 --chains-per-slot 8 \\
+      --requests 24 --arrivals diurnal --rate 0.2 --period 120 \\
+      --amplitude 0.9 --finish-deadline-factor 2.0 \\
+      --trace trace.json --events events.jsonl --metrics metrics.prom
 """
 from __future__ import annotations
 
@@ -42,10 +45,13 @@ import sys
 import numpy as np
 
 from repro_torch.service.arrivals import ArrivalProcess, latency_summary
+from repro_torch.service.autoscaler import Autoscaler, AutoscalerConfig
 from repro_torch.service.engine import (EngineConfig, SAServeEngine,
                                         run_standalone)
 from repro_torch.service.request import SARequest
 from repro_torch.service.scheduler import SchedulerConfig
+from repro_torch.service.telemetry import EventLog, Telemetry
+from repro_torch.service.trace import TraceBuilder
 
 #: The synthetic-load mix, as the reference's: (objective, dim) pairs
 #: cycled over, crossed with a few cooling schedules.
@@ -198,6 +204,26 @@ def main(argv=None) -> int:
                          "min_chains) when the queue head fits nowhere")
     ap.add_argument("--shrink-budget", type=int, default=1,
                     help="max proactive shrinks per tick")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="attach the closed-loop autoscaler: sample "
+                         "backlog, occupancy and deadline headroom every "
+                         "--scale-sample-every ticks and resize the fleet "
+                         "between --min-shards and --max-shards")
+    ap.add_argument("--min-shards", type=int, default=1,
+                    help="autoscaler fleet floor")
+    ap.add_argument("--max-shards", type=int, default=4,
+                    help="autoscaler fleet ceiling")
+    ap.add_argument("--scale-sample-every", type=int, default=8,
+                    help="ticks between autoscaler control samples")
+    ap.add_argument("--scale-headroom", type=float, default=1.25,
+                    help="demand safety multiplier on scale-up")
+    ap.add_argument("--scale-low-util", type=float, default=0.35,
+                    help="utilization low watermark for scale-down")
+    ap.add_argument("--scale-window", type=int, default=3,
+                    help="consecutive low-utilization samples before a "
+                         "scale-down (hysteresis)")
+    ap.add_argument("--scale-cooldown", type=int, default=32,
+                    help="min ticks between fleet-size changes")
     ap.add_argument("--finish-deadline-factor", type=float, default=None,
                     metavar="F",
                     help="completion SLO of every request: finish within F "
@@ -252,16 +278,24 @@ def main(argv=None) -> int:
                     help="torch device (default: the card; 'cpu' runs the "
                          "kernels' plain versions)")
     ap.add_argument("--json", dest="as_json", action="store_true",
-                    help="emit one JSON document instead of the text report")
+                    help="emit one JSON document instead of the text report "
+                         "(with a metrics snapshot when telemetry is on)")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="write a Chrome/Perfetto trace_event JSON of the "
+                         "run (per-phase tick spans, request lifecycles); "
+                         "turns telemetry on")
+    ap.add_argument("--events", default=None, metavar="OUT.jsonl",
+                    help="write the deterministic scheduler-decision log "
+                         "(one JSON record per line); turns telemetry on")
+    ap.add_argument("--metrics", default=None, metavar="OUT.prom",
+                    help="write a Prometheus text exposition of the "
+                         "metrics registry; turns telemetry on")
     ap.add_argument("--check", dest="check", action="store_true",
                     default=True,
                     help="compare every champion with a standalone run "
                          "(default)")
     ap.add_argument("--no-check", dest="check", action="store_false")
-    args, rest = ap.parse_known_args(argv)
-    if rest:
-        ap.error(f"not ported to the PyTorch engine yet: {' '.join(rest)} "
-                 "(see python -m repro.service.serve_sa --help)")
+    args = ap.parse_args(argv)
     if args.family == "qap" and args.method != "sa":
         ap.error("--family qap serves plain SA only (permutation requests "
                  "have no pt/pa replica layout); drop --method " +
@@ -272,6 +306,11 @@ def main(argv=None) -> int:
     if args.drain_at is not None and args.devices < 2:
         ap.error("--drain-at needs --devices >= 2 (the survivors absorb "
                  "the drained shard's work)")
+    if args.autoscale and not (args.min_shards <= args.devices
+                               <= args.max_shards):
+        ap.error(f"--autoscale needs --min-shards <= --devices <= "
+                 f"--max-shards; got {args.min_shards} <= {args.devices} "
+                 f"<= {args.max_shards}")
     resizes = []
     for spec in args.resize or []:
         try:
@@ -294,7 +333,20 @@ def main(argv=None) -> int:
                                   low_watermark=args.low_watermark,
                                   proactive_degrade=args.proactive_degrade,
                                   shrink_budget=args.shrink_budget))
-    engine = SAServeEngine(cfg)
+    telemetry = None
+    if args.trace or args.events or args.metrics:
+        telemetry = Telemetry(
+            trace=TraceBuilder() if args.trace else None,
+            events=EventLog() if args.events else None)
+    engine = SAServeEngine(cfg, telemetry=telemetry)
+    controller = None
+    if args.autoscale:
+        controller = Autoscaler(AutoscalerConfig(
+            min_shards=args.min_shards, max_shards=args.max_shards,
+            sample_every=args.scale_sample_every,
+            headroom=args.scale_headroom, low_util=args.scale_low_util,
+            window=args.scale_window, cooldown=args.scale_cooldown))
+        engine.attach_controller(controller)
     # Scripted fleet changes land on the deterministic tick axis.
     for t, n in sorted(resizes):
         engine.schedule_op(t, lambda n=n: engine.resize(n))
@@ -316,6 +368,15 @@ def main(argv=None) -> int:
     stats = engine.stats()
     lat = latency_summary(results, ticks=engine.tick_count,
                           n_submitted=engine.n_submitted)
+    sinks = []
+    for path, what, text in (
+            (args.trace, "trace", lambda: telemetry.trace.dumps()),
+            (args.events, "events", lambda: telemetry.events.dumps()),
+            (args.metrics, "metrics", lambda: telemetry.registry.exposition())):
+        if path:
+            with open(path, "w", encoding="utf-8") as fh:
+                fh.write(text())
+            sinks.append(f"{what} -> {path}")
 
     by_id = {r.req_id: r for r in results}
     served = [req for req in reqs
@@ -359,6 +420,9 @@ def main(argv=None) -> int:
                 "rate": args.rate, "burst": args.burst,
                 "period": args.period, "amplitude": args.amplitude,
                 "arrival_seed": args.arrival_seed,
+                "autoscale": args.autoscale,
+                "min_shards": args.min_shards,
+                "max_shards": args.max_shards,
                 "finish_deadline_factor": args.finish_deadline_factor,
                 "min_levels_frac": args.min_levels_frac,
                 "device": str(engine.device),
@@ -368,6 +432,13 @@ def main(argv=None) -> int:
             "results": [r.to_dict()
                         for r in sorted(results, key=lambda r: r.req_id)],
         }
+        if controller is not None:
+            doc["autoscaler"] = {
+                "samples": controller.samples,
+                "decisions": [list(d) for d in controller.decisions],
+            }
+        if telemetry is not None:
+            doc["metrics"] = telemetry.registry.snapshot()
         if args.check:
             doc["check"] = {"bit_exact": n_exact, "served": len(served),
                             "rejected_req_ids": rejected_ids,
@@ -393,6 +464,16 @@ def main(argv=None) -> int:
         print(f"[serve_sa] elastic fleet: {stats['shards_retired']} retired "
               f"({retired or 'none'}), {stats['draining']} still draining, "
               f"{stats['shrinks']} shrinks")
+    if controller is not None:
+        moves = " ".join(f"t{t}:{kind[0]}{a}->{b}"
+                         for t, kind, a, b in controller.decisions)
+        print(f"[serve_sa] autoscaler: {controller.samples} samples, "
+              f"{len(controller.decisions)} fleet changes "
+              f"[{moves or 'none'}]")
+    if sinks:
+        print("[serve_sa] telemetry: " + ", ".join(sinks)
+              + (" (open the trace at https://ui.perfetto.dev)"
+                 if args.trace else ""))
     if stats["truncations"]:
         print(f"[serve_sa] completion SLO: {stats['truncations']} ladder "
               f"truncations across "

@@ -63,6 +63,9 @@ class EngineShard:
     resident_ticks: int = 0     # engine ticks this shard was in the fleet
                                 # (shards join and leave mid-run)
     draining: bool = False      # no new placements; evacuating to retire
+    phase_seconds: dict = dataclasses.field(default_factory=dict)
+                                # cumulative wall seconds per tick phase
+                                # (telemetry.py); empty with telemetry off
     group_cache: dict = dataclasses.field(default_factory=dict)
                                 # (family, dim, N) -> the fused macro-tick
                                 # path's two state buffers and n_padded.

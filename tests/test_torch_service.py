@@ -303,14 +303,6 @@ def test_engine_stats_and_results():
 _CFG = EngineConfig(n_slots=2, chains_per_slot=CPS, device="cpu")
 
 
-@pytest.mark.parametrize("call", [
-    lambda e: e.attach_controller(object()),
-])
-def test_deferred_features_raise(call):
-    with pytest.raises(NotImplementedError):
-        call(SAServeEngine(_CFG))
-
-
 def _outcome(fn, *args):
     """(return value or (error type, message), the engine's fleet, queue
     and submit count afterwards) of ``fn(engine, request class, engine
@@ -387,5 +379,6 @@ def test_serve_sa_cli_on_cpu(capsys):
     assert doc["check"]["bit_exact"] == doc["check"]["served"] == 4
     assert doc["config"]["device"] == "cpu"
     with pytest.raises(SystemExit):
-        serve_sa.main(argv + ["--autoscale"])
-    assert "not ported" in capsys.readouterr().err
+        serve_sa.main(argv + ["--autoscale", "--devices", "2",
+                              "--max-shards", "1"])
+    assert "--autoscale needs" in capsys.readouterr().err

@@ -269,8 +269,16 @@ def test_make_mix_and_arrivals_match_reference():
     ["--trace", "t.json"],
     ["--events", "e.jsonl"], ["--metrics", "m.prom"],
 ])
-def test_serve_sa_refuses_flags_not_ported(flags, capsys):
+def test_serve_sa_refuses_flags_not_ported(flags, capsys, tmp_path,
+                                          monkeypatch):
+    """The reference's autoscaler and telemetry flags, once refused, are
+    ported: they serve.  A flag the reference does not have is refused."""
+    monkeypatch.chdir(tmp_path)
+    argv = ["--device", "cpu", "--requests", "1", "--chains-per-slot",
+            str(CPS)] + flags
     with pytest.raises(SystemExit) as err:
-        serve_sa.main(["--device", "cpu", "--requests", "1"] + flags)
+        serve_sa.main(argv + ["--not-a-flag"])
     assert err.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+    assert "--not-a-flag" in capsys.readouterr().err
+    assert serve_sa.main(argv) == 0
+    assert "1/1 champions bit-exact" in capsys.readouterr().out
