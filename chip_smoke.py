@@ -30,8 +30,9 @@ and runs, in order, failing on the first phase that fails:
    torch.profiler trace;
 4. the main path as the paper and the reference's Table 10 bench run it:
    sa_minimize on Schwefel-512, 16384 chains, the default (full) variant,
-   all 688 levels, with B1 full's launches, the device time per level of
-   the first 100 levels, and the quality gate of phase 3;
+   all 688 levels, with B1 full's launches and B2's (two per level), the
+   device time per level of the first 100 levels, and the quality gate of
+   phase 3;
 5. V0 and V1 (async) and SOS on Schwefel-32, and a small run held against
    the plain CPU path;
 6. kernel times at the main path's shapes: CUDA events around the C entry
@@ -86,10 +87,23 @@ and runs, in order, failing on the first phase that fails:
     reference's autoscaler bench (64 diurnal requests with completion
     deadlines, 4 slots x 512 chains per shard) through static fleets of
     1-4 shards and the autoscaler, with its autoscale_committed gates and
-    every champion against its standalone replay.
+    every champion against its standalone replay;
+15. the sharded ladder and the sharding autotuner, over a world-size-1
+    NCCL process group (one card holds one NCCL rank): (a) phase 4's cell
+    through sa_minimize(mesh=...) on a (1,) mesh and on a (1, 1) mesh cut
+    along "data", in turns with the unsharded run, f_best, x_best and
+    history_f bit-equal to it with the same B1 and B2 launches and one
+    all-gather per level, and the device time per level (NCCL's kernels
+    apart) under a torch.profiler trace; phase 5's V1 and SOS cells and
+    phase 3's hybrid over the (1,) mesh, each bit-equal to its unsharded
+    run; (b) the autotuner on all ten architectures at train 4096 x 256 on
+    256 chips, 256 chains: SA within 2% of the exhaustive optimum, the
+    route (plain sweep + B2) checked by launch counts, and one
+    architecture again over the mesh.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Without a card, or without
+The card's name and power limit, then a JSON object with one entry per
+kernel, are the two lines before the last; the last line is
+``{"ok": true, "device": {...}}``.  Without a card, or without
 the rest of the repository beside it, the script exits non-zero and prints
 no result.
 """
@@ -209,6 +223,16 @@ AUTOSCALE_CFG = dict(n_slots=4, chains_per_slot=512)
 AUTOSCALE_CTL = dict(min_shards=1, max_shards=4, sample_every=4, headroom=1.25, low_util=0.5,
                      window=2, cooldown=8)
 AUTOSCALE_MIN_SAVING_PCT = 20.0        # scripts/bench_gates.toml, autoscale_committed
+# Slice 8.  Phase 15a runs phase 4's cell (and phase 5's and phase 3's)
+# through the sharded ladder over a world-size-1 NCCL group: one card
+# cannot hold two NCCL ranks.  Phase 15b is the reference's autotuner
+# bench problem (benchmarks/autotune_bench.py:15, 27-28), widened from
+# five architectures to all ten, with the example's gate
+# (examples/sharding_autotuner.py:54).
+AUTOTUNE_PROBLEM = dict(seq=4096, batch=256, chips=256)
+AUTOTUNE_CHAINS = 256
+AUTOTUNE_MAX_GAP = 0.02
+AUTOTUNE_MESH_ARCH = "deepseek-v2-lite-16b"  # the example's default
 
 
 class SmokeFailure(RuntimeError):
@@ -742,35 +766,40 @@ def phase3_main_path():
                    step0=np.full(n, step0), cidx=np.arange(n))
         compare_sweep(f"level {step0 // cfg.N}", x_in, run, ctl, cfg.N, "delta")
     return launches, dict(wall_s=wall, sa_s=sa_wall, nm_s=nm_time[0], rate=rate,
-                          sa_f=h.sa.f_best, nm_f=h.nm.f_best)
+                          sa_f=h.sa.f_best, nm_f=h.nm.f_best, result=h)
 
 
-def sa_device_share(obj, cfg_kw, wall_per_level, b1_kernel, levels=100):
+def sa_device_share(obj, cfg_kw, wall_per_level, b1_kernel, levels=100, **run_kw):
     """The SA ladder of ``cfg_kw`` cut to its first ``levels`` levels under a
     torch.profiler trace: device time per level by kernel (B1 is the
-    kernel named ``b1_kernel``), against the wall time per level of the
-    unprofiled run.  Returns the busy share, or None when no trace was
-    complete (``profile_calls``)."""
+    kernel named ``b1_kernel``; NCCL's kernels are the sharded ladder's
+    all-gathers), against the wall time per level of the unprofiled run.
+    ``run_kw`` goes to ``sa_minimize`` (``mesh=``).  Returns the busy
+    share, or None when no trace was complete (``profile_calls``), and
+    the device ms per level by op name."""
     from repro_torch.core import SAConfig, sa_minimize
     cfg = SAConfig(**{**cfg_kw, "T_min": cfg_kw["T0"] * cfg_kw["rho"] ** (levels - 0.5)})
     check(cfg.n_levels == levels, "profiled ladder cut")
-    dev, busy, ok = profile_calls(lambda: sa_minimize(obj, cfg), 1)
+    dev, busy, ok = profile_calls(lambda: sa_minimize(obj, cfg, **run_kw), 1)
     if not ok:
         log("  SA device time per level: not measured")
-        return None
-    per = {"B1": 0.0, "B2": 0.0, "other": 0.0}
+        return None, {}
+    per = {"B1": 0.0, "B2": 0.0, "NCCL": 0.0, "other": 0.0}
+    by_name = collections.Counter()
     for name, ms in dev:
         key = ("B1" if b1_kernel in name else
-               "B2" if "argmin_kernel" in name else "other")
+               "B2" if "argmin_kernel" in name else
+               "NCCL" if "nccl" in name.lower() else "other")
         per[key] += ms / levels
+        by_name[name[:60]] += ms / levels
     n_ops = len(dev)
     busy /= levels
     log(f"  SA device time per level (profiled, first {levels} levels): {busy:.4f} ms "
-        f"(B1 {per['B1']:.4f}, B2 {per['B2']:.4f}, other {per['other']:.4f} ms in "
-        f"{n_ops / levels:.1f} device ops), against {wall_per_level * 1e3:.4f} ms of "
-        f"wall per level unprofiled: the device is busy {100 * busy / (wall_per_level * 1e3):.1f}% "
-        "of the SA wall")
-    return busy / (wall_per_level * 1e3)
+        f"(B1 {per['B1']:.4f}, B2 {per['B2']:.4f}, NCCL {per['NCCL']:.4f}, other "
+        f"{per['other']:.4f} ms in {n_ops / levels:.1f} device ops), against "
+        f"{wall_per_level * 1e3:.4f} ms of wall per level unprofiled: the device is busy "
+        f"{100 * busy / (wall_per_level * 1e3):.1f}% of the SA wall")
+    return busy / (wall_per_level * 1e3), by_name
 
 
 def phase4_main_path():
@@ -784,24 +813,30 @@ def phase4_main_path():
     log(f"phase 4: main path sa_minimize(schwefel({MAIN_DIM}), {MAIN_CFG}), full "
         f"variant, {cfg.n_levels} levels")
     torch.cuda.synchronize()
-    ms.counter.launches = 0
+    read = counted_launches()
     t0 = time.perf_counter()
     r = sa_minimize(obj, cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ms.counter.launches
+    got = read()
+    launches = got["b1"]
     err = abs(r.f_best - SCHWEFEL_F_OPT)
     rate = cfg.n_evals / wall
     log(f"  SA f_best {r.f_best:.6f} (|f - f_opt| {err:.3e}), wall {wall:.3f} s, "
-        f"{cfg.n_evals} proposals, {rate:.4e} proposals/s, B1 full launches {launches}")
+        f"{cfg.n_evals} proposals, {rate:.4e} proposals/s, B1 full launches {launches}, "
+        f"B2 reductions {got['b2']}")
     check(launches == cfg.n_levels,
           f"B1 full launched {launches} times, expected {cfg.n_levels}")
+    # Two champions per level (the exchange's and best-so-far's), the
+    # initial one and the final reduce.
+    check(got["b2"] == 2 * cfg.n_levels + 2,
+          f"B2 ran {got['b2']} reductions, expected {2 * cfg.n_levels + 2}")
     check(math.isfinite(r.f_best) and r.x_best.shape == (MAIN_DIM,), "phase 4 output")
     f_x = float(obj(torch.from_numpy(r.x_best).to(DEV)))
     check(abs(f_x - r.f_best) <= 1e-4 * abs(f_x), "phase 4 (x, f) not coherent")
     check(err < 0.5 * abs(SCHWEFEL_F_OPT), f"phase 4: SA error {err}")
-    busy = sa_device_share(obj, MAIN_CFG, wall / cfg.n_levels, "sweep_full_kernel")
-    return launches, dict(wall_s=wall, rate=rate, f_best=r.f_best, busy=busy)
+    busy, _ = sa_device_share(obj, MAIN_CFG, wall / cfg.n_levels, "sweep_full_kernel")
+    return got, dict(wall_s=wall, rate=rate, f_best=r.f_best, busy=busy)
 
 
 def phase5_v0_v1():
@@ -2234,6 +2269,229 @@ def phase14b_autoscaler(smi):
     return b1
 
 
+# ------------------------------------------------------------- slice 8
+@contextlib.contextmanager
+def world_of_one():
+    """A world-size-1 NCCL process group in this process (a HashStore: no
+    network), torn down on leaving."""
+    import datetime
+    import torch.distributed as dist
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def run_counted(fn):
+    """fn() with B1's, B2's and B3's launch counters zeroed just before it
+    and read just after, and its all-gathers counted.  Returns (result,
+    wall s, launches, all-gathers)."""
+    import torch.distributed as dist
+    real = dist.all_gather_into_tensor
+    gathers = [0]
+
+    def spy(*a, **kw):
+        gathers[0] += 1
+        return real(*a, **kw)
+
+    sync()
+    read = counted_launches()
+    dist.all_gather_into_tensor = spy
+    try:
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        dist.all_gather_into_tensor = real
+    return r, wall, read(), gathers[0]
+
+
+def same_bits(a, b, history=True):
+    """Two SAResults hold the same f_best, x_best and (with ``history``)
+    history_f, bit for bit."""
+    return (np.float64(a.f_best).tobytes() == np.float64(b.f_best).tobytes()
+            and a.x_best.dtype == b.x_best.dtype and a.x_best.tobytes() == b.x_best.tobytes()
+            and (not history or (a.history_f is None) == (b.history_f is None)
+                 and (a.history_f is None or a.history_f.tobytes() == b.history_f.tobytes())))
+
+
+def phase15a_sharded(smi, p3):
+    """The sharded ladder on the card: phase 4's cell over a (1,) mesh and
+    a (1, 1) mesh cut along "data", in turns with the unsharded run; then
+    phase 5's V1 and SOS cells and phase 3's hybrid over the (1,) mesh.
+    Each equals its unsharded run bit for bit, with the same B1 and B2
+    launches and one all-gather per exchange level."""
+    from repro_torch.core import SAConfig, hybrid_minimize, sa_minimize
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.objectives import functions as F
+    cfg = SAConfig(**MAIN_CFG)
+    obj = F.schwefel(MAIN_DIM)
+    L = cfg.n_levels
+    mesh1 = make_mesh((1,), ("data",))
+    meshes = {"(1,) over data": (mesh1, None),
+              "(1, 1) over data": (make_mesh((1, 1), ("data", "model")), ("data",))}
+    log(f"phase 15a: the sharded ladder, sa_minimize(schwefel({MAIN_DIM}), {MAIN_CFG}, "
+        f"mesh=...) over a world-size-1 NCCL group, {L} levels, in turns with the "
+        f"unsharded run; {smi}")
+    # The first collective sets up NCCL's communicator: a one-level run.
+    _, t_first, _, _ = run_counted(lambda: sa_minimize(
+        obj, SAConfig(**{**MAIN_CFG, "T_min": MAIN_CFG["T0"]}), mesh=mesh1))
+    log(f"  first sharded call (one level, NCCL's communicator set up): {t_first:.3f} s")
+    labels = ["unsharded", *meshes]
+    turns = labels + labels[:0:-1] + labels[:1]
+    order = []
+    for label in turns:
+        m, a = meshes.get(label, (None, None))
+        order.append((label, run_counted(lambda: sa_minimize(obj, cfg, mesh=m, mesh_axes=a))))
+    ref, ref_wall, ref_n, ref_g = order[0][1]
+    check(ref_g == 0, f"phase 15a: the unsharded run made {ref_g} all-gathers")
+    out = {"b1_full": 0, "b1_delta": 0, "b2": 0}
+    for label, (r, wall, n, g) in order:
+        check(same_bits(r, ref), f"phase 15a {label}: f_best, x_best or history_f differ "
+              f"from the first unsharded run ({r.f_best!r} vs {ref.f_best!r})")
+        check(n == ref_n, f"phase 15a {label}: launches {n}, unsharded {ref_n}")
+        if label != "unsharded":
+            # One per exchange level, the final champion and the history.
+            check(g == L + 2, f"phase 15a {label}: {g} all-gathers, expected {L + 2}")
+            out["b1_full"] += n["b1"]
+            out["b2"] += n["b2"]
+    log(f"  f_best {ref.f_best:.6f}: f_best, x_best and history_f bit-equal to the unsharded "
+        f"run on both meshes; launches {ref_n} in every run; {L} all-gathers in the levels "
+        f"plus the final champion's and the history's")
+    log("  wall in turns: " + ", ".join(f"{label} {run[1]:.3f} s" for label, run in order))
+    walls = collections.defaultdict(list)
+    for label, run in order:
+        walls[label].append(run[1])
+    log("  unsharded, profiled:")
+    _, plain_ops = sa_device_share(obj, MAIN_CFG, min(walls["unsharded"]) / L,
+                                   "sweep_full_kernel")
+    log("  over the (1,) mesh, profiled:")
+    _, mesh_ops = sa_device_share(obj, MAIN_CFG, min(walls["(1,) over data"]) / L,
+                                  "sweep_full_kernel", mesh=mesh1)
+    extra = {k: v - plain_ops.get(k, 0.0) for k, v in mesh_ops.items()
+             if v - plain_ops.get(k, 0.0) > 1e-6}
+    log("  device ms per level added by the mesh, by op: "
+        + (", ".join(f"{k} {v:.5f}" for k, v in sorted(extra.items())) or "none measured"))
+    gather_host_costs(mesh1)
+
+    base = dict(T0=100.0, T_min=1.0, rho=0.9, N=100, use_delta_eval=True, n_chains=V1_CHAINS)
+    obj32 = F.schwefel(32)
+    for label, exchange in (("V1 async", "async"), ("SOS", "sos")):
+        c = SAConfig(**base, exchange=exchange)
+        u, _, un, _ = run_counted(lambda: sa_minimize(obj32, c))
+        r, wall, n, g = run_counted(lambda: sa_minimize(obj32, c, mesh=mesh1))
+        want_g = 1 if exchange == "async" else c.n_levels + 2
+        check(same_bits(r, u, history=exchange != "async"),
+              f"phase 15a {label}: differs from the unsharded run")
+        check(exchange != "async" or r.history_f is None, "phase 15a V1: history kept")
+        check(n == un and g == want_g,
+              f"phase 15a {label}: launches {n} vs {un}, {g} all-gathers vs {want_g}")
+        out["b1_delta"] += n["b1"]
+        out["b2"] += n["b2"]
+        log(f"  schwefel(32) {label}, {V1_CHAINS} chains: f_best {r.f_best:.4f} bit-equal to "
+            f"the unsharded run, launches {n}, {g} all-gathers, wall {wall:.3f} s")
+
+    h_ref = p3["result"]
+    h, wall, n, g = run_counted(lambda: hybrid_minimize(obj, SAConfig(**DELTA_CFG), mesh=mesh1))
+    check(same_bits(h.sa, h_ref.sa) and h.nm.f_best == h_ref.nm.f_best
+          and h.x_best.tobytes() == h_ref.x_best.tobytes(),
+          "phase 15a: hybrid_minimize(mesh=) differs from phase 3's run")
+    check(n["b1"] == p3["launches"]["metropolis_sweep"] and n["b2"] == p3["launches"]["argmin_reduce"],
+          f"phase 15a hybrid: launches {n} vs phase 3's {p3['launches']}")
+    check(g == L + 2, f"phase 15a hybrid: {g} all-gathers, expected {L + 2}")
+    out["b1_delta"] += n["b1"]
+    out["b2"] += n["b2"]
+    log(f"  hybrid_minimize(mesh=) on phase 3's cell: SA {h.sa.f_best:.6f}, NM {h.nm.f_best:.6f}, "
+        f"bit-equal to phase 3's run, launches {n}, {g} all-gathers, wall {wall:.3f} s")
+    return out, mesh1
+
+
+def gather_host_costs(mesh, n=500):
+    """Host microseconds per call of the sharded exchange's parts at phase
+    4's shape, each loop of n calls ended by a synchronise: B2's local
+    champion, one all-gather of dim + 1 floats, the champion over the
+    shards given the local one, and the mesh lookup that a ladder makes
+    once."""
+    import torch.distributed as dist
+    from repro_torch.core import exchange as exch
+    x = torch.rand(MAIN_CFG["n_chains"], MAIN_DIM, device=DEV)
+    fx = torch.rand(MAIN_CFG["n_chains"], device=DEV)
+    packed = torch.rand(MAIN_DIM + 1, device=DEV)
+    out = torch.empty_like(packed)
+    shard = exch.Shard.over(mesh, ("data",))
+    xb, fb = exch.local_champion(x, fx)
+    parts = {"local_champion (B2)": lambda: exch.local_champion(x, fx),
+             "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+                 out, packed, group=shard.group),
+             "gather_champion": lambda: exch.gather_champion(xb, fb, shard),
+             "Shard.over (once per ladder)": lambda: exch.Shard.over(mesh, ("data",))}
+    cost = {}
+    for name, fn in parts.items():
+        for _ in range(20):
+            fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        sync()
+        cost[name] = (time.perf_counter() - t0) / n * 1e6
+    log(f"  host us per call ({n} calls, then a synchronise): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in cost.items()))
+    return cost
+
+
+def phase15b_autotune(smi, mesh1):
+    """The sharding autotuner on the card: SA (the plain sweep, B2's
+    champions) against the exhaustive grid for every architecture, and
+    one architecture again over the mesh."""
+    from repro_torch.configs import ARCH_IDS, get_arch
+    from repro_torch.core import SAConfig
+    from repro_torch.distributed import autotune as TA
+    levels = SAConfig(T0=1.0, T_min=1e-3, rho=0.85, N=20).n_levels   # autotune's ladder
+    log(f"phase 15b: the sharding autotuner, {len(ARCH_IDS)} architectures, "
+        f"TuneProblem(**{AUTOTUNE_PROBLEM}), n_chains {AUTOTUNE_CHAINS}, seed 0, {levels} "
+        f"levels of N = 20; constants PEAK_FLOPS {TA.PEAK_FLOPS:.4g}, HBM_BW {TA.HBM_BW:.4g}, "
+        f"LINK_BW {TA.LINK_BW:.4g}, HBM_CAP {TA.HBM_CAP:.4g} (H100 SXM5 80GB datasheet); {smi}")
+    b2 = 0
+    for aid in ARCH_IDS:
+        prob = TA.TuneProblem(cfg=get_arch(aid).model, **AUTOTUNE_PROBLEM)
+        (choice, cost), wall, n, _ = run_counted(
+            lambda: TA.autotune(prob, n_chains=AUTOTUNE_CHAINS, seed=0))
+        t0 = time.perf_counter()
+        ex_choice, ex_cost = TA.exhaustive_best(prob)
+        sync()
+        t_ex = time.perf_counter() - t0
+        gap = (cost - ex_cost) / ex_cost
+        log(f"  {aid}: SA {cost * 1e3:.4f} ms/step {choice} in {wall:.3f} s; exhaustive "
+            f"{ex_cost * 1e3:.4f} ms/step {ex_choice} in {t_ex:.4f} s; gap {100 * gap:.3f}%; "
+            f"launches {n}")
+        check(cost <= (1.0 + AUTOTUNE_MAX_GAP) * ex_cost,
+              f"phase 15b {aid}: SA cost {cost} above {1 + AUTOTUNE_MAX_GAP} x {ex_cost}")
+        check(n["b1"] == 0 and n["b2"] == 2 * levels + 2,
+              f"phase 15b {aid}: route (plain sweep + B2) not taken: launches {n}")
+        b2 += n["b2"]
+    prob = TA.TuneProblem(cfg=get_arch(AUTOTUNE_MESH_ARCH).model, **AUTOTUNE_PROBLEM)
+    want = TA.autotune(prob, n_chains=AUTOTUNE_CHAINS, seed=0)
+    got, wall, n, g = run_counted(
+        lambda: TA.autotune(prob, n_chains=AUTOTUNE_CHAINS, seed=0, mesh=mesh1))
+    check(got == want, f"phase 15b: autotune(mesh=) {got} differs from {want}")
+    check(g == levels + 1, f"phase 15b: {g} all-gathers, expected {levels + 1}")
+    b2 += n["b2"]
+    log(f"  {AUTOTUNE_MESH_ARCH} over the (1,) mesh: {got[0]}, {got[1] * 1e3:.4f} ms/step, "
+        f"equal to the unsharded run; {g} all-gathers, wall {wall:.3f} s")
+    return b2
+
+
+def phase15_sharded(smi, p3):
+    with world_of_one():
+        out, mesh1 = phase15a_sharded(smi, p3)
+        out["b2"] += phase15b_autotune(smi, mesh1)
+    return out
+
+
 def b3_bound(chains, n, n_slots, n_steps=QAP_STEPS):
     """The least time of B3: p read and written once, f and the blocks' F
     and D; two threefry2x32 per move on the integer lanes plus the
@@ -2498,8 +2756,9 @@ def main(argv=None) -> int:
         return 0
     b1_err = phase1_sweep(gen)
     b2_err = phase2_argmin(gen)
-    launches, _ = phase3_main_path()
-    full_launches, _ = phase4_main_path()
+    launches, p3 = phase3_main_path()
+    p4, _ = phase4_main_path()
+    full_launches = p4["b1"]
     phase5_v0_v1()
     t = phase6_times(gen)
     b2_route_times(gen)
@@ -2513,6 +2772,7 @@ def main(argv=None) -> int:
     temper = phase13_tempering()
     tel_launches = phase14a_telemetry()
     auto_b1 = phase14b_autoscaler(smi)
+    p15 = phase15_sharded(smi, dict(p3, launches=launches))
     b1 = dict(route="cuda", source="src/repro_torch/kernels/csrc/metropolis_sweep.cu",
               replaces="src/repro/kernels/metropolis_sweep.py:81", library_ms=None)
     kernels = [
@@ -2520,14 +2780,15 @@ def main(argv=None) -> int:
          "launches": launches["metropolis_sweep"],
          "launches_by_path": {"phase 3": launches["metropolis_sweep"],
                               "phase 10": elastic_b1, "phase 13": temper["b1"],
-                              "phase 14a": tel_launches["b1"], "phase 14b": auto_b1},
+                              "phase 14a": tel_launches["b1"], "phase 14b": auto_b1,
+                              "phase 15": p15["b1_delta"]},
          "max_abs_err": max(b1_err["delta"], temper["max_abs_err"]),
          "ms": t["delta"][0], "wrapper_ms": t["delta"][1], "plain_ms": t["delta"][2],
          "bound_ms": t["delta"][3], "bound_by": t["delta"][4]},
         {"name": "metropolis_sweep_full", **b1,
          "launches": full_launches,
          "launches_by_path": {"phase 4": full_launches, "phase 11": suite["b1"],
-                              "phase 12": table7["b1"]},
+                              "phase 12": table7["b1"], "phase 15": p15["b1_full"]},
          "max_abs_err": max(b1_err["full"], suite["max_abs_err"], table7["max_abs_err"]),
          "ms": t["full"][0], "wrapper_ms": t["full"][1], "plain_ms": t["full"][2],
          "bound_ms": t["full"][3], "bound_by": t["full"][4]},
@@ -2535,8 +2796,9 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/kernels/csrc/reduce_min.cu",
          "replaces": "src/repro/kernels/reduce_min.py:24",
          "launches": launches["argmin_reduce"],
-         "launches_by_path": {"phase 3": launches["argmin_reduce"],
-                              "phase 11": suite["b2"], "phase 12": table7["b2"]},
+         "launches_by_path": {"phase 3": launches["argmin_reduce"], "phase 4": p4["b2"],
+                              "phase 11": suite["b2"], "phase 12": table7["b2"],
+                              "phase 15": p15["b2"]},
          "max_abs_err": b2_err,
          "ms": t["b2"][0], "wrapper_ms": t["b2"][1], "plain_ms": t["b2"][2],
          "bound_ms": t["b2"][3], "bound_by": "bytes", "library_ms": t["b2"][4]},
@@ -2551,8 +2813,8 @@ def main(argv=None) -> int:
          "bound_by": b3[4], "library_ms": None},
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}))
     print(smi)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

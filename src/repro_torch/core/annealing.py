@@ -21,6 +21,14 @@ The sweep is counter-based (``kernels/rng.py``): level ``lvl`` draws steps
 reference's ``sa_minimize`` draws from ``jax.random`` instead, so the two
 agree in distribution, and level by level with a composition of
 ``repro.kernels.ops.metropolis_sweep`` and ``repro.core.exchange``.
+
+With a mesh (:func:`build_sharded_ladder`) every rank runs its contiguous
+slice of the chains and the exchange gathers one champion per shard
+(``core/exchange.py``).  Each chain keeps its global index in every draw,
+so a sharded run follows the unsharded one chain for chain: the same
+``f_best`` at any world size.  Best-so-far stays local to a shard, as in
+the reference, and the final reduce folds it in; the history is the first
+shard's.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from repro_torch.core import exchange as exch
 from repro_torch.core import metropolis
 from repro_torch.core.metropolis import DTYPES
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import check_mesh, shard_count, shard_index
 from repro_torch.objectives.base import Objective
 
 
@@ -113,18 +122,21 @@ def sweeps_in_kernel(objective: Objective, cfg: SAConfig) -> bool:
 
 
 def _sweep(state: "LadderState", lvl: int, T: float, objective: Objective,
-           cfg: SAConfig):
+           cfg: SAConfig, chain_base: int):
     step0 = lvl * cfg.N
     if sweeps_in_kernel(objective, cfg):
         return ops.metropolis_sweep(
             state.x, T, cfg.seed, step0, kid=objective.kernel_id,
             n_steps=cfg.N, variant="delta" if cfg.use_delta_eval else "full",
-            device=state.x.device)
+            chain_base=chain_base, device=state.x.device)
+    cidx = (chain_base + torch.arange(state.x.shape[0], device=state.x.device)
+            if chain_base else None)
     if cfg.use_delta_eval:
         return metropolis.sweep_delta(state.x, T, cfg.seed, step0,
-                                      objective=objective, n_steps=cfg.N)
+                                      objective=objective, n_steps=cfg.N,
+                                      cidx=cidx)
     return metropolis.sweep_full(state.x, state.fx, T, cfg.seed, step0,
-                                 objective=objective, n_steps=cfg.N)
+                                 objective=objective, n_steps=cfg.N, cidx=cidx)
 
 
 def init_state(x0c: torch.Tensor, *, objective: Objective,
@@ -137,11 +149,16 @@ def init_state(x0c: torch.Tensor, *, objective: Objective,
 
 
 def level_step(state: LadderState, lvl: int, T: float, *,
-               objective: Objective, cfg: SAConfig) -> LadderState:
-    """One temperature level: sweep of length N, exchange, best-so-far."""
-    x, fx = _sweep(state, lvl, T, objective, cfg)
+               objective: Objective, cfg: SAConfig,
+               shard: Optional[exch.Shard] = None) -> LadderState:
+    """One temperature level: sweep of length N, exchange, best-so-far.
+    With ``shard`` the chains are this rank's slice and the exchange runs
+    over the shard's mesh dims."""
+    x, fx = _sweep(state, lvl, T, objective, cfg,
+                   shard.chain_base if shard else 0)
     if cfg.exchange != "async" and lvl % cfg.exchange_period == 0:
-        x, fx = exch.EXCHANGES[cfg.exchange](x, fx, T, seed=cfg.seed, lvl=lvl)
+        x, fx = exch.EXCHANGES[cfg.exchange](x, fx, T, seed=cfg.seed, lvl=lvl,
+                                             shard=shard)
     xb, fb = exch.local_champion(x, fx)
     better = fb < state.best_f
     best_x = torch.where(better, xb, state.best_x)
@@ -151,15 +168,18 @@ def level_step(state: LadderState, lvl: int, T: float, *,
     return LadderState(x, fx, best_x, best_f, state.hist)
 
 
-def run_ladder(x0c: torch.Tensor, *, objective: Objective, cfg: SAConfig):
-    """Run the whole ladder from per-chain states ``x0c`` (chains, dim).
+def run_ladder(x0c: torch.Tensor, *, objective: Objective, cfg: SAConfig,
+               shard: Optional[exch.Shard] = None):
+    """Run the whole ladder from per-chain states ``x0c`` (chains, dim):
+    all the chains, or with ``shard`` this rank's slice of them.
 
     Returns (best_x (dim,), best_f 0-d, hist (n_levels,) or None), all on
-    x0c's device.  ``cfg`` is taken as :func:`sa_minimize` has checked
-    it."""
+    x0c's device; sharded, the same on every rank, with the first shard's
+    history.  ``cfg`` is taken as :func:`sa_minimize` has checked it."""
     state = init_state(x0c, objective=objective, cfg=cfg)
     for lvl, T in enumerate(cfg.ladder().tolist()):
-        state = level_step(state, lvl, T, objective=objective, cfg=cfg)
+        state = level_step(state, lvl, T, objective=objective, cfg=cfg,
+                           shard=shard)
     # Final champion reduce over the chains and the carried best (the paper
     # V1's reduceMin; a refinement no-op for V2).
     n = state.fx.shape[0]
@@ -167,22 +187,62 @@ def run_ladder(x0c: torch.Tensor, *, objective: Objective, cfg: SAConfig):
     fb, j = exch.champion_index(fa)
     xa = state.x.index_select(0, torch.clamp(j, max=n - 1).reshape(1).long())[0]
     best_x = torch.where(j == n, state.best_x, xa)
-    return best_x, fb, state.hist
+    hist = state.hist
+    if shard is not None:
+        best_x, fb = exch.gather_champion(best_x, fb, shard)
+        if hist is not None:
+            hist = exch.gather_shards(hist, shard)[0]
+    return best_x, fb, hist
+
+
+def build_sharded_ladder(objective: Objective, cfg: SAConfig, mesh,
+                         mesh_axes=None):
+    """The sharded annealing program: chains cut along the dims
+    ``mesh_axes`` (default: all) of ``mesh``, a ``DeviceMesh``.
+
+    Every rank calls the returned function with the global ``x0c``
+    (n_chains, dim) and runs its slice ``[r*n/R, (r+1)*n/R)``, ``r`` its
+    coordinate over ``mesh_axes`` and ``R`` the product of their sizes;
+    ranks off those dims are replicas.  The function returns (best_x,
+    best_f, hist) as :func:`run_ladder` does, the same on every rank.  V1
+    (``async``) stays free of communication until the final reduce, so
+    its history is off, as in the reference."""
+    axes = check_mesh(mesh, mesh_axes)
+    n_shards = shard_count(mesh, axes)
+    if cfg.n_chains % n_shards:
+        raise ValueError(
+            f"n_chains={cfg.n_chains} not divisible by mesh size {n_shards}")
+    if cfg.exchange == "async" and cfg.record_history:
+        cfg = dataclasses.replace(cfg, record_history=False)
+    per = cfg.n_chains // n_shards
+    shard = exch.Shard.over(mesh, axes, shard_index(mesh, axes) * per)
+
+    def sharded(x0c):
+        return run_ladder(x0c[shard.chain_base:shard.chain_base + per],
+                          objective=objective, cfg=cfg, shard=shard)
+    return sharded
 
 
 def sa_minimize(objective: Objective, cfg: SAConfig, x0=None, *,
                 device=None, mesh=None, mesh_axes=None) -> SAResult:
     """Minimize ``objective`` with parallel SA on ``device`` (default: the
-    card), in ``cfg.dtype``.
+    card, or the mesh's device type), in ``cfg.dtype``.
 
     Without ``x0`` the chains start uniform over the box, drawn from a
     ``torch.Generator`` on the device seeded with ``cfg.seed``; a given
-    ``x0`` (dim,) is broadcast to every chain."""
-    if mesh is not None or mesh_axes is not None:
-        raise NotImplementedError(
-            "sa_minimize(mesh=...): the sharded ladder "
-            "(build_sharded_ladder) is not ported yet")
+    ``x0`` (dim,) is broadcast to every chain.  With ``mesh`` (a
+    ``DeviceMesh``, ``launch.mesh.make_mesh``) every rank of its process
+    group calls this, samples the same global chains and runs its slice
+    of them (:func:`build_sharded_ladder`); every rank returns the same
+    result."""
     _check_config(cfg)
+    if mesh is not None or mesh_axes is not None:
+        check_mesh(mesh, mesh_axes)
+        if device is None:
+            device = mesh.device_type
+        elif resolve_device(device).type != mesh.device_type:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device_type}")
     dev = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
     if x0 is None:
@@ -192,7 +252,11 @@ def sa_minimize(objective: Objective, cfg: SAConfig, x0=None, *,
     else:
         x0c = torch.as_tensor(x0, dtype=dtype, device=dev).reshape(
             1, objective.dim).expand(cfg.n_chains, objective.dim).contiguous()
-    best_x, best_f, hist = run_ladder(x0c, objective=objective, cfg=cfg)
+    if mesh is None:
+        best_x, best_f, hist = run_ladder(x0c, objective=objective, cfg=cfg)
+    else:
+        run = build_sharded_ladder(objective, cfg, mesh, mesh_axes)
+        best_x, best_f, hist = run(x0c)
     return SAResult(
         x_best=best_x.cpu().numpy(),
         f_best=float(best_f),

@@ -18,13 +18,25 @@ minimum crossover) and ``sos`` (stochastic crossover, Onbasoglu & Özdamar).
 The reference draws the SOS adoption uniforms from ``jax.random``; the port
 draws them from the counter-based stream ``exchange_uniform(seed,
 SOS_SALT, chain, level)``, as the reference's serving engine does.
+
+Over a mesh (the sharded ladder, ``launch/mesh.py``) each rank holds a
+contiguous slice of the chains, and the champion is the reference's
+hierarchical one: each rank's first argmin, then one all-gather of the
+``(f, x)`` pairs over the mesh dims, then the first argmin over shards, so
+ties go to the lowest shard and, within it, to the lowest chain: the
+unsharded order.  Only ``shards x (dim + 1)`` values cross ranks.  The SOS
+uniforms key on global chain indices (``chain_base`` + local index).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import rng
 from repro_torch.kernels.reduce_min import argmin_reduce
+from repro_torch.launch.mesh import axis_group, require_group
 
 #: Salts xor-ed into a request's RNG seed so the exchange-operator draws
 #: are independent of the sweep kernel's (seed, chain, step) streams.
@@ -80,18 +92,63 @@ def local_champion(x, fx):
     return x.index_select(0, i.reshape(1).long())[0], fb
 
 
-def global_champion(x, fx, axis_names=None):
-    """Champion across the chains.  The mesh path is not ported."""
-    if axis_names:
-        raise NotImplementedError(
-            "global_champion over mesh axes (the sharded ladder) is not "
-            "ported yet")
-    return local_champion(x, fx)
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """A rank's place in a sharded ladder, resolved once per ladder: the
+    process group over the mesh dims its chains are cut along and the
+    rows of an all-gather over it that form its shards, in shard order
+    (``launch.mesh.axis_group``), and the global index of its first
+    chain."""
+
+    group: object
+    rows: tuple
+    chain_base: int = 0
+
+    @classmethod
+    def over(cls, mesh, axis_names, chain_base: int = 0) -> "Shard":
+        require_group()
+        if mesh is None:
+            raise TypeError("axis_names needs mesh= (launch.mesh.make_mesh)")
+        group, rows = axis_group(mesh, axis_names)
+        return cls(group, tuple(rows), chain_base)
 
 
-def exchange_sync(x, fx, T, *, seed, lvl):
-    """Paper V2: every chain restarts from the champion."""
-    xb, fb = global_champion(x, fx)
+def gather_shards(t, shard: Shard):
+    """Every shard's copy of the 1-D tensor ``t``: one
+    ``all_gather_into_tensor`` over the shard's group.  Returns (shards,
+    t.numel()), row ``s`` from the rank at shard coordinate ``s``."""
+    n = dist.get_world_size(shard.group)
+    out = t.new_empty(n * t.numel())
+    dist.all_gather_into_tensor(out, t.contiguous(), group=shard.group)
+    out = out.view(n, -1)
+    return out if shard.rows == tuple(range(n)) else out[list(shard.rows)]
+
+
+def gather_champion(xb, fb, shard: Shard):
+    """The champion over shards of each rank's champion ``(xb (dim,), fb
+    0-d)``: the first argmin over the gathered values, the same on every
+    rank."""
+    packed = gather_shards(torch.cat([fb.reshape(1).to(xb.dtype), xb]), shard)
+    j = torch.argmin(packed[:, 0]).reshape(1)
+    row = packed.index_select(0, j)[0]
+    return row[1:], row[0].to(fb.dtype)
+
+
+def global_champion(x, fx, axis_names=None, mesh=None):
+    """Champion across the chains and, with ``axis_names``, across the
+    shards of ``mesh`` along those dims.  Returns (x row (dim,), 0-d f)."""
+    return _champion(x, fx, Shard.over(mesh, axis_names) if axis_names else None)
+
+
+def _champion(x, fx, shard):
+    xb, fb = local_champion(x, fx)
+    return (xb, fb) if shard is None else gather_champion(xb, fb, shard)
+
+
+def exchange_sync(x, fx, T, *, seed, lvl, shard=None):
+    """Paper V2: every chain restarts from the champion (over the shards
+    of ``shard``, a :class:`Shard`, when given)."""
+    xb, fb = _champion(x, fx, shard)
     return xb.expand_as(x), fb.expand_as(fx)
 
 
@@ -106,11 +163,14 @@ def sos_adopt_prob(fx, fb, T):
     return torch.where(d > t, torch.ones_like(p_within), p_within)
 
 
-def exchange_sos(x, fx, T, *, seed, lvl):
+def exchange_sos(x, fx, T, *, seed, lvl, shard=None):
     """Stochastic crossover: chain c adopts the champion when
-    ``exchange_uniform(seed, SOS_SALT, c, lvl) <= sos_adopt_prob``."""
-    xb, fb = global_champion(x, fx)
+    ``exchange_uniform(seed, SOS_SALT, c, lvl) <= sos_adopt_prob``; with
+    ``shard``, local chain i is global chain ``shard.chain_base + i``."""
+    xb, fb = _champion(x, fx, shard)
     cidx = torch.arange(fx.shape[0], device=fx.device)
+    if shard is not None:
+        cidx = cidx + shard.chain_base
     u = exchange_uniform(seed, SOS_SALT, cidx, lvl)
     adopt = u <= sos_adopt_prob(fx, fb, T)
     x = torch.where(adopt[:, None], xb[None, :], x)
@@ -118,7 +178,7 @@ def exchange_sos(x, fx, T, *, seed, lvl):
     return x, fx
 
 
-def exchange_none(x, fx, T, *, seed, lvl):
+def exchange_none(x, fx, T, *, seed, lvl, shard=None):
     return x, fx
 
 

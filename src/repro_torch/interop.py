@@ -14,6 +14,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.annealing import SAConfig
+from repro_torch.models.model import LayerSpec, ModelConfig
 from repro_torch.objectives import SUITE
 from repro_torch.objectives import functions as F
 from repro_torch.objectives.base import Objective
@@ -40,6 +41,15 @@ def sa_config_from_dict(d: dict) -> SAConfig:
     """An ``SAConfig`` from ``dataclasses.asdict`` of a reference config;
     unknown keys raise."""
     return _from_dict(SAConfig, d)
+
+
+def model_config_from_dict(d: dict) -> ModelConfig:
+    """A ``ModelConfig`` from ``dataclasses.asdict`` of a reference config,
+    whose ``blocks`` hold each ``LayerSpec`` as a dict; unknown keys
+    raise."""
+    blocks = tuple((tuple(_from_dict(LayerSpec, s) for s in pattern), reps)
+                   for pattern, reps in d["blocks"])
+    return _from_dict(ModelConfig, {**d, "blocks": blocks})
 
 
 def sa_request_from_dict(d: dict) -> SARequest:

@@ -25,14 +25,29 @@ def _states(x, device):
 
 
 def metropolis_sweep(x, T, seed, step0, *, kid, n_steps: int,
-                     variant: str = "delta", blk: int = 256, device=None):
-    """N-step Metropolis sweep over all chains of ``x`` (chains, dim).
+                     variant: str = "delta", blk: int = 256,
+                     chain_base: int = 0, device=None):
+    """N-step Metropolis sweep over all chains of ``x`` (chains, dim), row
+    ``i`` drawing the streams of chain ``chain_base + i`` (a shard's slice
+    of a larger job).
 
     Returns (x_out (chains, dim), f_out (chains,)) on ``device``."""
     x = _states(x, device)
-    return metropolis_sweep_kernel(
-        x, T, seed, step0, kid=kid, n_steps=n_steps,
-        blk=min(blk, x.shape[0]), variant=variant)
+    chains = x.shape[0]
+    blk = min(blk, chains)
+    if not chain_base:
+        return metropolis_sweep_kernel(x, T, seed, step0, kid=kid,
+                                       n_steps=n_steps, blk=blk, variant=variant)
+    # Per-block bases need whole blocks: pad with dummy chains at the
+    # origin, as the kernel's own padding does, and drop them after.
+    pad = (-chains) % blk
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad, x.shape[1]))])
+    base = chain_base + blk * torch.arange(x.shape[0] // blk, device=x.device)
+    xo, fo = metropolis_sweep_kernel(x, T, seed, step0, kid=kid,
+                                     n_steps=n_steps, blk=blk, variant=variant,
+                                     chain_base=base)
+    return xo[:chains], fo[:chains]
 
 
 def metropolis_sweep_slots(x, kids, T_blocks, seeds, step0s, chain_base, *,

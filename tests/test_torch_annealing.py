@@ -189,9 +189,11 @@ def test_config_round_trips_and_deferred_paths_raise():
     with pytest.raises(ValueError, match="unknown dtype"):
         sa_minimize(TF.schwefel(2), dataclasses.replace(small, dtype="float16"),
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded ladder"):
+    # The mesh path runs (tests/test_torch_sharded.py); a mesh must be a
+    # DeviceMesh, and a champion over mesh axes needs a process group.
+    with pytest.raises(TypeError, match="DeviceMesh"):
         sa_minimize(TF.schwefel(2), SAConfig(), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(RuntimeError, match="init_process_group"):
         texch.global_champion(torch.zeros(2, 2), torch.zeros(2), ("x",))
     with pytest.raises(ValueError, match="unknown exchange"):
         sa_minimize(TF.schwefel(2), SAConfig(exchange="ring"), device="cpu")

@@ -21,6 +21,9 @@ from repro_torch.kernels import reduce_min as trm
 from repro_torch.objectives import functions as TF
 from repro_torch.service import EngineConfig, SARequest, SAServeEngine, run_standalone
 from repro_torch.service import serve_sa
+from repro_torch.configs import get_arch
+from repro_torch.distributed import autotune as TA
+from repro_torch.launch import mesh as tmesh
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -62,6 +65,9 @@ def no_card(monkeypatch):
                            EngineConfig(n_slots=2, chains_per_slot=4)),
     lambda: serve_sa.main(["--family", "qap", "--requests", "2", "--slots", "2",
                            "--chains-per-slot", "4"]),
+    lambda: tmesh.make_mesh((1,), ("data",)),
+    lambda: TA.exhaustive_best(TA.TuneProblem(get_arch("whisper-base").model, 16, 4, 4)),
+    lambda: TA.autotune(TA.TuneProblem(get_arch("whisper-base").model, 16, 4, 4), 4),
 ])
 def test_entry_points_need_the_card_by_default(no_card, call):
     with pytest.raises(RuntimeError, match="no CUDA device"):
