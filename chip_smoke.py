@@ -99,7 +99,21 @@ and runs, in order, failing on the first phase that fails:
     run; (b) the autotuner on all ten architectures at train 4096 x 256 on
     256 chips, 256 chains: SA within 2% of the exhaustive optimum, the
     route (plain sweep + B2) checked by launch counts, and one
-    architecture again over the mesh.
+    architecture again over the mesh;
+16. the dense LLM scaffold at full width and depth, random weights, TF32
+    off: (a) stablelm-1.6b in bf16 served by launch/serve.py's loop (32
+    requests, prompt 256, 64 new tokens, 8 slots, s_max 512): prefill ms
+    per request and decode ms per tick (medians, CUDA events), tokens/s,
+    ticks, weight, cache and peak card memory, the decode tick's byte
+    bound and its share of it, and a profiler trace of 10 ticks (device
+    busy share, top device ops); every request 64 tokens, all logits
+    finite; (b) in float32 at its width: teacher-forced decode of
+    positions 64-95 against train-mode logits, the card's forward against
+    the CPU's at depth 2, eight requests at batch 8 against batch 1 (every
+    difference a near-tie); (c) gemma3-4b in bf16 (4 requests, prompt 1536
+    past the 1024 window, 32 new tokens, 4 slots, s_max 2048) with 16a's
+    timings, and in float32 teacher-forced decode after the 1536-token
+    prefill against train mode.  It launches none of B1-B3 (counters).
 
 The card's name and power limit, then a JSON object with one entry per
 kernel, are the two lines before the last; the last line is
@@ -111,6 +125,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -129,6 +144,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 # Hopper has 64 INT32 lanes per SM beside its 128 FP32 ones:
 # 132 SMs x 64 lanes x 1.98 GHz boost clock.
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -233,6 +249,24 @@ AUTOTUNE_PROBLEM = dict(seq=4096, batch=256, chips=256)
 AUTOTUNE_CHAINS = 256
 AUTOTUNE_MAX_GAP = 0.02
 AUTOTUNE_MESH_ARCH = "deepseek-v2-lite-16b"  # the example's default
+# Slice 9.  Phase 16 serves the dense LLM scaffold at full width and depth
+# in the reference's serving dtypes (bf16 parameters and compute,
+# src/repro/launch/steps.py:311-314), random weights from a seed.  16a:
+# stablelm-1.6b (global attention, MHA); 16c: gemma3-4b, whose prompt is
+# longer than its 1024-token window, so prefill takes the cache's roll.
+# Prompt plus max_new stays within s_max: a global layer's buffer would
+# wrap past it.
+LLM_SERVE = dict(arch="stablelm-1.6b", requests=32, prompt=256, max_new=64, batch=8, s_max=512)
+LLM_WINDOW = dict(arch="gemma3-4b", requests=4, prompt=1536, max_new=32, batch=4, s_max=2048)
+# 16b, float32 at stablelm's width: teacher-forced decode of positions
+# 64-95 after a 64-token prefill (tests/test_archs_smoke.py:83-111 at full
+# width), the card's forward against the CPU's at depth 2, and eight
+# requests at batch 8 against batch 1.  Logits at the reference's own
+# tolerance (tests/test_archs_smoke.py:97-98).
+LLM_TF = dict(prompt=64, decode=32, s_max=128)
+LLM_CPU = dict(layers=2, prompt=32)
+LLM_BATCH = dict(requests=8, prompt=64, max_new=16, s_max=128)
+LLM_RTOL = LLM_ATOL = 2e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -2492,6 +2526,289 @@ def phase15_sharded(smi, p3):
     return out
 
 
+# ------------------------------------------------------------- slice 9
+def tree_map(fn, tree):
+    """fn on every tensor of a nested dict/list of tensors."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tensor_bytes(tree):
+    """Bytes of every tensor of a nested dict/list of tensors."""
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(tensor_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def llm_cfg(arch, dtype, **over):
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(arch).model, param_dtype=dtype, compute_dtype=dtype,
+                               **over)
+
+
+def llm_bound(cfg, tokens, keys, read_bytes):
+    """The least time of one forward over ``tokens`` query positions per
+    request (``keys`` key positions each, per layer), in ms, and what
+    bounds it: the bytes of ``read_bytes`` (the weights, plus the cache a
+    decode tick reads) at the HBM rate, or the operations: the matmuls of
+    every parameter and the head in the compute dtype (bf16 at its dense
+    tensor-core peak, float32 at the non-tensor-core one) plus the float32
+    scores and attention output (4 · H · hd per query-key pair and
+    layer)."""
+    D, V = cfg.d_model, cfg.vocab_size
+    layer_params = cfg.param_count()[0] - (V * D if cfg.tie_embeddings else 2 * V * D)
+    mm = 2 * tokens * (layer_params + V * D)
+    att = 4 * cfg.n_heads * cfg.head_dim * cfg.n_layers * tokens * keys
+    mm_rate = BF16_OPS_PER_S if cfg.compute_dtype == "bfloat16" else FP32_OPS_PER_S
+    ops_ms = (mm / mm_rate + att / FP32_OPS_PER_S) * 1e3
+    bytes_ms = read_bytes / HBM_BYTES_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+@contextlib.contextmanager
+def timed_forward():
+    """Every ``models.model.forward`` call of the serving path (the
+    driver's prefills and the steps' decode ticks) timed with CUDA events
+    by mode, and its logits' non-finite values counted on the card.
+    Yields {"prefill": [ms], "decode": [ms], "bad": tensor}, filled on
+    leaving."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import model as M
+    real = M.forward
+    marks = {"prefill": [], "decode": []}
+    out = {"prefill": [], "decode": [], "bad": torch.zeros((), dtype=torch.int64, device=DEV)}
+
+    def wrapped(params, cfg, tokens=None, **kw):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        logits, caches = real(params, cfg, tokens, **kw)
+        b.record()
+        marks[kw.get("mode", "train")].append((a, b))
+        out["bad"] += (~torch.isfinite(logits)).sum()
+        return logits, caches
+
+    M.forward = serve_mod.forward = wrapped
+    try:
+        yield out
+    finally:
+        M.forward = serve_mod.forward = real
+        torch.cuda.synchronize()
+        for mode, pairs in marks.items():
+            out[mode] = [a.elapsed_time(b) for a, b in pairs]
+
+
+def device_by_op(fn, n, top=8):
+    """The device time of n calls of fn, per call, summed by the aten op
+    that launched it (self time), its largest ``top`` as text with each
+    op's calls per fn()."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        sync()
+    ops = sorted((e for e in prof.key_averages()
+                  if e.key.startswith("aten::") and e.self_device_time_total > 0),
+                 key=lambda e: e.self_device_time_total, reverse=True)
+    return ", ".join(f"{e.key} {e.self_device_time_total / 1e3 / n:.3f} ms ({e.count // n})"
+                     for e in ops[:top])
+
+
+def serve_load(smi, label, cfg, load, seed=0):
+    """One full-width serving run through ``launch.serve.serve`` (after a
+    two-request warm-up), logged: timings, rates, memory, the decode
+    tick's bound and a profiler trace of 10 ticks."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    model = M.Model(cfg, device=DEV, seed=seed)
+    sync()
+    init_s = time.perf_counter() - t0
+    weight_bytes = tensor_bytes(model.params())
+    rng = np.random.default_rng(seed)
+    queue = [rng.integers(1, cfg.vocab_size, size=load["prompt"]).astype(np.int32)
+             for _ in range(load["requests"])]
+    kw = dict(batch=load["batch"], max_new=load["max_new"], s_max=load["s_max"], device=DEV)
+    serve_mod.serve(cfg, model, queue[:2], **dict(kw, max_new=4))     # warm-up
+    cache_bytes = tensor_bytes(M.init_cache(cfg, load["batch"], load["s_max"],
+                                            dtype=getattr(torch, cfg.compute_dtype), device=DEV))
+    torch.cuda.reset_peak_memory_stats()
+    with timed_forward() as times:
+        t0 = time.perf_counter()
+        outputs, ticks = serve_mod.serve(cfg, model, queue, **kw)
+        sync()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(all(len(o) == load["max_new"] for o in outputs),
+          f"phase {label}: a request got {sorted({len(o) for o in outputs})} tokens, not "
+          f"{load['max_new']}")
+    check(int(times["bad"]) == 0, f"phase {label}: {int(times['bad'])} non-finite logits")
+    check(len(times["decode"]) == ticks and len(times["prefill"]) == len(queue),
+          f"phase {label}: {len(times['prefill'])} prefills and {len(times['decode'])} ticks timed")
+    tokens = sum(len(o) for o in outputs)
+    pre_ms, tick_ms = statistics.median(times["prefill"]), statistics.median(times["decode"])
+    pre_bound = llm_bound(cfg, load["prompt"], load["prompt"], weight_bytes)
+    tick_bound = llm_bound(cfg, load["batch"], load["s_max"],
+                           weight_bytes + cache_bytes)
+    log(f"  {cfg.name} {cfg.param_dtype}: {model.cfg.param_count()[0] / 1e9:.3f} B parameters, "
+        f"init {init_s:.2f} s; {len(queue)} requests x prompt {load['prompt']}, max_new "
+        f"{load['max_new']}, {load['batch']} slots, s_max {load['s_max']}; {smi}")
+    log(f"  prefill {pre_ms:.3f} ms per request (median of {len(queue)}, CUDA events; bound "
+        f"{pre_bound[0]:.3f} ms by {pre_bound[1]}, {100 * pre_bound[0] / pre_ms:.1f}% of it)")
+    log(f"  decode {tick_ms:.3f} ms per tick (median of {ticks}; min "
+        f"{min(times['decode']):.3f}, max {max(times['decode']):.3f}); bound "
+        f"{tick_bound[0]:.3f} ms by {tick_bound[1]} ((weights {fmt_mem(weight_bytes)} + cache "
+        f"{fmt_mem(cache_bytes)}) / 3.35 TB/s for bytes), the tick at "
+        f"{100 * tick_bound[0] / tick_ms:.1f}% of it")
+    log(f"  {tokens} tokens in {ticks} ticks, wall {wall:.3f} s, {tokens / wall:.1f} tokens/s; "
+        f"weights {fmt_mem(weight_bytes)}, cache {fmt_mem(cache_bytes)}, peak card memory "
+        f"{fmt_mem(peak)}; every request {load['max_new']} tokens, all logits finite")
+    # A profiler trace of 10 ticks of the full batch at the last tick's
+    # positions (each rewrites its own cache slots with the same values).
+    slots = serve_mod.SlotCache(cfg, load["batch"], load["s_max"],
+                                getattr(torch, cfg.compute_dtype), DEV)
+    step, params = make_serve_step(cfg), model.params()
+    tok = torch.as_tensor([[o[-1]] for o in outputs[-load["batch"]:]], dtype=torch.int32,
+                          device=DEV)
+    pos = torch.full((load["batch"],), load["prompt"] + load["max_new"] - 1,
+                     dtype=torch.int32, device=DEV)
+    def tick():
+        return step(params, slots.caches, tok, pos)[0].cpu()
+
+    dev, busy, ok = profile_calls(tick, 10)
+    by_op = collections.Counter()
+    for name, ms in dev:
+        by_op[name[:70]] += ms / 10
+    top = ", ".join(f"{name} {ms:.3f}" for name, ms in by_op.most_common(6))
+    log(f"  profiler, 10 ticks: device {busy:.3f} ms per tick{'' if ok else ' (incomplete)'} in "
+        f"{tick_ms:.3f} ms of tick: busy {100 * busy / tick_ms:.1f}%; {len(dev) / 10:.0f} device "
+        f"ops per tick; top kernels (ms per tick): {top}")
+    log(f"  device ms per tick by aten op (self): {device_by_op(tick, 10)}")
+    # What the float32 attention costs in reads alone: every layer's k and
+    # v cast to float32 once, as _gqa_scores and _gqa_out do each tick.
+    cast_ms = cuda_ms(lambda: [c[n].float() for c in slots.caches for n in ("k", "v")])
+    log(f"  casting the cache's k and v to float32 once: {cast_ms:.3f} ms per tick "
+        f"({100 * cast_ms / busy:.1f}% of the tick's device time)")
+    del model, slots
+
+
+def assert_close(label, got, want, rtol=LLM_RTOL, atol=LLM_ATOL):
+    """``got`` within atol + rtol·|want| of ``want``; logs the largest
+    error beside the tolerance."""
+    got, want = got.float(), want.float().to(got.device)
+    err = (got - want).abs()
+    excess = float((err - (atol + rtol * want.abs())).max())
+    log(f"    {label}: max |err| {float(err.max()):.3e}, tolerance {atol:g} + {rtol:g}·|ref| "
+        f"(worst excess {excess:.3e})")
+    check(excess <= 0, f"phase 16: {label} beyond its tolerance")
+
+
+def teacher_forced(label, model, tokens, pre, s_max):
+    """Prefill ``tokens[:, :pre]``, then decode the rest one at a time
+    (teacher-forced): each decode step's logits against train mode's."""
+    from repro_torch.models import model as M
+    cfg = model.cfg
+    full = model(tokens)
+    caches = M.init_cache(cfg, 1, s_max, dtype=torch.float32, device=DEV)
+    logits, caches = model(tokens[:, :pre], caches=caches, mode="prefill")
+    assert_close(f"{label} prefill logits (positions 0-{pre - 1}) vs train", logits,
+                 full[:, :pre])
+    steps = []
+    for i in range(pre, tokens.shape[1]):
+        out, caches = model(tokens[:, i:i + 1], caches=caches, mode="decode",
+                            positions=torch.full((1, 1), i, dtype=torch.int32, device=DEV))
+        steps.append(out[:, 0])
+    assert_close(f"{label} decode logits (positions {pre}-{tokens.shape[1] - 1}) vs train",
+                 torch.stack(steps, 1), full[:, pre:])
+
+
+def near_tie_ok(model, prompt, got, want):
+    """Two greedy token lists of a request agree, or part at a step where
+    the model's train-mode logits put both tokens within the tolerance of
+    each other."""
+    if got == want:
+        return True
+    i = next(j for j in range(len(got)) if got[j] != want[j])
+    seq = torch.as_tensor(np.concatenate([prompt, np.asarray(want[:i], np.int32)]),
+                          device=DEV)[None]
+    logits = model(seq)[0, -1]
+    a, b = float(logits[got[i]]), float(logits[want[i]])
+    log(f"    tokens part at step {i}: {got[i]} vs {want[i]}, logits {a:.6f} vs {b:.6f}")
+    return abs(a - b) <= 2 * (LLM_ATOL + LLM_RTOL * max(abs(a), abs(b)))
+
+
+def phase16_llm(smi):
+    """The dense LLM scaffold at full width and depth on the card: (a)
+    stablelm-1.6b served in bf16; (b) float32 checks at its width; (c)
+    gemma3-4b's sliding-window path served in bf16, with a float32
+    teacher-forced check over the window's roll.  Returns B1's, B2's and
+    B3's launches in the phase (it checks they are none)."""
+    from repro_torch.configs.common import dense_blocks
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import model as M
+    t_phase = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    # float32 products are the reference's float32 products only with TF32 off.
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    read = counted_launches()
+    try:
+        log(f"phase 16a: LLM serving at full width, bf16, TF32 off; {smi}")
+        serve_load(smi, "16a", llm_cfg(LLM_SERVE["arch"], "bfloat16"), LLM_SERVE)
+
+        log("phase 16b: float32 checks at full width (stablelm-1.6b), TF32 off")
+        cfg32 = llm_cfg(LLM_SERVE["arch"], "float32")
+        model = M.Model(cfg32, device=DEV, seed=1)
+        rng = np.random.default_rng(1)
+        toks = torch.as_tensor(rng.integers(0, cfg32.vocab_size, (1, LLM_TF["prompt"] +
+                                                                  LLM_TF["decode"])), device=DEV)
+        teacher_forced("16b.1", model, toks, LLM_TF["prompt"], LLM_TF["s_max"])
+        queue = [rng.integers(1, cfg32.vocab_size, size=LLM_BATCH["prompt"]).astype(np.int32)
+                 for _ in range(LLM_BATCH["requests"])]
+        kw = dict(max_new=LLM_BATCH["max_new"], s_max=LLM_BATCH["s_max"], device=DEV)
+        wide, _ = serve_mod.serve(cfg32, model, queue, batch=LLM_BATCH["requests"], **kw)
+        one, _ = serve_mod.serve(cfg32, model, queue, batch=1, **kw)
+        same = sum(w == o for w, o in zip(wide, one))
+        check(all(near_tie_ok(model, q, w, o) for q, w, o in zip(queue, wide, one)),
+              "phase 16b.3: batch 8 and batch 1 part beyond a near-tie")
+        log(f"    16b.3: {len(queue)} requests at batch {len(queue)} and batch 1: {same} of "
+            f"{len(queue)} token lists equal, every other parts at a near-tie")
+        del model
+        cfg2 = dataclasses.replace(cfg32, blocks=dense_blocks(LLM_CPU["layers"]))
+        model = M.Model(cfg2, device=DEV, seed=2)
+        host = tree_map(lambda t: t.detach().cpu(), model.params())
+        toks = torch.as_tensor(np.random.default_rng(2).integers(
+            0, cfg2.vocab_size, (1, LLM_CPU["prompt"])), device=DEV)
+        assert_close(f"16b.2 card vs CPU forward ({LLM_CPU['layers']} layers)", model(toks),
+                     M.forward(host, cfg2, toks.cpu()))
+        del model, host
+        torch.cuda.empty_cache()
+
+        log(f"phase 16c: the sliding-window path at full width, bf16; {smi}")
+        serve_load(smi, "16c", llm_cfg(LLM_WINDOW["arch"], "bfloat16"), LLM_WINDOW)
+        torch.cuda.empty_cache()
+        cfg32 = llm_cfg(LLM_WINDOW["arch"], "float32")
+        model = M.Model(cfg32, device=DEV, seed=3)
+        toks = torch.as_tensor(np.random.default_rng(3).integers(
+            0, cfg32.vocab_size, (1, LLM_WINDOW["prompt"] + LLM_WINDOW["max_new"])), device=DEV)
+        teacher_forced("16c float32", model, toks, LLM_WINDOW["prompt"], LLM_WINDOW["s_max"])
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    n = read()
+    check(n == {"b1": 0, "b2": 0, "b3": 0}, f"phase 16: launched {n} of B1-B3")
+    log(f"  B1, B2 and B3 launches in phase 16: {n}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return n
+
+
 def b3_bound(chains, n, n_slots, n_steps=QAP_STEPS):
     """The least time of B3: p read and written once, f and the blocks' F
     and D; two threefry2x32 per move on the integer lanes plus the
@@ -2773,6 +3090,7 @@ def main(argv=None) -> int:
     tel_launches = phase14a_telemetry()
     auto_b1 = phase14b_autoscaler(smi)
     p15 = phase15_sharded(smi, dict(p3, launches=launches))
+    p16 = phase16_llm(smi)
     b1 = dict(route="cuda", source="src/repro_torch/kernels/csrc/metropolis_sweep.cu",
               replaces="src/repro/kernels/metropolis_sweep.py:81", library_ms=None)
     kernels = [
@@ -2781,14 +3099,15 @@ def main(argv=None) -> int:
          "launches_by_path": {"phase 3": launches["metropolis_sweep"],
                               "phase 10": elastic_b1, "phase 13": temper["b1"],
                               "phase 14a": tel_launches["b1"], "phase 14b": auto_b1,
-                              "phase 15": p15["b1_delta"]},
+                              "phase 15": p15["b1_delta"], "phase 16": p16["b1"]},
          "max_abs_err": max(b1_err["delta"], temper["max_abs_err"]),
          "ms": t["delta"][0], "wrapper_ms": t["delta"][1], "plain_ms": t["delta"][2],
          "bound_ms": t["delta"][3], "bound_by": t["delta"][4]},
         {"name": "metropolis_sweep_full", **b1,
          "launches": full_launches,
          "launches_by_path": {"phase 4": full_launches, "phase 11": suite["b1"],
-                              "phase 12": table7["b1"], "phase 15": p15["b1_full"]},
+                              "phase 12": table7["b1"], "phase 15": p15["b1_full"],
+                              "phase 16": p16["b1"]},
          "max_abs_err": max(b1_err["full"], suite["max_abs_err"], table7["max_abs_err"]),
          "ms": t["full"][0], "wrapper_ms": t["full"][1], "plain_ms": t["full"][2],
          "bound_ms": t["full"][3], "bound_by": t["full"][4]},
@@ -2798,7 +3117,7 @@ def main(argv=None) -> int:
          "launches": launches["argmin_reduce"],
          "launches_by_path": {"phase 3": launches["argmin_reduce"], "phase 4": p4["b2"],
                               "phase 11": suite["b2"], "phase 12": table7["b2"],
-                              "phase 15": p15["b2"]},
+                              "phase 15": p15["b2"], "phase 16": p16["b2"]},
          "max_abs_err": b2_err,
          "ms": t["b2"][0], "wrapper_ms": t["b2"][1], "plain_ms": t["b2"][2],
          "bound_ms": t["b2"][3], "bound_by": "bytes", "library_ms": t["b2"][4]},
@@ -2807,7 +3126,8 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/qap_sweep.py:165",
          "launches": b3_launches,
          "launches_by_path": {"phase 8": b3_launches, "phase 10": elastic_b3,
-                              "phase 13": temper["b3"], "phase 14a": tel_launches["b3"]},
+                              "phase 13": temper["b3"], "phase 14a": tel_launches["b3"],
+                              "phase 16": p16["b3"]},
          "max_abs_err": b3_err,
          "ms": b3[0], "wrapper_ms": b3[1], "plain_ms": b3[2], "bound_ms": b3[3],
          "bound_by": b3[4], "library_ms": None},

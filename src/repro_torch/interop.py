@@ -1,9 +1,9 @@
 """State carried across between the JAX package and the port.
 
-The "weights" of this system are its configurations and chain states.
-These helpers take them from the plain Python/numpy forms both packages
-share, so the same inputs reach both without this package importing JAX
-or ``repro``.
+The "weights" of this system are its configurations, chain states and
+the LLM scaffold's parameters.  These helpers take them from the plain
+Python/numpy forms both packages share, so the same inputs reach both
+without this package importing JAX or ``repro``.
 """
 from __future__ import annotations
 
@@ -100,3 +100,37 @@ def chains_from_numpy(x, fx, device=None, dtype=torch.float32):
 def chains_to_numpy(x, fx):
     """The inverse of :func:`chains_from_numpy`."""
     return x.detach().cpu().numpy(), fx.detach().cpu().numpy()
+
+
+def _tensor(a, device):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":   # ml_dtypes' bfloat16: carry the bits
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.tensor(a, device=device)
+
+
+def _tree(t, fn):
+    return {k: _tree(v, fn) for k, v in t.items()} if isinstance(t, dict) else fn(t)
+
+
+def model_params_from_jax(params, cfg: ModelConfig, device=None) -> dict:
+    """The port's parameters (``models.model.init_params``' layout) from
+    the reference's ``init_params`` pytree, its leaves as numpy arrays
+    (bfloat16 ones as ``ml_dtypes``' type), on ``device`` (default: the
+    card) in the leaves' dtype.  Each ``params["groups"][g][i]`` leaf
+    carries a leading ``repeats`` axis from the reference's vmapped init;
+    it is split into one dict per layer, in the order the blocks apply
+    them."""
+    dev = resolve_device(device)
+    out = {k: _tensor(params[k], dev) for k in ("embed", "final_norm", "lm_head")
+           if k in params}
+    groups = params["groups"]
+    shapes = [(len(pattern), reps) for pattern, reps in cfg.blocks]
+    found = [(len(g), len(np.asarray(g[0]["norm1"]))) for g in groups]
+    if found != shapes:
+        raise ValueError(f"the pytree's groups hold (layers, repeats) {found}; "
+                         f"{cfg.name}'s blocks are {shapes}")
+    out["layers"] = [_tree(group[i], lambda a: _tensor(np.asarray(a)[r], dev))
+                     for (n, reps), group in zip(shapes, groups)
+                     for r in range(reps) for i in range(n)]
+    return out

@@ -1,1 +1,2 @@
-"""Model configurations (the forward pass waits for the model slice)."""
+"""The dense LLM model: configuration, layers, parameters, caches and
+the forward pass."""

@@ -1,18 +1,37 @@
-"""Model configuration, the counterpart of the configuration half of
+"""The dense LLM model of the port, the counterpart of
 ``repro.models.model``: :class:`LayerSpec` and :class:`ModelConfig` with
 every field and default of the reference, the derived sizes and the
-analytic parameter count the sharding autotuner reads.
+analytic parameter count; then the parameters (:func:`init_params`, the
+:class:`Model` module over them), the decode caches (:func:`init_cache`)
+and :func:`forward` in its train, prefill and decode modes.
 
 Depth heterogeneity is ``blocks = ((pattern, repeats), ...)``: each
 pattern is a tuple of :class:`LayerSpec` applied in order, repeated
 ``repeats`` times.  ``blocks_have``, which the reference attaches to the
-class in ``repro/configs/common.py``, is a method here.  The parameters,
-the forward pass and the caches wait for the model slice of the port.
+class in ``repro/configs/common.py``, is a method here.  The reference
+scans each group over a stacked ``repeats`` axis; the port keeps one
+parameter dict and one cache dict per layer, in the order the blocks
+apply them.
+
+Only attention layers with the dense SwiGLU MLP are ported: MLA, MoE,
+Mamba, cross-attention, the encoder-decoder and learned positions
+(``use_rope=False``) raise ``NotImplementedError``.  The reference's
+``shardctx.constrain`` calls and the knobs ``seq_parallel``,
+``seq_shard_kv`` and ``serve_params_tp_only`` choose layouts over a
+device mesh and change no value; on one card the port leaves them out,
+and ``remat`` and ``scan_unroll`` likewise.  ``lm_loss`` waits for the
+training slice.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch._device import resolve_device
+from repro_torch.models import layers as L
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,3 +153,179 @@ class ModelConfig:
             total += per * self.n_enc_layers
             active += per * self.n_enc_layers
         return total, active
+
+
+# ---------------------------------------------------------------- support
+_NOT_PORTED = {
+    "mla": "MLA attention: ROADMAP.md section A, item 2a (MLA and the local MoE)",
+    "moe": "the MoE MLP: ROADMAP.md section A, item 2a (MLA and the local MoE)",
+    "mamba": "Mamba layers: ROADMAP.md section A, item 2b (Mamba and its chunked scan)",
+    "none": "layers without an MLP (Mamba's): ROADMAP.md section A, item 2b",
+    "cross_attn": "cross-attention: ROADMAP.md section A, item 2c (the encoder-decoder)",
+    "encdec": "the encoder-decoder: ROADMAP.md section A, item 2c (the encoder-decoder)",
+    "no_rope": "learned positions (use_rope=False): ROADMAP.md section A, item 2c "
+               "(the encoder-decoder)",
+}
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port does not run yet:
+    anything but attention layers with the dense MLP over RoPE."""
+    if cfg.kind == "encdec":
+        raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED['encdec']}")
+    if not cfg.use_rope:
+        raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED['no_rope']}")
+    for pattern, _ in cfg.blocks:
+        for spec in pattern:
+            for what in (spec.kind if spec.kind != "attn" else None,
+                         spec.mlp if spec.mlp != "dense" else None,
+                         "cross_attn" if spec.cross_attn else None):
+                if what is not None:
+                    raise NotImplementedError(
+                        f"{cfg.name}: {_NOT_PORTED.get(what, what + ' is not ported')}")
+
+
+def layer_specs(cfg: ModelConfig) -> list:
+    """Every layer's spec, in the order the blocks apply them."""
+    return [spec for pattern, reps in cfg.blocks for _ in range(reps) for spec in pattern]
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+# ------------------------------------------------------------------ init
+def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
+    """Random parameters in ``cfg.param_dtype`` on the generator's device,
+    drawn by the reference's rules (``init_params``, ``_init_layer``):
+    ``{"embed", "final_norm", ["lm_head"], "layers": [per layer]}``, each
+    layer ``{"norm1", "norm2", "attn": {wq, wk, wv, wo}, "mlp": {w_gate,
+    w_up, w_down}}``.  Each weight is drawn in float32 and cast on its
+    own, so the whole model is never held in float32."""
+    check_supported(cfg)
+    dtype, dev = _dtype(cfg.param_dtype), generator.device
+    D = cfg.d_model
+    params = {"embed": L._init(generator, (cfg.vocab_size, D), scale=0.02, dtype=dtype),
+              "final_norm": torch.zeros(D, dtype=dtype, device=dev)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L._init(generator, (D, cfg.vocab_size), dtype=dtype)
+    params["layers"] = [
+        {"norm1": torch.zeros(D, dtype=dtype, device=dev),
+         "norm2": torch.zeros(D, dtype=dtype, device=dev),
+         "attn": L.init_attention(generator, D, cfg.n_heads, cfg.n_kv_heads,
+                                  cfg.head_dim, dtype),
+         "mlp": L.init_mlp(generator, D, cfg.d_ff, dtype)}
+        for _ in layer_specs(cfg)]
+    return params
+
+
+def _as_parameters(tree):
+    if isinstance(tree, dict):
+        return nn.ParameterDict({k: _as_parameters(v) for k, v in tree.items()})
+    return nn.Parameter(tree, requires_grad=False)
+
+
+def _as_tensors(mod):
+    if isinstance(mod, nn.ParameterDict):
+        return {k: _as_tensors(v) for k, v in mod.items()}
+    return mod
+
+
+class Model(nn.Module):
+    """The dense model as a module: the parameters of :func:`init_params`
+    (or ``params``, e.g. from ``interop.model_params_from_jax``) on the
+    card unless ``device`` says otherwise, and :func:`forward` over them.
+    Serving holds them frozen (``requires_grad=False``)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0,
+                 params: Optional[dict] = None):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        dev = resolve_device(device)
+        if params is None:
+            params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+        self.top = _as_parameters({k: v for k, v in params.items() if k != "layers"})
+        self.layers = nn.ModuleList(_as_parameters(lp) for lp in params["layers"])
+
+    def params(self) -> dict:
+        """The parameters as the dict :func:`forward` takes."""
+        return {**_as_tensors(self.top), "layers": [_as_tensors(m) for m in self.layers]}
+
+    def forward(self, tokens=None, **kw):
+        return forward(self.params(), self.cfg, tokens, **kw)
+
+
+# ------------------------------------------------------------------ cache
+def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16,
+               device=None) -> list:
+    """Decode caches, one dict per layer in the order of
+    :func:`layer_specs`: ``k`` and ``v`` (batch, C, n_kv_heads, head_dim)
+    and ``pos_k`` (batch, C) int32 at int32 max, with ``C = min(s_max,
+    window)`` on window layers and ``s_max`` on global ones."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+
+    def layer_cache(spec):
+        C = min(s_max, spec.window) if spec.window else s_max
+        kv = (batch, C, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(kv, dtype=dtype, device=dev),
+                "v": torch.zeros(kv, dtype=dtype, device=dev),
+                "pos_k": torch.full((batch, C), L.INT32_MAX, dtype=torch.int32, device=dev)}
+
+    return [layer_cache(spec) for spec in layer_specs(cfg)]
+
+
+# ------------------------------------------------------------------ forward
+def _apply_layer(lp, spec: LayerSpec, cfg: ModelConfig, x, positions, cache, decode):
+    out, new_c = L.attention(lp["attn"], L.rms_norm(x, lp["norm1"]), positions,
+                             n_rep=cfg.n_heads // cfg.n_kv_heads, window=spec.window,
+                             rope_theta=cfg.rope_theta, cache=cache, decode=decode)
+    x = x + out
+    x = x + L.mlp_apply(lp["mlp"], L.rms_norm(x, lp["norm2"]))
+    return x, new_c
+
+
+def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None, positions=None,
+            caches=None, mode: str = "train"):
+    """Forward pass.
+
+    mode='train'   : full-sequence causal logits.
+    mode='prefill' : as train, but fills and returns the decode caches
+                     (one per layer, or None where ``caches`` is None).
+    mode='decode'  : tokens (B,1) against ``caches``, written in place;
+                     positions (B,1).
+
+    ``embeds`` (B, Lv, D) is the vision stub's prefix, put before the
+    tokens' embeddings.  Embeddings, the layers and the head run in
+    ``cfg.compute_dtype``; the tied head is ``x @ embed.T`` in it.
+    """
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode must be train, prefill or decode, not {mode!r}")
+    check_supported(cfg)
+    cdt = _dtype(cfg.compute_dtype)
+    decode = mode == "decode"
+
+    parts = []
+    if embeds is not None:
+        parts.append(embeds.to(cdt))
+    if tokens is not None:
+        parts.append(params["embed"][tokens].to(cdt))
+    x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+
+    specs = layer_specs(cfg)
+    caches = caches if caches is not None else [None] * len(specs)
+    new_caches = []
+    for lp, spec, c in zip(params["layers"], specs, caches):
+        x, nc = _apply_layer(lp, spec, cfg, x, positions, c, decode)
+        new_caches.append(nc)
+
+    x = L.rms_norm(x, params["final_norm"])
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = x @ head.to(cdt)
+    if mode == "train":
+        return logits
+    return logits, new_caches

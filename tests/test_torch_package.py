@@ -24,6 +24,12 @@ from repro_torch.service import serve_sa
 from repro_torch.configs import get_arch
 from repro_torch.distributed import autotune as TA
 from repro_torch.launch import mesh as tmesh
+from repro_torch.launch import serve as llm_serve
+from repro_torch.launch import steps as llm_steps
+from repro_torch.launch.train import preset_config
+from repro_torch.models import model as tmodel
+
+SMOKE = preset_config("smoke")[0]
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -68,6 +74,13 @@ def no_card(monkeypatch):
     lambda: tmesh.make_mesh((1,), ("data",)),
     lambda: TA.exhaustive_best(TA.TuneProblem(get_arch("whisper-base").model, 16, 4, 4)),
     lambda: TA.autotune(TA.TuneProblem(get_arch("whisper-base").model, 16, 4, 4), 4),
+    lambda: llm_serve.main(["--requests", "1", "--max-new", "2"]),
+    lambda: tmodel.Model(SMOKE),
+    lambda: tmodel.init_cache(SMOKE, 1, 8),
+    lambda: llm_steps.make_serve_step(SMOKE)(
+        {}, tmodel.init_cache(SMOKE, 1, 8), torch.zeros(1, 1, dtype=torch.int32),
+        torch.zeros(1, dtype=torch.int32)),
+    lambda: interop.model_params_from_jax({}, SMOKE),
 ])
 def test_entry_points_need_the_card_by_default(no_card, call):
     with pytest.raises(RuntimeError, match="no CUDA device"):
