@@ -113,7 +113,21 @@ and runs, in order, failing on the first phase that fails:
     difference a near-tie); (c) gemma3-4b in bf16 (4 requests, prompt 1536
     past the 1024 window, 32 new tokens, 4 slots, s_max 2048) with 16a's
     timings, and in float32 teacher-forced decode after the 1536-token
-    prefill against train mode.  It launches none of B1-B3 (counters).
+    prefill against train mode.  It launches none of B1-B3 (counters);
+17. MLA and the local MoE at full width, random weights, TF32 off: (a)
+    deepseek-v2-lite-16b in bf16 at full depth (27 layers, 64 routed
+    experts top-6 + 2 shared) served by launch/serve.py's loop (16
+    requests, prompt 256, 32 new tokens, 8 slots, s_max 512) with 16a's
+    metrics, and the dropped picks per prefill and per decode tick; (b)
+    in float32 at its width, depth cut: teacher-forced decode of positions
+    64-95 against train mode at 4 layers and capacity factor E/k (no
+    drops), eight requests at batch 8 against batch 1 at 1.25 (every
+    request without a dropped decode pick equal, or parting at a
+    near-tie), the card's forward and MoE dispatch against the CPU's at
+    depth 2 with drops in the prefill; (c) kimi-k2-1t-a32b in bf16 at full
+    width, depth cut to 2 (1 dense + 1 MoE of 384 experts top-8, GQA
+    64/8), served (8 requests, prompt 128, 16 new tokens, 8 slots, s_max
+    256) with 16a's metrics.  It launches none of B1-B3 (counters).
 
 The card's name and power limit, then a JSON object with one entry per
 kernel, are the two lines before the last; the last line is
@@ -267,6 +281,27 @@ LLM_TF = dict(prompt=64, decode=32, s_max=128)
 LLM_CPU = dict(layers=2, prompt=32)
 LLM_BATCH = dict(requests=8, prompt=64, max_new=16, s_max=128)
 LLM_RTOL = LLM_ATOL = 2e-4
+# Slice 10.  Phase 17 serves MLA and the local MoE in bf16, random
+# weights from a seed.  17a: deepseek-v2-lite-16b at full width and depth
+# (27 layers: 1 dense + 26 MoE, 64 routed experts top-6 + 2 shared).
+# Prompt plus max_new stays within s_max: the MLA cache wraps past it.
+LLM_MOE = dict(arch="deepseek-v2-lite-16b", requests=16, prompt=256, max_new=32, batch=8,
+               s_max=512)
+# 17b, float32 at deepseek's width, depth cut: (1) 4 layers (1 dense + 3
+# MoE) at capacity factor E/k, so C >= T and no pick drops, teacher-forced
+# decode against train mode; (2) 2 layers (1 dense + 1 MoE) at the
+# config's own 1.25, card against CPU with drops in the prefill; (3) the
+# 4 layers at 1.25, eight requests at batch 8 against batch 1.
+LLM_MOE_TF = dict(layers=4, prompt=64, decode=32, s_max=128)
+LLM_MOE_CPU = dict(layers=2, prompt=32)
+LLM_MOE_BATCH = dict(requests=8, prompt=64, max_new=16, s_max=128)
+# Router probabilities a few float32 roundings of the router product can
+# cross: a token whose picks differ between card and CPU must be this near.
+ROUTER_NEAR_TIE = 1e-6
+# 17c: kimi-k2-1t-a32b at full width, its 61 layers (2.05 TB in bf16) cut
+# to 2: 1 dense + 1 MoE of 384 experts top-8 behind GQA 64/8 attention.
+LLM_KIMI = dict(arch="kimi-k2-1t-a32b", layers=2, requests=8, prompt=128, max_new=16,
+                batch=8, s_max=256)
 
 
 class SmokeFailure(RuntimeError):
@@ -2551,21 +2586,50 @@ def llm_cfg(arch, dtype, **over):
                                **over)
 
 
-def llm_bound(cfg, tokens, keys, read_bytes):
-    """The least time of one forward over ``tokens`` query positions per
-    request (``keys`` key positions each, per layer), in ms, and what
-    bounds it: the bytes of ``read_bytes`` (the weights, plus the cache a
-    decode tick reads) at the HBM rate, or the operations: the matmuls of
-    every parameter and the head in the compute dtype (bf16 at its dense
-    tensor-core peak, float32 at the non-tensor-core one) plus the float32
-    scores and attention output (4 · H · hd per query-key pair and
-    layer)."""
-    D, V = cfg.d_model, cfg.vocab_size
-    layer_params = cfg.param_count()[0] - (V * D if cfg.tie_embeddings else 2 * V * D)
-    mm = 2 * tokens * (layer_params + V * D)
-    att = 4 * cfg.n_heads * cfg.head_dim * cfg.n_layers * tokens * keys
+def llm_bound(cfg, tokens, keys, read_bytes, decode=False):
+    """The least time of one forward over ``tokens`` query positions
+    (``keys`` key positions each, per layer), in ms, and what bounds it:
+    the bytes of ``read_bytes`` (the weights, plus the cache a decode tick
+    reads) at the HBM rate, or the operations, layer by layer, in the
+    forward's own dtypes: products of the compute dtype at its rate (bf16
+    at its dense tensor-core peak, float32 at the non-tensor-core one),
+    float32 ones (attention's float32 scores and output, p·c_kv, ctx·W_uv,
+    the router) at the float32 rate.  GQA: 4·H·hd per query-key pair.
+    MLA prefill: 2·H·(d_nope+d_rope) per pair for the scores and 2·H·d_v
+    for p·v, beside expanding c_kv through W_uk and W_uv for every token;
+    absorbed decode: 2·H·(kv_lora+d_rope) for the scores and 2·H·kv_lora
+    for p·c_kv, beside q·W_uk^T and ctx·W_uv.  MoE: the experts run E·C
+    capacity rows (C from the forward's T = ``tokens``), the shared
+    experts every token."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import layer_specs
+    D, V, H = cfg.d_model, cfg.vocab_size, cfg.n_heads
+    mm = 2 * tokens * V * D                                    # the head
+    f32 = 0
+    for spec in layer_specs(cfg):
+        mm += 2 * tokens * 2 * D                               # the norms
+        if spec.kind == "mla":
+            c, dn, dr, dv = cfg.kv_lora, cfg.d_nope, cfg.d_rope, cfg.head_dim
+            mm += 2 * tokens * (D * H * (dn + dr) + D * (c + dr) + H * dv * D)
+            if decode:
+                mm += 2 * tokens * H * dn * c + 2 * H * (c + dr) * tokens * keys
+                f32 += 2 * H * c * tokens * keys + 2 * tokens * H * c * dv
+            else:
+                mm += 2 * tokens * c * H * (dn + dv) + 2 * H * (dn + dr) * tokens * keys
+                f32 += 2 * H * dv * tokens * keys
+        else:
+            hd, kv = cfg.head_dim, cfg.n_kv_heads
+            mm += 2 * tokens * (D * (H + 2 * kv) * hd + H * hd * D)
+            f32 += 4 * H * hd * tokens * keys
+        if spec.mlp == "moe":
+            E, F = cfg.n_experts, cfg.d_ff_expert
+            C = L.moe_capacity(tokens, cfg.top_k, E, cfg.capacity_factor)
+            mm += 2 * E * C * 3 * D * F + 2 * tokens * 3 * D * cfg.n_shared * F
+            f32 += 2 * tokens * D * E
+        else:
+            mm += 2 * tokens * 3 * D * cfg.d_ff
     mm_rate = BF16_OPS_PER_S if cfg.compute_dtype == "bfloat16" else FP32_OPS_PER_S
-    ops_ms = (mm / mm_rate + att / FP32_OPS_PER_S) * 1e3
+    ops_ms = (mm / mm_rate + f32 / FP32_OPS_PER_S) * 1e3
     bytes_ms = read_bytes / HBM_BYTES_PER_S * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
@@ -2656,10 +2720,11 @@ def serve_load(smi, label, cfg, load, seed=0):
     pre_ms, tick_ms = statistics.median(times["prefill"]), statistics.median(times["decode"])
     pre_bound = llm_bound(cfg, load["prompt"], load["prompt"], weight_bytes)
     tick_bound = llm_bound(cfg, load["batch"], load["s_max"],
-                           weight_bytes + cache_bytes)
+                           weight_bytes + cache_bytes, decode=True)
     log(f"  {cfg.name} {cfg.param_dtype}: {model.cfg.param_count()[0] / 1e9:.3f} B parameters, "
-        f"init {init_s:.2f} s; {len(queue)} requests x prompt {load['prompt']}, max_new "
-        f"{load['max_new']}, {load['batch']} slots, s_max {load['s_max']}; {smi}")
+        f"{cfg.n_layers} layers, init {init_s:.2f} s; {len(queue)} requests x prompt "
+        f"{load['prompt']}, max_new {load['max_new']}, {load['batch']} slots, s_max "
+        f"{load['s_max']}; {smi}")
     log(f"  prefill {pre_ms:.3f} ms per request (median of {len(queue)}, CUDA events; bound "
         f"{pre_bound[0]:.3f} ms by {pre_bound[1]}, {100 * pre_bound[0] / pre_ms:.1f}% of it)")
     log(f"  decode {tick_ms:.3f} ms per tick (median of {ticks}; min "
@@ -2691,11 +2756,15 @@ def serve_load(smi, label, cfg, load, seed=0):
         f"{tick_ms:.3f} ms of tick: busy {100 * busy / tick_ms:.1f}%; {len(dev) / 10:.0f} device "
         f"ops per tick; top kernels (ms per tick): {top}")
     log(f"  device ms per tick by aten op (self): {device_by_op(tick, 10)}")
-    # What the float32 attention costs in reads alone: every layer's k and
-    # v cast to float32 once, as _gqa_scores and _gqa_out do each tick.
-    cast_ms = cuda_ms(lambda: [c[n].float() for c in slots.caches for n in ("k", "v")])
-    log(f"  casting the cache's k and v to float32 once: {cast_ms:.3f} ms per tick "
+    # What the float32 attention costs in reads alone: every layer's cached
+    # k and v (or c_kv and k_rope) cast to float32 once; _gqa_scores and
+    # _gqa_out cast k and v each tick, MLA's decode c_kv.
+    cast_ms = cuda_ms(lambda: [t.float() for c in slots.caches for n, t in c.items()
+                               if n != "pos_k"])
+    log(f"  casting the cache's float tensors to float32 once: {cast_ms:.3f} ms per tick "
         f"({100 * cast_ms / busy:.1f}% of the tick's device time)")
+    if cfg.n_experts:
+        moe_serve_drops(label, cfg, model, queue, kw, outputs)
     del model, slots
 
 
@@ -2707,7 +2776,7 @@ def assert_close(label, got, want, rtol=LLM_RTOL, atol=LLM_ATOL):
     excess = float((err - (atol + rtol * want.abs())).max())
     log(f"    {label}: max |err| {float(err.max()):.3e}, tolerance {atol:g} + {rtol:g}·|ref| "
         f"(worst excess {excess:.3e})")
-    check(excess <= 0, f"phase 16: {label} beyond its tolerance")
+    check(excess <= 0, f"phase {label}: beyond its tolerance")
 
 
 def teacher_forced(label, model, tokens, pre, s_max):
@@ -2805,6 +2874,197 @@ def phase16_llm(smi):
     n = read()
     check(n == {"b1": 0, "b2": 0, "b3": 0}, f"phase 16: launched {n} of B1-B3")
     log(f"  B1, B2 and B3 launches in phase 16: {n}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return n
+
+
+# ------------------------------------------------------------- slice 10
+@contextlib.contextmanager
+def counted_drops(keep=False):
+    """Every ``forward`` call (``models.model.forward``, ``launch.serve``'s
+    import of it and ``Model``'s) with the MoE dispatch of each of its MoE
+    layers.  Yields a list, filled as the calls run, of (mode, [one
+    record per MoE layer]): {"dropped": (T, k) bool on the device} and,
+    with ``keep``, the dispatch ("picks", "dest") and the router's
+    probabilities ("probs")."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    real_fwd, real_dispatch = M.forward, L.moe_dispatch
+    calls = []
+
+    def fwd(params, cfg, tokens=None, **kw):
+        calls.append((kw.get("mode", "train"), []))
+        return real_fwd(params, cfg, tokens, **kw)
+
+    def dispatch(router, xt, top_k, capacity_factor):
+        gate, picks, dest, C = real_dispatch(router, xt, top_k, capacity_factor)
+        rec = {"dropped": (dest == router.shape[-1] * C).view(-1, top_k)}
+        if keep:
+            rec.update(picks=picks, dest=dest, probs=(xt.float() @ router).softmax(-1))
+        calls[-1][1].append(rec)
+        return gate, picks, dest, C
+
+    M.forward = serve_mod.forward = fwd
+    L.moe_dispatch = dispatch
+    try:
+        yield calls
+    finally:
+        M.forward = serve_mod.forward = real_fwd
+        L.moe_dispatch = real_dispatch
+
+
+def moe_serve_drops(label, cfg, model, queue, kw, outputs):
+    """The served load again, untimed (counting syncs the host), with
+    every MoE dispatch's dropped picks counted: the same tokens as the
+    timed run, and the drops per prefill and per decode tick logged."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import layer_specs
+    with counted_drops() as calls:
+        again, _ = serve_mod.serve(cfg, model, queue, **kw)
+    check(again == outputs, f"phase {label}: the untimed run gave other tokens")
+    per = {"prefill": [], "decode": []}
+    for mode, recs in calls:
+        per[mode].append(sum(int(r["dropped"].sum()) for r in recs))
+    moe_layers = sum(spec.mlp == "moe" for spec in layer_specs(cfg))
+    for mode, T in (("prefill", len(queue[0])), ("decode", kw["batch"])):
+        C = L.moe_capacity(T, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+        n = per[mode]
+        log(f"  dropped picks per {mode} (T = {T}, C = {C} rows per expert, {T * cfg.top_k} "
+            f"picks in each of {moe_layers} MoE layers): sum {sum(n)} over {len(n)}, max "
+            f"{max(n)}, {sum(x > 0 for x in n)} of {len(n)} with a drop (untimed rerun, the same "
+            f"tokens)")
+
+
+def cut_depth(cfg, layers):
+    """``cfg`` with its first (dense) pattern once and its second (MoE)
+    pattern repeated to ``layers`` layers in all."""
+    (first, _), (moe, _) = cfg.blocks
+    return dataclasses.replace(cfg, blocks=((first, 1), (moe, layers - 1)))
+
+
+def same_dispatch(label, card, host, top_k):
+    """The card's MoE dispatch against the CPU's, layer by layer: the same
+    picks and dispatch rows, or else the first token whose picks differ
+    is a router near-tie (logged with its margin) and the rows agree
+    before it.  Returns that token over the layers, or None."""
+    first = None
+    for i, (a, b) in enumerate(zip(card, host)):
+        pa, pb = a["picks"].cpu().sort(1).values, b["picks"].sort(1).values
+        differ = (pa != pb).any(1).nonzero().flatten().tolist()
+        n = differ[0] if differ else len(pa)
+        if differ:
+            s = b["probs"][n].sort(descending=True).values
+            margin = float(s[top_k - 1] - s[top_k])
+            log(f"    {label}, MoE layer {i}: token {n} picks {pa[n].tolist()} on the card and "
+                f"{pb[n].tolist()} on the CPU; its k-th and (k+1)-th probabilities "
+                f"{float(s[top_k - 1]):.8g} and {float(s[top_k]):.8g}, margin {margin:.3g}")
+            check(margin <= ROUTER_NEAR_TIE, f"phase {label}: picks differ on a margin "
+                  f"{margin:.3g} beyond {ROUTER_NEAR_TIE:g}")
+            first = n if first is None else min(first, n)
+        check(torch.equal(a["dest"].cpu()[:n * top_k], b["dest"][:n * top_k]),
+              f"phase {label}: the dispatch rows differ before any near-tie")
+    return first
+
+
+def phase17_moe(smi):
+    """MLA and the local MoE on the card: (a) deepseek-v2-lite-16b served
+    in bf16 at full width and depth; (b) float32 checks at its width,
+    depth cut; (c) kimi-k2-1t-a32b's 384-expert layer served in bf16 at
+    full width, depth cut to 2.  Returns B1's, B2's and B3's launches in
+    the phase (it checks they are none)."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    t_phase = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    read = counted_launches()
+    try:
+        log(f"phase 17a: MLA + MoE serving at full width and depth, bf16, TF32 off; {smi}")
+        serve_load(smi, "17a", llm_cfg(LLM_MOE["arch"], "bfloat16"), LLM_MOE)
+        torch.cuda.empty_cache()
+
+        base = llm_cfg(LLM_MOE["arch"], "float32")
+        E, k, cf = base.n_experts, base.top_k, base.capacity_factor
+        log(f"phase 17b: float32 checks at full width ({base.name}), TF32 off")
+        cfg4 = dataclasses.replace(cut_depth(base, LLM_MOE_TF["layers"]), capacity_factor=E / k)
+        log(f"    17b.1 cut: depth {base.n_layers} -> {cfg4.n_layers} (1 dense + "
+            f"{cfg4.n_layers - 1} MoE); capacity factor {cf} -> E/k = {E / k:.6g}, so C >= T "
+            f"and no pick drops in any mode")
+        model = M.Model(cfg4, device=DEV, seed=4)
+        rng = np.random.default_rng(4)
+        toks = torch.as_tensor(rng.integers(0, base.vocab_size, (1, LLM_MOE_TF["prompt"] +
+                                                                 LLM_MOE_TF["decode"])), device=DEV)
+        with counted_drops() as calls:
+            teacher_forced("17b.1", model, toks, LLM_MOE_TF["prompt"], LLM_MOE_TF["s_max"])
+        drops = sum(int(r["dropped"].sum()) for _, recs in calls for r in recs)
+        check(drops == 0, f"phase 17b.1: {drops} picks dropped at capacity factor E/k")
+
+        cfg125 = dataclasses.replace(cfg4, capacity_factor=cf)
+        model = M.Model(cfg125, device=DEV, params=model.params())
+        queue = [rng.integers(1, base.vocab_size, size=LLM_MOE_BATCH["prompt"]).astype(np.int32)
+                 for _ in range(LLM_MOE_BATCH["requests"])]
+        kw = dict(max_new=LLM_MOE_BATCH["max_new"], s_max=LLM_MOE_BATCH["s_max"], device=DEV)
+        with counted_drops() as calls:
+            wide, _ = serve_mod.serve(cfg125, model, queue, batch=len(queue), **kw)
+        # Eight requests on eight slots: request i decodes in slot i.
+        slot_drops = torch.zeros(len(queue), dtype=torch.bool, device=DEV)
+        for mode, recs in calls:
+            if mode == "decode":
+                for r in recs:
+                    slot_drops |= r["dropped"].any(1)
+        exempt = slot_drops.tolist()
+        one, _ = serve_mod.serve(cfg125, model, queue, batch=1, **kw)
+        held = [(q, w, o) for q, w, o, x in zip(queue, wide, one, exempt) if not x]
+        same = sum(w == o for _, w, o in held)
+        check(all(near_tie_ok(model, q, w, o) for q, w, o in held),
+              "phase 17b.3: batch 8 and batch 1 part beyond a near-tie")
+        log(f"    17b.3 ({cfg125.n_layers} layers, capacity factor {cf}: C = "
+            f"{L.moe_capacity(len(queue), k, E, cf)} at batch {len(queue)}, "
+            f"{L.moe_capacity(1, k, E, cf)} at batch 1): {len(queue)} requests at batch "
+            f"{len(queue)} and batch 1; {sum(exempt)} had a decode pick dropped at batch "
+            f"{len(queue)}; of the other {len(held)}, {same} token lists equal, every other "
+            f"parts at a near-tie")
+        del model
+        torch.cuda.empty_cache()
+
+        cfg2 = cut_depth(base, LLM_MOE_CPU["layers"])
+        model = M.Model(cfg2, device=DEV, seed=2)
+        host = tree_map(lambda t: t.detach().cpu(), model.params())
+        T = LLM_MOE_CPU["prompt"]
+        toks = torch.as_tensor(np.random.default_rng(2).integers(0, cfg2.vocab_size, (1, T)),
+                               device=DEV)
+        with counted_drops(keep=True) as card:
+            got = model(toks)
+        with counted_drops(keep=True) as cpu:
+            want = M.forward(host, cfg2, toks.cpu())
+        dropped = sum(int(r["dropped"].sum()) for r in cpu[0][1])
+        log(f"    17b.2 cut: depth {base.n_layers} -> {cfg2.n_layers} (1 dense + 1 MoE) for the "
+            f"CPU's time; capacity factor {cf}: C = {L.moe_capacity(T, k, E, cf)} for T = {T}, "
+            f"{dropped} of {T * k} picks dropped on the CPU")
+        check(dropped > 0, "phase 17b.2: no pick dropped in the prefill")
+        t = same_dispatch("17b.2", card[0][1], cpu[0][1], k)
+        n = T if t is None else t
+        assert_close(f"17b.2 card vs CPU forward ({cfg2.n_layers} layers, dispatch "
+                     f"{'equal' if t is None else f'equal before token {t}'})",
+                     got[:, :n], want[:, :n])
+        del model, host, got, want, card, cpu
+        torch.cuda.empty_cache()
+
+        full = llm_cfg(LLM_KIMI["arch"], "bfloat16")
+        kimi = cut_depth(full, LLM_KIMI["layers"])
+        log(f"phase 17c: MoE behind GQA at full width, bf16; depth cut {full.n_layers} -> "
+            f"{kimi.n_layers} (1 dense + 1 MoE of {kimi.n_experts} experts top-{kimi.top_k}): "
+            f"the whole model does not fit one card; {smi}")
+        serve_load(smi, "17c", kimi, LLM_KIMI)
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    n = read()
+    check(n == {"b1": 0, "b2": 0, "b3": 0}, f"phase 17: launched {n} of B1-B3")
+    log(f"  B1, B2 and B3 launches in phase 17: {n}; phase wall "
         f"{time.perf_counter() - t_phase:.1f} s")
     return n
 
@@ -3091,6 +3351,7 @@ def main(argv=None) -> int:
     auto_b1 = phase14b_autoscaler(smi)
     p15 = phase15_sharded(smi, dict(p3, launches=launches))
     p16 = phase16_llm(smi)
+    p17 = phase17_moe(smi)
     b1 = dict(route="cuda", source="src/repro_torch/kernels/csrc/metropolis_sweep.cu",
               replaces="src/repro/kernels/metropolis_sweep.py:81", library_ms=None)
     kernels = [
@@ -3099,7 +3360,8 @@ def main(argv=None) -> int:
          "launches_by_path": {"phase 3": launches["metropolis_sweep"],
                               "phase 10": elastic_b1, "phase 13": temper["b1"],
                               "phase 14a": tel_launches["b1"], "phase 14b": auto_b1,
-                              "phase 15": p15["b1_delta"], "phase 16": p16["b1"]},
+                              "phase 15": p15["b1_delta"], "phase 16": p16["b1"],
+                              "phase 17": p17["b1"]},
          "max_abs_err": max(b1_err["delta"], temper["max_abs_err"]),
          "ms": t["delta"][0], "wrapper_ms": t["delta"][1], "plain_ms": t["delta"][2],
          "bound_ms": t["delta"][3], "bound_by": t["delta"][4]},
@@ -3107,7 +3369,7 @@ def main(argv=None) -> int:
          "launches": full_launches,
          "launches_by_path": {"phase 4": full_launches, "phase 11": suite["b1"],
                               "phase 12": table7["b1"], "phase 15": p15["b1_full"],
-                              "phase 16": p16["b1"]},
+                              "phase 16": p16["b1"], "phase 17": p17["b1"]},
          "max_abs_err": max(b1_err["full"], suite["max_abs_err"], table7["max_abs_err"]),
          "ms": t["full"][0], "wrapper_ms": t["full"][1], "plain_ms": t["full"][2],
          "bound_ms": t["full"][3], "bound_by": t["full"][4]},
@@ -3117,7 +3379,8 @@ def main(argv=None) -> int:
          "launches": launches["argmin_reduce"],
          "launches_by_path": {"phase 3": launches["argmin_reduce"], "phase 4": p4["b2"],
                               "phase 11": suite["b2"], "phase 12": table7["b2"],
-                              "phase 15": p15["b2"], "phase 16": p16["b2"]},
+                              "phase 15": p15["b2"], "phase 16": p16["b2"],
+                              "phase 17": p17["b2"]},
          "max_abs_err": b2_err,
          "ms": t["b2"][0], "wrapper_ms": t["b2"][1], "plain_ms": t["b2"][2],
          "bound_ms": t["b2"][3], "bound_by": "bytes", "library_ms": t["b2"][4]},
@@ -3127,7 +3390,7 @@ def main(argv=None) -> int:
          "launches": b3_launches,
          "launches_by_path": {"phase 8": b3_launches, "phase 10": elastic_b3,
                               "phase 13": temper["b3"], "phase 14a": tel_launches["b3"],
-                              "phase 16": p16["b3"]},
+                              "phase 16": p16["b3"], "phase 17": p17["b3"]},
          "max_abs_err": b3_err,
          "ms": b3[0], "wrapper_ms": b3[1], "plain_ms": b3[2], "bound_ms": b3[3],
          "bound_by": b3[4], "library_ms": None},

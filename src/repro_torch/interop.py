@@ -120,7 +120,9 @@ def model_params_from_jax(params, cfg: ModelConfig, device=None) -> dict:
     card) in the leaves' dtype.  Each ``params["groups"][g][i]`` leaf
     carries a leading ``repeats`` axis from the reference's vmapped init;
     it is split into one dict per layer, in the order the blocks apply
-    them."""
+    them.  Nested dicts (an MoE layer's ``mlp["shared"]``) stay nested,
+    and each leaf keeps its dtype: the MoE router stays float32 under
+    bf16 weights."""
     dev = resolve_device(device)
     out = {k: _tensor(params[k], dev) for k in ("embed", "final_norm", "lm_head")
            if k in params}

@@ -1,2 +1,2 @@
-"""The dense LLM model: configuration, layers, parameters, caches and
+"""The LLM model: configuration, layers, parameters, caches and
 the forward pass."""

@@ -1,7 +1,8 @@
-"""Dense layers of the LLM scaffold, the port's counterpart of the dense
-half of ``repro.models.layers``: RMSNorm, RoPE, the SwiGLU MLP and GQA
-attention with its prefill and decode caches, the circular buffer of
-sliding-window layers included.
+"""Layers of the LLM scaffold, the port's counterpart of
+``repro.models.layers`` but for Mamba: RMSNorm, RoPE, the SwiGLU MLP, GQA
+attention with its prefill and decode caches (the circular buffer of
+sliding-window layers included), MLA with its compressed cache and
+absorbed decode, and the top-k MoE with capacity dispatch.
 
 Functional, as the reference is: parameters are dicts of tensors built by
 the ``init_*`` functions from an explicit ``torch.Generator``, and the
@@ -9,13 +10,16 @@ apply functions take a leading batch axis.  The numerics follow the
 reference's: RMSNorm and RoPE in float32, attention scores and the
 attention output in float32 whatever the compute dtype (the reference's
 ``preferred_element_type=float32`` and its float32 ``p`` times a bf16
-``v``).  MLA, MoE and Mamba wait for the next slice of the port.
+``v``).  MLA and the MoE follow the reference's dtypes step by step
+(see :func:`mla_attention` and :func:`moe_apply`).  Mamba waits for the
+next slice of the port.
 """
 from __future__ import annotations
 
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -32,6 +36,19 @@ def _init(gen, shape, scale=None, dtype=torch.float32):
     scale = scale if scale is not None else 1.0 / math.sqrt(max(1, fan_in))
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
     return w.mul_(scale).to(dtype)
+
+
+def _init_experts(gen, shape, dtype):
+    """:func:`_init` of an (experts, fan_in, fan_out) stack, drawn one
+    expert at a time so that no float32 copy of the whole stack is held.
+    The scale is the reference's, ``1/sqrt(shape[0])``: its ``_init``
+    takes the expert axis as fan-in."""
+    scale = 1.0 / math.sqrt(max(1, shape[0]))
+    w = torch.empty(shape, dtype=dtype, device=gen.device)
+    for e in range(shape[0]):
+        w[e] = torch.randn(shape[1:], generator=gen, dtype=torch.float32,
+                           device=gen.device).mul_(scale)
+    return w
 
 
 def rms_norm(x, scale, eps=1e-6):
@@ -167,6 +184,99 @@ def attention(params, x, positions, *, n_rep: int, window: Optional[int],
     return proj, new_cache
 
 
+# ----------------------------------------------------------------------- MLA
+def init_mla(gen, d_model, n_heads, *, kv_lora, d_nope, d_rope, d_v, dtype):
+    return {
+        "wq": _init(gen, (d_model, n_heads, d_nope + d_rope), dtype=dtype),
+        "w_dkv": _init(gen, (d_model, kv_lora), dtype=dtype),
+        "w_kr": _init(gen, (d_model, d_rope), dtype=dtype),
+        "w_uk": _init(gen, (kv_lora, n_heads, d_nope), dtype=dtype),
+        "w_uv": _init(gen, (kv_lora, n_heads, d_v), dtype=dtype),
+        "wo": _init(gen, (n_heads, d_v, d_model),
+                    scale=1.0 / math.sqrt(n_heads * d_v), dtype=dtype),
+    }
+
+
+def _same_dtype(a, b):
+    """``a`` and ``b`` in their promoted dtype, as a mixed einsum of the
+    reference computes."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt), b.to(dt)
+
+
+def _mla_scores(spec, q, keys, q_r, k_r, scale):
+    """The two score terms (``spec`` the first's einsum), each one matmul
+    in the inputs' dtype (rounded once), added in that dtype, then cast
+    to float32 and scaled: the reference's order, whose score einsums
+    have no float32 output type."""
+    s = torch.einsum(spec, *_same_dtype(q, keys))
+    return (s + torch.einsum("bshr,btr->bsht", *_same_dtype(q_r, k_r))).float() * scale
+
+
+def mla_attention(params, x, positions, *, d_nope: int, d_rope: int,
+                  rope_theta: float = 10000.0, cache=None, decode: bool = False):
+    """DeepSeek-V2 multi-head latent attention.
+
+    The cache holds the compressed per-token state: ``c_kv`` (B, C,
+    kv_lora), ``k_rope`` (B, C, d_rope) and ``pos_k`` (B, C) int32.
+    Train/prefill take the plain form (keys and values expanded from
+    ``c_kv``) under the causal mask; prefill returns the cache padded to C
+    with positions at int32 max.  Decode takes the absorbed form: the
+    token's state is written at slot ``pos % C`` in place (no window, so
+    positions past C overwrite the oldest), ``W_uk`` folds into the query
+    and ``W_uv`` into the output, and the scores are rank-``kv_lora``
+    products against the cache.  ``p`` is float32, so ``p·v``, ``p·c_kv``
+    and ``ctx·W_uv`` are float32 products, cast to ``x``'s dtype after.
+    """
+    B, S, _ = x.shape
+    # A float32 scalar, as the reference's numpy float32 scale.
+    scale = float(1.0 / np.sqrt(d_nope + d_rope).astype(np.float32))
+    q = _heads(x, params["wq"])
+    q_n = q[..., :d_nope]
+    q_r = rope(q[..., d_nope:], positions, theta=rope_theta)
+    c_kv = x @ params["w_dkv"]
+    k_r = rope((x @ params["w_kr"])[:, :, None, :], positions, theta=rope_theta)[:, :, 0, :]
+
+    if not decode:
+        k_n = _heads(c_kv, params["w_uk"])
+        v = _heads(c_kv, params["w_uv"])
+        causal = positions[:, None, :] <= positions[:, :, None]
+        p = _softmax(_mla_scores("bshk,bthk->bsht", q_n, k_n, q_r, k_r, scale),
+                     causal[:, :, None, :])
+        out = torch.einsum("bsht,bthk->bshk", p, v.float()).to(x.dtype)
+        new_cache = None
+        if cache is not None:
+            C = cache["c_kv"].shape[1]
+            if C < S:
+                raise ValueError(f"a prompt of {S} positions does not fit an MLA "
+                                 f"layer's cache of {C}")
+            ckv = cache["c_kv"].new_zeros(cache["c_kv"].shape)
+            krc = cache["k_rope"].new_zeros(cache["k_rope"].shape)
+            pc = positions.new_full((B, C), INT32_MAX).to(torch.int32)
+            ckv[:, :S], krc[:, :S], pc[:, :S] = c_kv, k_r, positions
+            new_cache = {"c_kv": ckv, "k_rope": krc, "pos_k": pc}
+    else:
+        C = cache["c_kv"].shape[1]
+        pos = positions[:, 0]
+        slot = pos.long() % C
+        rows = torch.arange(B, device=x.device)
+        cache["c_kv"][rows, slot] = c_kv[:, 0].to(cache["c_kv"].dtype)
+        cache["k_rope"][rows, slot] = k_r[:, 0].to(cache["k_rope"].dtype)
+        cache["pos_k"][rows, slot] = pos.to(torch.int32)
+        ckv = cache["c_kv"]
+        q_abs = torch.einsum("bshk,chk->bshc", q_n, params["w_uk"])
+        valid = cache["pos_k"] <= pos[:, None]
+        p = _softmax(_mla_scores("bshc,btc->bsht", q_abs, ckv, q_r, cache["k_rope"], scale),
+                     valid[:, None, None, :])
+        ctx = torch.einsum("bsht,btc->bshc", p, ckv.float())
+        out = torch.einsum("bshc,chk->bshk", ctx, params["w_uv"].float()).to(x.dtype)
+        new_cache = cache
+
+    H, dv, D = params["wo"].shape
+    proj = out.reshape(B, S, H * dv) @ params["wo"].reshape(H * dv, D)
+    return proj, new_cache
+
+
 # ----------------------------------------------------------------------- MLP
 def init_mlp(gen, d_model, d_ff, dtype):
     return {
@@ -178,3 +288,84 @@ def init_mlp(gen, d_model, d_ff, dtype):
 
 def mlp_apply(params, x):
     return swiglu(x, params["w_gate"], params["w_up"], params["w_down"])
+
+
+# ----------------------------------------------------------------------- MoE
+def init_moe(gen, d_model, d_ff_expert, n_experts, n_shared, d_ff_shared, dtype):
+    """The router, always float32 (the reference's), the (E, D, F) and
+    (E, F, D) expert stacks, drawn one expert at a time, and the shared
+    experts as one SwiGLU MLP of width ``n_shared * d_ff_shared``."""
+    p = {
+        "router": _init(gen, (d_model, n_experts), scale=0.02, dtype=torch.float32),
+        "w_gate": _init_experts(gen, (n_experts, d_model, d_ff_expert), dtype),
+        "w_up": _init_experts(gen, (n_experts, d_model, d_ff_expert), dtype),
+        "w_down": _init_experts(gen, (n_experts, d_ff_expert, d_model), dtype),
+    }
+    if n_shared:
+        p["shared"] = init_mlp(gen, d_model, n_shared * d_ff_shared, dtype)
+    return p
+
+
+def moe_capacity(tokens: int, top_k: int, n_experts: int, capacity_factor: float) -> int:
+    """Slots per expert: the reference's ``ceil(T·k/E·cf)``, at least k,
+    in the same float expression so that ceil lands alike."""
+    return max(int(np.ceil(tokens * top_k / n_experts * capacity_factor)), top_k)
+
+
+def moe_dispatch(router, xt, top_k: int, capacity_factor: float):
+    """Route the (T, D) tokens: a float32 softmax over ``xt @ router``,
+    the k largest probabilities (descending, the lower expert first on
+    ties, as ``lax.top_k``) as gates renormalised to sum to one and cast
+    to ``xt``'s dtype, and each pick's row of the (E·C) dispatch buffer:
+    a stable sort by expert ranks an expert's picks in token order, and
+    a pick ranked C or later is dropped to row E·C.  Returns (gate (T,
+    k), picks (T, k), dest (T·k,), C)."""
+    T = xt.shape[0]
+    E = router.shape[-1]
+    probs = (xt.float() @ router).softmax(-1)
+    gate, picks = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, picks = gate[:, :top_k], picks[:, :top_k]
+    gate = (gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)).to(xt.dtype)
+    C = moe_capacity(T, top_k, E, capacity_factor)
+    flat = picks.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    by_expert = flat[order]
+    first = torch.searchsorted(by_expert, torch.arange(E, device=xt.device))
+    slot = torch.empty_like(flat)
+    slot[order] = torch.arange(T * top_k, device=xt.device) - first[by_expert]
+    dest = torch.where(slot < C, flat * C + slot, E * C)
+    return gate, picks, dest, C
+
+
+def moe_apply(params, x, *, top_k: int, capacity_factor: float = 1.25,
+              ep_axis: Optional[str] = None, ep_size: int = 1):
+    """Top-k MoE with capacity dispatch, the reference's local form.
+    x (B, S, D) -> (B, S, D).
+
+    The T = B·S tokens of one call share each expert's C slots, so a
+    token's output depends on the tokens routed before it.  Kept picks
+    fill an (E, C, D) buffer (dropped ones write a spare row that is cut
+    off and never read), every expert runs its C rows through SwiGLU as
+    one batched matmul per weight, and each token gathers its k rows
+    against a zero row for a dropped pick and sums them by its gates in
+    one product over k in ``x``'s dtype.  The expert-parallel form
+    (``ep_size > 1``, an ``all_to_all`` over a mesh axis) is not ported.
+    """
+    if ep_axis is not None and ep_size > 1:
+        raise NotImplementedError(
+            "expert-parallel MoE (ep_size > 1): ROADMAP.md section A, item 2d (expert "
+            "parallelism across ranks); one card computes the local form")
+    B, S, D = x.shape
+    E = params["router"].shape[-1]
+    xt = x.reshape(B * S, D)
+    gate, _, dest, C = moe_dispatch(params["router"], xt, top_k, capacity_factor)
+    buf = x.new_zeros((E * C + 1, D))
+    buf[dest] = xt.repeat_interleave(top_k, dim=0)
+    buf = buf[:E * C].view(E, C, D)
+    g = torch.bmm(buf, params["w_gate"])
+    # silu as the reference's lowers it: the logistic, then the product
+    h = g * torch.sigmoid(g) * torch.bmm(buf, params["w_up"])
+    out = torch.cat([torch.bmm(h, params["w_down"]).view(E * C, D), x.new_zeros((1, D))])
+    tok = out[dest].view(B * S, top_k, D)
+    y = torch.bmm(gate.to(tok.dtype)[:, None, :], tok)
+    return y.view(B, S, D)

@@ -1,4 +1,4 @@
-"""The dense LLM model of the port, the counterpart of
+"""The LLM model of the port, the counterpart of
 ``repro.models.model``: :class:`LayerSpec` and :class:`ModelConfig` with
 every field and default of the reference, the derived sizes and the
 analytic parameter count; then the parameters (:func:`init_params`, the
@@ -13,8 +13,9 @@ scans each group over a stacked ``repeats`` axis; the port keeps one
 parameter dict and one cache dict per layer, in the order the blocks
 apply them.
 
-Only attention layers with the dense SwiGLU MLP are ported: MLA, MoE,
-Mamba, cross-attention, the encoder-decoder and learned positions
+GQA and MLA attention layers with the dense SwiGLU MLP or the MoE (and
+its shared experts) are ported: Mamba, layers without an MLP,
+cross-attention, the encoder-decoder and learned positions
 (``use_rope=False``) raise ``NotImplementedError``.  The reference's
 ``shardctx.constrain`` calls and the knobs ``seq_parallel``,
 ``seq_shard_kv`` and ``serve_params_tp_only`` choose layouts over a
@@ -157,8 +158,6 @@ class ModelConfig:
 
 # ---------------------------------------------------------------- support
 _NOT_PORTED = {
-    "mla": "MLA attention: ROADMAP.md section A, item 2a (MLA and the local MoE)",
-    "moe": "the MoE MLP: ROADMAP.md section A, item 2a (MLA and the local MoE)",
     "mamba": "Mamba layers: ROADMAP.md section A, item 2b (Mamba and its chunked scan)",
     "none": "layers without an MLP (Mamba's): ROADMAP.md section A, item 2b",
     "cross_attn": "cross-attention: ROADMAP.md section A, item 2c (the encoder-decoder)",
@@ -170,15 +169,16 @@ _NOT_PORTED = {
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet:
-    anything but attention layers with the dense MLP over RoPE."""
+    anything but GQA or MLA attention layers with the dense MLP or the
+    MoE over RoPE."""
     if cfg.kind == "encdec":
         raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED['encdec']}")
     if not cfg.use_rope:
         raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED['no_rope']}")
     for pattern, _ in cfg.blocks:
         for spec in pattern:
-            for what in (spec.kind if spec.kind != "attn" else None,
-                         spec.mlp if spec.mlp != "dense" else None,
+            for what in (spec.kind if spec.kind not in ("attn", "mla") else None,
+                         spec.mlp if spec.mlp not in ("dense", "moe") else None,
                          "cross_attn" if spec.cross_attn else None):
                 if what is not None:
                     raise NotImplementedError(
@@ -199,9 +199,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     """Random parameters in ``cfg.param_dtype`` on the generator's device,
     drawn by the reference's rules (``init_params``, ``_init_layer``):
     ``{"embed", "final_norm", ["lm_head"], "layers": [per layer]}``, each
-    layer ``{"norm1", "norm2", "attn": {wq, wk, wv, wo}, "mlp": {w_gate,
-    w_up, w_down}}``.  Each weight is drawn in float32 and cast on its
-    own, so the whole model is never held in float32."""
+    layer ``{"norm1", "norm2", "attn", "mlp"}``: ``attn`` GQA's ``{wq,
+    wk, wv, wo}`` or MLA's ``{wq, w_dkv, w_kr, w_uk, w_uv, wo}`` (``d_v =
+    head_dim``), ``mlp`` the dense ``{w_gate, w_up, w_down}`` or the
+    MoE's ``{router, w_gate, w_up, w_down[, shared]}`` with its float32
+    router.  Each weight is drawn in float32 and cast on its own (an
+    expert stack one expert at a time), so the whole model is never held
+    in float32."""
     check_supported(cfg)
     dtype, dev = _dtype(cfg.param_dtype), generator.device
     D = cfg.d_model
@@ -209,14 +213,25 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
               "final_norm": torch.zeros(D, dtype=dtype, device=dev)}
     if not cfg.tie_embeddings:
         params["lm_head"] = L._init(generator, (D, cfg.vocab_size), dtype=dtype)
-    params["layers"] = [
-        {"norm1": torch.zeros(D, dtype=dtype, device=dev),
-         "norm2": torch.zeros(D, dtype=dtype, device=dev),
-         "attn": L.init_attention(generator, D, cfg.n_heads, cfg.n_kv_heads,
-                                  cfg.head_dim, dtype),
-         "mlp": L.init_mlp(generator, D, cfg.d_ff, dtype)}
-        for _ in layer_specs(cfg)]
+    params["layers"] = [_init_layer(generator, spec, cfg, dtype) for spec in layer_specs(cfg)]
     return params
+
+
+def _init_layer(gen, spec: LayerSpec, cfg: ModelConfig, dtype) -> dict:
+    D, dev = cfg.d_model, gen.device
+    p = {"norm1": torch.zeros(D, dtype=dtype, device=dev),
+         "norm2": torch.zeros(D, dtype=dtype, device=dev)}
+    if spec.kind == "mla":
+        p["attn"] = L.init_mla(gen, D, cfg.n_heads, kv_lora=cfg.kv_lora, d_nope=cfg.d_nope,
+                               d_rope=cfg.d_rope, d_v=cfg.head_dim, dtype=dtype)
+    else:
+        p["attn"] = L.init_attention(gen, D, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dtype)
+    if spec.mlp == "moe":
+        p["mlp"] = L.init_moe(gen, D, cfg.d_ff_expert, cfg.n_experts, cfg.n_shared,
+                              cfg.d_ff_expert, dtype)
+    else:
+        p["mlp"] = L.init_mlp(gen, D, cfg.d_ff, dtype)
+    return p
 
 
 def _as_parameters(tree):
@@ -232,7 +247,7 @@ def _as_tensors(mod):
 
 
 class Model(nn.Module):
-    """The dense model as a module: the parameters of :func:`init_params`
+    """The model as a module: the parameters of :func:`init_params`
     (or ``params``, e.g. from ``interop.model_params_from_jax``) on the
     card unless ``device`` says otherwise, and :func:`forward` over them.
     Serving holds them frozen (``requires_grad=False``)."""
@@ -260,13 +275,20 @@ class Model(nn.Module):
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16,
                device=None) -> list:
     """Decode caches, one dict per layer in the order of
-    :func:`layer_specs`: ``k`` and ``v`` (batch, C, n_kv_heads, head_dim)
-    and ``pos_k`` (batch, C) int32 at int32 max, with ``C = min(s_max,
-    window)`` on window layers and ``s_max`` on global ones."""
+    :func:`layer_specs`: on a GQA layer ``k`` and ``v`` (batch, C,
+    n_kv_heads, head_dim) with ``C = min(s_max, window)`` on window layers
+    and ``s_max`` on global ones; on an MLA layer the compressed ``c_kv``
+    (batch, s_max, kv_lora) and ``k_rope`` (batch, s_max, d_rope); on
+    both ``pos_k`` (batch, C) int32 at int32 max."""
     check_supported(cfg)
     dev = resolve_device(device)
 
     def layer_cache(spec):
+        if spec.kind == "mla":
+            return {"c_kv": torch.zeros((batch, s_max, cfg.kv_lora), dtype=dtype, device=dev),
+                    "k_rope": torch.zeros((batch, s_max, cfg.d_rope), dtype=dtype, device=dev),
+                    "pos_k": torch.full((batch, s_max), L.INT32_MAX, dtype=torch.int32,
+                                        device=dev)}
         C = min(s_max, spec.window) if spec.window else s_max
         kv = (batch, C, cfg.n_kv_heads, cfg.head_dim)
         return {"k": torch.zeros(kv, dtype=dtype, device=dev),
@@ -278,12 +300,33 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16,
 
 # ------------------------------------------------------------------ forward
 def _apply_layer(lp, spec: LayerSpec, cfg: ModelConfig, x, positions, cache, decode):
-    out, new_c = L.attention(lp["attn"], L.rms_norm(x, lp["norm1"]), positions,
-                             n_rep=cfg.n_heads // cfg.n_kv_heads, window=spec.window,
-                             rope_theta=cfg.rope_theta, cache=cache, decode=decode)
+    h = L.rms_norm(x, lp["norm1"])
+    if spec.kind == "mla":
+        out, new_c = L.mla_attention(lp["attn"], h, positions, d_nope=cfg.d_nope,
+                                     d_rope=cfg.d_rope, rope_theta=cfg.rope_theta,
+                                     cache=cache, decode=decode)
+    else:
+        out, new_c = L.attention(lp["attn"], h, positions,
+                                 n_rep=cfg.n_heads // cfg.n_kv_heads, window=spec.window,
+                                 rope_theta=cfg.rope_theta, cache=cache, decode=decode)
     x = x + out
-    x = x + L.mlp_apply(lp["mlp"], L.rms_norm(x, lp["norm2"]))
-    return x, new_c
+    h = L.rms_norm(x, lp["norm2"])
+    if spec.mlp == "moe":
+        out = _moe(lp["mlp"], h, cfg)
+        if "shared" in lp["mlp"]:
+            out = out + L.mlp_apply(lp["mlp"]["shared"], h)
+    else:
+        out = L.mlp_apply(lp["mlp"], h)
+    return x + out, new_c
+
+
+def _moe(mp, h, cfg: ModelConfig):
+    """The routed experts in the local form.  The reference takes the
+    expert-parallel form only under a mesh with a ``model`` axis; one card
+    has none, so ``moe_ep=True`` computes the local form here as the
+    reference does without such a mesh."""
+    routed = {k: mp[k] for k in ("router", "w_gate", "w_up", "w_down")}
+    return L.moe_apply(routed, h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
 
 
 def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None, positions=None,

@@ -32,8 +32,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import model as M
 
 DENSE = ("stablelm-1.6b", "gemma3-4b", "granite-20b", "internlm2-20b", "internvl2-2b")
-NOT_DENSE = ("deepseek-v2-lite-16b", "falcon-mamba-7b", "jamba-v0.1-52b",
-             "kimi-k2-1t-a32b", "whisper-base")
+MLA_MOE = ("deepseek-v2-lite-16b", "kimi-k2-1t-a32b")
+NOT_PORTED = ("falcon-mamba-7b", "jamba-v0.1-52b", "whisper-base")
 TOL = dict(rtol=2e-4, atol=2e-4)
 LAYER_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_ULPS = 8
@@ -81,7 +81,7 @@ def assert_caches(ref_caches, caches, cfg):
         for r in range(reps):
             for j in range(len(pattern)):
                 got = caches[i]
-                for name in ("k", "v"):
+                for name in [n for n in got if n != "pos_k"]:   # k, v or c_kv, k_rope
                     np.testing.assert_allclose(got[name].numpy(),
                                                np.asarray(group[j][name])[r], **TOL)
                 np.testing.assert_array_equal(got["pos_k"].numpy(),
@@ -185,7 +185,7 @@ def test_global_prefill_longer_than_its_cache_raises():
 
 
 # ------------------------------------------------------------------ model
-@pytest.mark.parametrize("name", DENSE + ("smoke",))
+@pytest.mark.parametrize("name", DENSE + MLA_MOE + ("smoke",))
 def test_forward_train_matches_reference(name):
     rcfg, cfg = configs(name)
     p, tp = weights(rcfg, cfg)
@@ -196,7 +196,7 @@ def test_forward_train_matches_reference(name):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + MLA_MOE)
 def test_prefill_caches_and_decode_match_reference(name):
     """Prefill of 12 tokens (gemma3's window shrunk to 8, so its window
     layers take the roll) into caches of 32, then three greedy decode
@@ -304,7 +304,7 @@ def test_model_params_from_jax_splits_the_repeats_axis():
         interop.model_params_from_jax(p, configs("gemma3-4b")[1], device="cpu")
 
 
-@pytest.mark.parametrize("name", NOT_DENSE + ("no_rope", "cross_attn"))
+@pytest.mark.parametrize("name", NOT_PORTED + ("no_rope", "cross_attn"))
 def test_other_families_raise_not_implemented(name):
     if name == "no_rope":
         cfg = dataclasses.replace(shrink(get_arch("stablelm-1.6b").model), use_rope=False)
