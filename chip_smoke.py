@@ -127,7 +127,27 @@ and runs, in order, failing on the first phase that fails:
     depth 2 with drops in the prefill; (c) kimi-k2-1t-a32b in bf16 at full
     width, depth cut to 2 (1 dense + 1 MoE of 384 experts top-8, GQA
     64/8), served (8 requests, prompt 128, 16 new tokens, 8 slots, s_max
-    256) with 16a's metrics.  It launches none of B1-B3 (counters).
+    256) with 16a's metrics.  It launches none of B1-B3 (counters);
+18. Mamba and the encoder-decoder at full width, random weights, TF32
+    off: (a) falcon-mamba-7b in bf16 at full depth (64 Mamba layers,
+    d_inner 8192, N 16) served by launch/serve.py's loop (32 requests,
+    prompt 256 through the chunked scan, 64 new tokens, 8 slots, s_max
+    512) with 16a's metrics, then one prefill of 256 and one of 200 (the
+    per-step scan) timed apart; (b) in float32 at its width, depth cut:
+    teacher-forced decode of 32 positions after prompts of 256 and 200
+    against train mode at 4 layers, eight requests at batch 8 against
+    batch 1, the card's forward against the CPU's at 2 layers; (c)
+    jamba-v0.1-52b in bf16 at full width, depth cut to two of its four
+    periods (14 Mamba + 2 attention layers, 8 MoE of 16 experts top-2),
+    served (16 requests, prompt 256, 32 new tokens, 8 slots, s_max 512)
+    with 17a's metrics, and in float32 the card's forward and MoE
+    dispatch against the CPU's at layers 4-5 of its period (attention,
+    then Mamba with the MoE) at capacity factor E/k; (d) whisper-base in bf16 at full width and depth
+    (6 + 6 layers, learned positions), 1500 audio-stub frames per request
+    (32 requests, prompt 32, 64 new tokens, 8 slots, s_max 448) with
+    16a's metrics and the ck/cv cache bytes, and in float32 at full depth
+    teacher-forced decode against train mode and the card against the
+    CPU.  It launches none of B1-B3 (counters).
 
 The card's name and power limit, then a JSON object with one entry per
 kernel, are the two lines before the last; the last line is
@@ -302,6 +322,36 @@ ROUTER_NEAR_TIE = 1e-6
 # to 2: 1 dense + 1 MoE of 384 experts top-8 behind GQA 64/8 attention.
 LLM_KIMI = dict(arch="kimi-k2-1t-a32b", layers=2, requests=8, prompt=128, max_new=16,
                 batch=8, s_max=256)
+# Slice 11.  Phase 18 serves Mamba and the encoder-decoder in bf16, random
+# weights from a seed.  18a: falcon-mamba-7b at full width and depth (64
+# Mamba layers, d_inner 8192, N 16, dt_rank 256); a prompt of 256 takes
+# the chunked scan (chunk 256), and one extra prefill of LLM_STEP_PROMPT
+# the per-step scan.
+LLM_MAMBA = dict(arch="falcon-mamba-7b", requests=32, prompt=256, max_new=64, batch=8,
+                 s_max=512)
+LLM_STEP_PROMPT = 200
+# 18b, float32 at falcon-mamba's width, depth cut: 4 layers, teacher-forced
+# decode of 32 positions after a prompt of 256 (chunked prefill against
+# the per-step train mode over 288) and of 200; 2 layers, card against
+# CPU; 4 layers, eight requests at batch 8 against batch 1.
+LLM_MAMBA_TF = dict(layers=4, prompts=(256, LLM_STEP_PROMPT), decode=32)
+LLM_MAMBA_CPU = dict(layers=2, prompt=32)
+LLM_MAMBA_BATCH = dict(layers=4, requests=8, prompt=64, max_new=16, s_max=128)
+# 18c: jamba-v0.1-52b at full width, its 32 layers (102.6 GB in bf16) cut
+# to 16, two of the four periods of 8: 14 Mamba + 2 attention layers, 8
+# of the 16 with an MoE of 16 experts top-2 (51.6 GB).
+LLM_JAMBA = dict(arch="jamba-v0.1-52b", periods=2, requests=16, prompt=256, max_new=32,
+                 batch=8, s_max=512)
+# 18c.2: float32 at jamba's width, card against CPU, depth cut to layers
+# 4-5 of its period (attention with a dense MLP, then Mamba with the MoE):
+# the one stack of the three mixers, 3.7 B parameters (14.8 GB), at
+# capacity factor E/k (no drops).
+LLM_JAMBA_CPU = dict(layers=(4, 6), prompt=64)
+# 18d: whisper-base at full width and depth (6 encoder + 6 decoder layers,
+# learned positions), 1500 audio-stub frames per request, s_max 448 (its
+# natural decoder context); float32 checks at full depth.
+LLM_WHISPER = dict(arch="whisper-base", requests=32, prompt=32, max_new=64, batch=8, s_max=448)
+LLM_WHISPER_TF = dict(prompt=32, decode=32, s_max=96)
 
 
 class SmokeFailure(RuntimeError):
@@ -2586,28 +2636,38 @@ def llm_cfg(arch, dtype, **over):
                                **over)
 
 
-def llm_bound(cfg, tokens, keys, read_bytes, decode=False):
+def llm_bound(cfg, tokens, keys, read_bytes, decode=False, enc_len=0):
     """The least time of one forward over ``tokens`` query positions
-    (``keys`` key positions each, per layer), in ms, and what bounds it:
-    the bytes of ``read_bytes`` (the weights, plus the cache a decode tick
-    reads) at the HBM rate, or the operations, layer by layer, in the
-    forward's own dtypes: products of the compute dtype at its rate (bf16
-    at its dense tensor-core peak, float32 at the non-tensor-core one),
-    float32 ones (attention's float32 scores and output, p·c_kv, ctx·W_uv,
-    the router) at the float32 rate.  GQA: 4·H·hd per query-key pair.
-    MLA prefill: 2·H·(d_nope+d_rope) per pair for the scores and 2·H·d_v
-    for p·v, beside expanding c_kv through W_uk and W_uv for every token;
-    absorbed decode: 2·H·(kv_lora+d_rope) for the scores and 2·H·kv_lora
-    for p·c_kv, beside q·W_uk^T and ctx·W_uv.  MoE: the experts run E·C
-    capacity rows (C from the forward's T = ``tokens``), the shared
-    experts every token."""
+    (``keys`` key positions each, per layer; ``enc_len`` encoder
+    positions), in ms, and what bounds it: the bytes of ``read_bytes``
+    (the weights the forward reads, plus the cache a decode tick reads)
+    at the HBM rate, or the operations, layer by layer, in the forward's
+    own dtypes: products of the compute dtype at its rate (bf16 at its
+    dense tensor-core peak, float32 at the non-tensor-core one), float32
+    ones (attention's float32 scores and output, p·c_kv, ctx·W_uv, the
+    router, Mamba's scan) at the float32 rate.  GQA: 4·H·hd per
+    query-key pair.  MLA prefill: 2·H·(d_nope+d_rope) per pair for the
+    scores and 2·H·d_v for p·v, beside expanding c_kv through W_uk and
+    W_uv for every token; absorbed decode: 2·H·(kv_lora+d_rope) for the
+    scores and 2·H·kv_lora for p·c_kv, beside q·W_uk^T and ctx·W_uv.
+    Mamba: its four projections (in, x, dt, out) in the compute dtype;
+    the conv's 2·d_conv per channel and 7 float32 operations per token,
+    channel and state (dA's product and exp, dBx's product, the
+    recurrence's product and sum, y's product and sum).  Cross-attention:
+    q and the output projections for every token, k and v over the
+    ``enc_len`` encoder positions at prefill (decode reads them cached),
+    4·H·hd float32 per query-key pair.  The encoder's dense layers run at
+    prefill only, over ``enc_len`` positions each way.  MoE: the experts
+    run E·C capacity rows (C from the forward's T = ``tokens``), the
+    shared experts every token."""
     from repro_torch.models import layers as L
     from repro_torch.models.model import layer_specs
     D, V, H = cfg.d_model, cfg.vocab_size, cfg.n_heads
+    hd, kv = cfg.head_dim, cfg.n_kv_heads
     mm = 2 * tokens * V * D                                    # the head
     f32 = 0
     for spec in layer_specs(cfg):
-        mm += 2 * tokens * 2 * D                               # the norms
+        mm += 2 * tokens * (1 + (spec.mlp != "none") + spec.cross_attn) * D   # the norms
         if spec.kind == "mla":
             c, dn, dr, dv = cfg.kv_lora, cfg.d_nope, cfg.d_rope, cfg.head_dim
             mm += 2 * tokens * (D * H * (dn + dr) + D * (c + dr) + H * dv * D)
@@ -2617,21 +2677,53 @@ def llm_bound(cfg, tokens, keys, read_bytes, decode=False):
             else:
                 mm += 2 * tokens * c * H * (dn + dv) + 2 * H * (dn + dr) * tokens * keys
                 f32 += 2 * H * dv * tokens * keys
+        elif spec.kind == "mamba":
+            Di, N, R = cfg.d_inner, cfg.d_state, cfg.dt_rank_eff
+            mm += 2 * tokens * (D * 2 * Di + Di * (R + 2 * N) + R * Di + Di * D)
+            f32 += tokens * Di * (2 * cfg.d_conv + 7 * N)
         else:
-            hd, kv = cfg.head_dim, cfg.n_kv_heads
             mm += 2 * tokens * (D * (H + 2 * kv) * hd + H * hd * D)
             f32 += 4 * H * hd * tokens * keys
+        if spec.cross_attn:
+            mm += 2 * tokens * 2 * D * H * hd
+            if not decode:
+                mm += 2 * enc_len * 2 * D * H * hd
+            f32 += 4 * H * hd * tokens * enc_len
         if spec.mlp == "moe":
             E, F = cfg.n_experts, cfg.d_ff_expert
             C = L.moe_capacity(tokens, cfg.top_k, E, cfg.capacity_factor)
             mm += 2 * E * C * 3 * D * F + 2 * tokens * 3 * D * cfg.n_shared * F
             f32 += 2 * tokens * D * E
-        else:
+        elif spec.mlp == "dense":
             mm += 2 * tokens * 3 * D * cfg.d_ff
+    if cfg.kind == "encdec" and not decode:
+        mm += cfg.n_enc_layers * 2 * enc_len * (2 * D + D * (H + 2 * kv) * hd + H * hd * D
+                                                + 3 * D * cfg.d_ff)
+        f32 += cfg.n_enc_layers * 4 * H * hd * enc_len * enc_len
     mm_rate = BF16_OPS_PER_S if cfg.compute_dtype == "bfloat16" else FP32_OPS_PER_S
     ops_ms = (mm / mm_rate + f32 / FP32_OPS_PER_S) * 1e3
     bytes_ms = read_bytes / HBM_BYTES_PER_S * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def weight_read_bytes(cfg, params, tokens, decode):
+    """The parameter bytes one forward reads: every tensor, but of the
+    learned position tables only the rows it gathers (``tokens`` of the
+    decoder's, the frames' of the encoder's), and at decode none of the
+    encoder nor the cross-attention's ``wk`` and ``wv`` (k and v are in
+    the ``ck``/``cv`` caches)."""
+    total = tensor_bytes(params)
+    if "pos_embed" in params:
+        t = params["pos_embed"]
+        total -= tensor_bytes(t) - tokens * t.shape[1] * t.element_size()
+    if "enc" in params:
+        t = params["enc"]["pos_embed"]
+        total -= (tensor_bytes(params["enc"]) if decode else
+                  tensor_bytes(t) - cfg.frontend_len * t.shape[1] * t.element_size())
+    if decode:
+        total -= sum(tensor_bytes(lp["cross"][w]) for lp in params["layers"] if "cross" in lp
+                     for w in ("wk", "wv"))
+    return total
 
 
 @contextlib.contextmanager
@@ -2687,7 +2779,9 @@ def device_by_op(fn, n, top=8):
 def serve_load(smi, label, cfg, load, seed=0):
     """One full-width serving run through ``launch.serve.serve`` (after a
     two-request warm-up), logged: timings, rates, memory, the decode
-    tick's bound and a profiler trace of 10 ticks."""
+    tick's bound and a profiler trace of 10 ticks.  An encoder-decoder's
+    requests carry audio-stub frames (frontend_len, D) from the seed.
+    Returns the model."""
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch.steps import make_serve_step
     from repro_torch.models import model as M
@@ -2700,9 +2794,19 @@ def serve_load(smi, label, cfg, load, seed=0):
     queue = [rng.integers(1, cfg.vocab_size, size=load["prompt"]).astype(np.int32)
              for _ in range(load["requests"])]
     kw = dict(batch=load["batch"], max_new=load["max_new"], s_max=load["s_max"], device=DEV)
-    serve_mod.serve(cfg, model, queue[:2], **dict(kw, max_new=4))     # warm-up
-    cache_bytes = tensor_bytes(M.init_cache(cfg, load["batch"], load["s_max"],
-                                            dtype=getattr(torch, cfg.compute_dtype), device=DEV))
+    if cfg.kind == "encdec":
+        kw["frames"] = [rng.standard_normal((cfg.frontend_len, cfg.d_model)).astype(np.float32)
+                        for _ in queue]
+    warm = dict(kw, max_new=4)
+    if "frames" in kw:
+        warm["frames"] = kw["frames"][:2]
+    serve_mod.serve(cfg, model, queue[:2], **warm)                   # warm-up
+    caches = M.init_cache(cfg, load["batch"], load["s_max"],
+                          dtype=getattr(torch, cfg.compute_dtype), device=DEV,
+                          enc_len=serve_mod.enc_len(cfg))
+    cache_bytes = tensor_bytes(caches)
+    cross_bytes = sum(tensor_bytes(c[n]) for c in caches for n in ("ck", "cv") if n in c)
+    del caches
     torch.cuda.reset_peak_memory_stats()
     with timed_forward() as times:
         t0 = time.perf_counter()
@@ -2718,9 +2822,13 @@ def serve_load(smi, label, cfg, load, seed=0):
           f"phase {label}: {len(times['prefill'])} prefills and {len(times['decode'])} ticks timed")
     tokens = sum(len(o) for o in outputs)
     pre_ms, tick_ms = statistics.median(times["prefill"]), statistics.median(times["decode"])
-    pre_bound = llm_bound(cfg, load["prompt"], load["prompt"], weight_bytes)
-    tick_bound = llm_bound(cfg, load["batch"], load["s_max"],
-                           weight_bytes + cache_bytes, decode=True)
+    params = model.params()
+    enc = serve_mod.enc_len(cfg)
+    pre_bound = llm_bound(cfg, load["prompt"], load["prompt"],
+                          weight_read_bytes(cfg, params, load["prompt"], False), enc_len=enc)
+    tick_weights = weight_read_bytes(cfg, params, load["batch"], True)
+    tick_bound = llm_bound(cfg, load["batch"], load["s_max"], tick_weights + cache_bytes,
+                           decode=True, enc_len=enc)
     log(f"  {cfg.name} {cfg.param_dtype}: {model.cfg.param_count()[0] / 1e9:.3f} B parameters, "
         f"{cfg.n_layers} layers, init {init_s:.2f} s; {len(queue)} requests x prompt "
         f"{load['prompt']}, max_new {load['max_new']}, {load['batch']} slots, s_max "
@@ -2729,9 +2837,12 @@ def serve_load(smi, label, cfg, load, seed=0):
         f"{pre_bound[0]:.3f} ms by {pre_bound[1]}, {100 * pre_bound[0] / pre_ms:.1f}% of it)")
     log(f"  decode {tick_ms:.3f} ms per tick (median of {ticks}; min "
         f"{min(times['decode']):.3f}, max {max(times['decode']):.3f}); bound "
-        f"{tick_bound[0]:.3f} ms by {tick_bound[1]} ((weights {fmt_mem(weight_bytes)} + cache "
-        f"{fmt_mem(cache_bytes)}) / 3.35 TB/s for bytes), the tick at "
+        f"{tick_bound[0]:.3f} ms by {tick_bound[1]} ((weights read {fmt_mem(tick_weights)} + "
+        f"cache {fmt_mem(cache_bytes)}) / 3.35 TB/s for bytes), the tick at "
         f"{100 * tick_bound[0] / tick_ms:.1f}% of it")
+    if cross_bytes:
+        log(f"  cross-attention caches ck + cv: {fmt_mem(cross_bytes)} of the cache "
+            f"({load['batch']} slots x {enc} encoder positions)")
     log(f"  {tokens} tokens in {ticks} ticks, wall {wall:.3f} s, {tokens / wall:.1f} tokens/s; "
         f"weights {fmt_mem(weight_bytes)}, cache {fmt_mem(cache_bytes)}, peak card memory "
         f"{fmt_mem(peak)}; every request {load['max_new']} tokens, all logits finite")
@@ -2739,7 +2850,7 @@ def serve_load(smi, label, cfg, load, seed=0):
     # positions (each rewrites its own cache slots with the same values).
     slots = serve_mod.SlotCache(cfg, load["batch"], load["s_max"],
                                 getattr(torch, cfg.compute_dtype), DEV)
-    step, params = make_serve_step(cfg), model.params()
+    step = make_serve_step(cfg)
     tok = torch.as_tensor([[o[-1]] for o in outputs[-load["batch"]:]], dtype=torch.int32,
                           device=DEV)
     pos = torch.full((load["batch"],), load["prompt"] + load["max_new"] - 1,
@@ -2765,7 +2876,7 @@ def serve_load(smi, label, cfg, load, seed=0):
         f"({100 * cast_ms / busy:.1f}% of the tick's device time)")
     if cfg.n_experts:
         moe_serve_drops(label, cfg, model, queue, kw, outputs)
-    del model, slots
+    return model
 
 
 def assert_close(label, got, want, rtol=LLM_RTOL, atol=LLM_ATOL):
@@ -2779,14 +2890,16 @@ def assert_close(label, got, want, rtol=LLM_RTOL, atol=LLM_ATOL):
     check(excess <= 0, f"phase {label}: beyond its tolerance")
 
 
-def teacher_forced(label, model, tokens, pre, s_max):
+def teacher_forced(label, model, tokens, pre, s_max, **enc):
     """Prefill ``tokens[:, :pre]``, then decode the rest one at a time
-    (teacher-forced): each decode step's logits against train mode's."""
+    (teacher-forced): each decode step's logits against train mode's.
+    ``enc`` is an encoder-decoder's ``enc_frames``."""
+    from repro_torch.launch.serve import enc_len
     from repro_torch.models import model as M
     cfg = model.cfg
-    full = model(tokens)
-    caches = M.init_cache(cfg, 1, s_max, dtype=torch.float32, device=DEV)
-    logits, caches = model(tokens[:, :pre], caches=caches, mode="prefill")
+    full = model(tokens, **enc)
+    caches = M.init_cache(cfg, 1, s_max, dtype=torch.float32, device=DEV, enc_len=enc_len(cfg))
+    logits, caches = model(tokens[:, :pre], caches=caches, mode="prefill", **enc)
     assert_close(f"{label} prefill logits (positions 0-{pre - 1}) vs train", logits,
                  full[:, :pre])
     steps = []
@@ -3065,6 +3178,146 @@ def phase17_moe(smi):
     n = read()
     check(n == {"b1": 0, "b2": 0, "b3": 0}, f"phase 17: launched {n} of B1-B3")
     log(f"  B1, B2 and B3 launches in phase 17: {n}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return n
+
+
+# ------------------------------------------------------------- slice 11
+def with_depth(cfg, pattern_reps):
+    """``cfg`` with its one pattern repeated ``pattern_reps`` times."""
+    ((pattern, _),) = cfg.blocks
+    return dataclasses.replace(cfg, blocks=((pattern, pattern_reps),))
+
+
+def phase18_mamba_encdec(smi):
+    """Mamba and the encoder-decoder on the card: (a) falcon-mamba-7b
+    served in bf16 at full width and depth, with a prefill through each
+    scan path timed apart; (b) float32 checks at its width, depth cut;
+    (c) jamba-v0.1-52b served in bf16, depth cut to two periods, and its
+    attention + Mamba + MoE layers in float32 against the CPU; (d)
+    whisper-base served in bf16 at full width and depth, with float32
+    checks at full depth.  Returns B1's, B2's and B3's launches in the
+    phase (it checks they are none)."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import model as M
+    t_phase = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    read = counted_launches()
+    try:
+        log(f"phase 18a: Mamba serving at full width and depth, bf16, TF32 off; {smi}")
+        cfg = llm_cfg(LLM_MAMBA["arch"], "bfloat16")
+        model = serve_load(smi, "18a", cfg, LLM_MAMBA)
+        rng = np.random.default_rng(18)
+        for S in (LLM_MAMBA["prompt"], LLM_STEP_PROMPT):
+            prompt = torch.as_tensor(rng.integers(1, cfg.vocab_size, (1, S)), device=DEV)
+
+            def prefill():
+                row = M.init_cache(cfg, 1, LLM_MAMBA["s_max"], dtype=torch.bfloat16, device=DEV)
+                return model(prompt, caches=row, mode="prefill")[0]
+
+            check(bool(torch.isfinite(prefill()).all()), f"phase 18a: prefill {S} not finite")
+            path = "chunked scan" if S % 256 == 0 else "per-step scan"
+            log(f"  prefill of {S} tokens ({path}): {cuda_ms(prefill, n=5, warmup=1):.3f} ms "
+                f"(median of 5, CUDA events)")
+        del model
+        torch.cuda.empty_cache()
+
+        base = llm_cfg(LLM_MAMBA["arch"], "float32")
+        log(f"phase 18b: float32 checks at full width ({base.name}), TF32 off")
+        cfg4 = with_depth(base, LLM_MAMBA_TF["layers"])
+        log(f"    18b cut: depth {base.n_layers} -> {cfg4.n_layers} (teacher-forced, batch) "
+            f"and {LLM_MAMBA_CPU['layers']} (card vs CPU), for memory and the CPU's time")
+        model = M.Model(cfg4, device=DEV, seed=4)
+        rng = np.random.default_rng(4)
+        for pre in LLM_MAMBA_TF["prompts"]:
+            total = pre + LLM_MAMBA_TF["decode"]
+            toks = torch.as_tensor(rng.integers(0, base.vocab_size, (1, total)), device=DEV)
+            teacher_forced(f"18b.1 prompt {pre} ({'chunked' if pre % 256 == 0 else 'per-step'} "
+                           f"prefill, per-step train over {total})", model, toks, pre, total)
+        B = LLM_MAMBA_BATCH
+        queue = [rng.integers(1, base.vocab_size, size=B["prompt"]).astype(np.int32)
+                 for _ in range(B["requests"])]
+        kw = dict(max_new=B["max_new"], s_max=B["s_max"], device=DEV)
+        wide, _ = serve_mod.serve(cfg4, model, queue, batch=len(queue), **kw)
+        one, _ = serve_mod.serve(cfg4, model, queue, batch=1, **kw)
+        same = sum(w == o for w, o in zip(wide, one))
+        check(all(near_tie_ok(model, q, w, o) for q, w, o in zip(queue, wide, one)),
+              "phase 18b.3: batch 8 and batch 1 part beyond a near-tie")
+        log(f"    18b.3: {len(queue)} requests at batch {len(queue)} and batch 1: {same} of "
+            f"{len(queue)} token lists equal, every other parts at a near-tie")
+        del model
+        cfg2 = with_depth(base, LLM_MAMBA_CPU["layers"])
+        model = M.Model(cfg2, device=DEV, seed=2)
+        host = tree_map(lambda t: t.detach().cpu(), model.params())
+        toks = torch.as_tensor(np.random.default_rng(2).integers(
+            0, cfg2.vocab_size, (1, LLM_MAMBA_CPU["prompt"])), device=DEV)
+        assert_close(f"18b.2 card vs CPU forward ({cfg2.n_layers} layers)", model(toks),
+                     M.forward(host, cfg2, toks.cpu()))
+        del model, host
+        torch.cuda.empty_cache()
+
+        full = llm_cfg(LLM_JAMBA["arch"], "bfloat16")
+        jamba = with_depth(full, LLM_JAMBA["periods"])
+        kinds = collections.Counter(s.kind for s in M.layer_specs(jamba))
+        moe = sum(s.mlp == "moe" for s in M.layer_specs(jamba))
+        log(f"phase 18c: attention + Mamba + MoE at full width, bf16; depth cut {full.n_layers} "
+            f"-> {jamba.n_layers} ({kinds['mamba']} Mamba + {kinds['attn']} attention layers, "
+            f"{moe} with an MoE of {jamba.n_experts} experts top-{jamba.top_k}): the whole "
+            f"model does not fit one card; {smi}")
+        serve_load(smi, "18c", jamba, LLM_JAMBA)
+        torch.cuda.empty_cache()
+        base = llm_cfg(LLM_JAMBA["arch"], "float32")
+        ((pattern, _),) = base.blocks
+        lo, hi = LLM_JAMBA_CPU["layers"]
+        cut = dataclasses.replace(base, blocks=((pattern[lo:hi], 1),),
+                                  capacity_factor=base.n_experts / base.top_k)
+        log(f"    18c.2 cut: float32, depth {base.n_layers} -> {cut.n_layers} (layers {lo}-"
+            f"{hi - 1} of the period: {', '.join(f'{s.kind} + {s.mlp}' for s in pattern[lo:hi])})"
+            f"; capacity factor {base.capacity_factor} -> E/k = {cut.capacity_factor:.6g}")
+        model = M.Model(cut, device=DEV, seed=3)
+        host = tree_map(lambda t: t.detach().cpu(), model.params())
+        toks = torch.as_tensor(np.random.default_rng(3).integers(
+            0, cut.vocab_size, (1, LLM_JAMBA_CPU["prompt"])), device=DEV)
+        with counted_drops(keep=True) as card:
+            got = model(toks)
+        with counted_drops(keep=True) as cpu:
+            want = M.forward(host, cut, toks.cpu())
+        drops = sum(int(r["dropped"].sum()) for _, recs in card + cpu for r in recs)
+        check(drops == 0, f"phase 18c.2: {drops} picks dropped at capacity factor E/k")
+        t = same_dispatch("18c.2", card[0][1], cpu[0][1], cut.top_k)
+        n = toks.shape[1] if t is None else t
+        assert_close(f"18c.2 card vs CPU forward ({cut.n_layers} layers, dispatch "
+                     f"{'equal' if t is None else f'equal before token {t}'})",
+                     got[:, :n], want[:, :n])
+        del model, host, got, want, card, cpu
+        torch.cuda.empty_cache()
+
+        log(f"phase 18d: the encoder-decoder at full width and depth, bf16; {smi}")
+        serve_load(smi, "18d", llm_cfg(LLM_WHISPER["arch"], "bfloat16"), LLM_WHISPER)
+        torch.cuda.empty_cache()
+        cfg32 = llm_cfg(LLM_WHISPER["arch"], "float32")
+        model = M.Model(cfg32, device=DEV, seed=5)
+        rng = np.random.default_rng(5)
+        W = LLM_WHISPER_TF
+        toks = torch.as_tensor(rng.integers(0, cfg32.vocab_size, (1, W["prompt"] + W["decode"])),
+                               device=DEV)
+        frames = torch.as_tensor(rng.standard_normal((1, cfg32.frontend_len, cfg32.d_model)),
+                                 dtype=torch.float32, device=DEV)
+        teacher_forced("18d float32 (full depth)", model, toks, W["prompt"], W["s_max"],
+                       enc_frames=frames)
+        host = tree_map(lambda t: t.detach().cpu(), model.params())
+        assert_close(f"18d card vs CPU forward (full depth, {cfg32.frontend_len} frames)",
+                     model(toks[:, :W["prompt"]], enc_frames=frames),
+                     M.forward(host, cfg32, toks[:, :W["prompt"]].cpu(),
+                               enc_frames=frames.cpu()))
+        del model, host
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    n = read()
+    check(n == {"b1": 0, "b2": 0, "b3": 0}, f"phase 18: launched {n} of B1-B3")
+    log(f"  B1, B2 and B3 launches in phase 18: {n}; phase wall "
         f"{time.perf_counter() - t_phase:.1f} s")
     return n
 
@@ -3352,6 +3605,7 @@ def main(argv=None) -> int:
     p15 = phase15_sharded(smi, dict(p3, launches=launches))
     p16 = phase16_llm(smi)
     p17 = phase17_moe(smi)
+    p18 = phase18_mamba_encdec(smi)
     b1 = dict(route="cuda", source="src/repro_torch/kernels/csrc/metropolis_sweep.cu",
               replaces="src/repro/kernels/metropolis_sweep.py:81", library_ms=None)
     kernels = [
@@ -3361,7 +3615,7 @@ def main(argv=None) -> int:
                               "phase 10": elastic_b1, "phase 13": temper["b1"],
                               "phase 14a": tel_launches["b1"], "phase 14b": auto_b1,
                               "phase 15": p15["b1_delta"], "phase 16": p16["b1"],
-                              "phase 17": p17["b1"]},
+                              "phase 17": p17["b1"], "phase 18": p18["b1"]},
          "max_abs_err": max(b1_err["delta"], temper["max_abs_err"]),
          "ms": t["delta"][0], "wrapper_ms": t["delta"][1], "plain_ms": t["delta"][2],
          "bound_ms": t["delta"][3], "bound_by": t["delta"][4]},
@@ -3369,7 +3623,8 @@ def main(argv=None) -> int:
          "launches": full_launches,
          "launches_by_path": {"phase 4": full_launches, "phase 11": suite["b1"],
                               "phase 12": table7["b1"], "phase 15": p15["b1_full"],
-                              "phase 16": p16["b1"], "phase 17": p17["b1"]},
+                              "phase 16": p16["b1"], "phase 17": p17["b1"],
+                              "phase 18": p18["b1"]},
          "max_abs_err": max(b1_err["full"], suite["max_abs_err"], table7["max_abs_err"]),
          "ms": t["full"][0], "wrapper_ms": t["full"][1], "plain_ms": t["full"][2],
          "bound_ms": t["full"][3], "bound_by": t["full"][4]},
@@ -3380,7 +3635,7 @@ def main(argv=None) -> int:
          "launches_by_path": {"phase 3": launches["argmin_reduce"], "phase 4": p4["b2"],
                               "phase 11": suite["b2"], "phase 12": table7["b2"],
                               "phase 15": p15["b2"], "phase 16": p16["b2"],
-                              "phase 17": p17["b2"]},
+                              "phase 17": p17["b2"], "phase 18": p18["b2"]},
          "max_abs_err": b2_err,
          "ms": t["b2"][0], "wrapper_ms": t["b2"][1], "plain_ms": t["b2"][2],
          "bound_ms": t["b2"][3], "bound_by": "bytes", "library_ms": t["b2"][4]},
@@ -3390,7 +3645,8 @@ def main(argv=None) -> int:
          "launches": b3_launches,
          "launches_by_path": {"phase 8": b3_launches, "phase 10": elastic_b3,
                               "phase 13": temper["b3"], "phase 14a": tel_launches["b3"],
-                              "phase 16": p16["b3"], "phase 17": p17["b3"]},
+                              "phase 16": p16["b3"], "phase 17": p17["b3"],
+                              "phase 18": p18["b3"]},
          "max_abs_err": b3_err,
          "ms": b3[0], "wrapper_ms": b3[1], "plain_ms": b3[2], "bound_ms": b3[3],
          "bound_by": b3[4], "library_ms": None},

@@ -14,7 +14,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.annealing import SAConfig
-from repro_torch.models.model import LayerSpec, ModelConfig
+from repro_torch.models.model import ENC_SPEC, LayerSpec, ModelConfig
 from repro_torch.objectives import SUITE
 from repro_torch.objectives import functions as F
 from repro_torch.objectives.base import Objective
@@ -113,6 +113,21 @@ def _tree(t, fn):
     return {k: _tree(v, fn) for k, v in t.items()} if isinstance(t, dict) else fn(t)
 
 
+def _split_groups(groups, blocks, what, device) -> list:
+    """The reference's scanned groups (each leaf with a leading
+    ``repeats`` axis) as one dict per layer, in the order the blocks
+    apply them.  Every layer holds ``norm1``, whose leading axis gives
+    the group's repeats."""
+    shapes = [(len(pattern), reps) for pattern, reps in blocks]
+    found = [(len(g), len(np.asarray(g[0]["norm1"]))) for g in groups]
+    if found != shapes:
+        raise ValueError(f"the pytree's groups hold (layers, repeats) {found}; "
+                         f"{what}'s blocks are {shapes}")
+    return [_tree(group[i], lambda a: _tensor(np.asarray(a)[r], device))
+            for (n, reps), group in zip(shapes, groups)
+            for r in range(reps) for i in range(n)]
+
+
 def model_params_from_jax(params, cfg: ModelConfig, device=None) -> dict:
     """The port's parameters (``models.model.init_params``' layout) from
     the reference's ``init_params`` pytree, its leaves as numpy arrays
@@ -120,19 +135,24 @@ def model_params_from_jax(params, cfg: ModelConfig, device=None) -> dict:
     card) in the leaves' dtype.  Each ``params["groups"][g][i]`` leaf
     carries a leading ``repeats`` axis from the reference's vmapped init;
     it is split into one dict per layer, in the order the blocks apply
-    them.  Nested dicts (an MoE layer's ``mlp["shared"]``) stay nested,
-    and each leaf keeps its dtype: the MoE router stays float32 under
-    bf16 weights."""
+    them, and so is the encoder's one group of ``n_enc_layers`` repeats
+    (``params["enc"]["groups"]``).  Every leaf of a layer comes across
+    (Mamba's, cross-attention's ``normc`` and ``cross``; a layer with no
+    MLP has no ``norm2``), nested dicts (an MoE layer's
+    ``mlp["shared"]``) stay nested, and each leaf keeps its dtype: the
+    MoE router stays float32 under bf16 weights.  Top-level keys other
+    than the reference's raise."""
     dev = resolve_device(device)
-    out = {k: _tensor(params[k], dev) for k in ("embed", "final_norm", "lm_head")
+    known = {"embed", "final_norm", "lm_head", "pos_embed", "groups", "enc"}
+    if set(params) - known:
+        raise ValueError(f"unknown top-level parameters {sorted(set(params) - known)}")
+    out = {k: _tensor(params[k], dev) for k in ("embed", "final_norm", "lm_head", "pos_embed")
            if k in params}
-    groups = params["groups"]
-    shapes = [(len(pattern), reps) for pattern, reps in cfg.blocks]
-    found = [(len(g), len(np.asarray(g[0]["norm1"]))) for g in groups]
-    if found != shapes:
-        raise ValueError(f"the pytree's groups hold (layers, repeats) {found}; "
-                         f"{cfg.name}'s blocks are {shapes}")
-    out["layers"] = [_tree(group[i], lambda a: _tensor(np.asarray(a)[r], dev))
-                     for (n, reps), group in zip(shapes, groups)
-                     for r in range(reps) for i in range(n)]
+    out["layers"] = _split_groups(params["groups"], cfg.blocks, cfg.name, dev)
+    if "enc" in params:
+        enc = params["enc"]
+        out["enc"] = {"layers": _split_groups(enc["groups"], (((ENC_SPEC,), cfg.n_enc_layers),),
+                                              f"{cfg.name}'s encoder", dev),
+                      "final_norm": _tensor(enc["final_norm"], dev),
+                      "pos_embed": _tensor(enc["pos_embed"], dev)}
     return out

@@ -5,7 +5,13 @@ decode loop over a request queue, the counterpart of
 * a fixed decode batch of ``--batch`` slots, each slot holding one
   request's KV cache row;
 * a new request is prefilled alone (batch 1) into a fresh cache row,
-  which is spliced into a free slot;
+  which is spliced into a free slot (a Mamba layer's ``conv`` and ``h``
+  as an attention layer's k and v);
+* an encoder-decoder request carries its audio frames (frontend_len,
+  D), which its prefill encodes into the cross-attention caches; slot
+  and row caches hold ``enc_len = frontend_len`` keys, as the
+  reference's ``build_cell`` builds them (its serving loop passes no
+  frames and builds caches of ``enc_len`` 0, so it cannot serve one);
 * one decode tick advances every slot by one token (``make_serve_step``);
 * a finished slot (``max_new`` tokens, the first from the prefill) is
   refilled from the queue at the next tick; ``max_new == 1`` finishes at
@@ -33,12 +39,18 @@ from repro_torch.models import model as M
 from repro_torch.models.model import forward
 
 
+def enc_len(cfg) -> int:
+    """Encoder positions the cross-attention caches hold."""
+    return cfg.frontend_len if cfg.kind == "encdec" else 0
+
+
 class SlotCache:
     """The decode batch's caches (one dict per layer, batch on axis 0)
     with a per-slot splice."""
 
     def __init__(self, cfg, batch, s_max, dtype, device=None):
-        self.caches = M.init_cache(cfg, batch, s_max, dtype=dtype, device=device)
+        self.caches = M.init_cache(cfg, batch, s_max, dtype=dtype, device=device,
+                                   enc_len=enc_len(cfg))
 
     def splice(self, row_caches, slot: int):
         """Copy a batch-1 cache row into slot ``slot``."""
@@ -47,11 +59,14 @@ class SlotCache:
                 t[slot:slot + 1].copy_(row[name])
 
 
-def serve(cfg, model, queue, *, batch, max_new, s_max, device=None):
+def serve(cfg, model, queue, *, batch, max_new, s_max, device=None, frames=None):
     """Serve ``queue`` (int32 prompts) through ``model`` greedily with
-    ``batch`` slots.  Returns (the generated tokens of each request, the
-    decode ticks run)."""
+    ``batch`` slots; an encoder-decoder's requests carry ``frames``, one
+    (frontend_len, D) array each.  Returns (the generated tokens of each
+    request, the decode ticks run)."""
     dev = resolve_device(device)
+    if cfg.kind == "encdec" and (frames is None or len(frames) != len(queue)):
+        raise ValueError(f"{cfg.name}: every request needs its audio frames")
     params = model.params()
     dtype = getattr(torch, cfg.compute_dtype)
     serve_step = make_serve_step(cfg)
@@ -68,8 +83,11 @@ def serve(cfg, model, queue, *, batch, max_new, s_max, device=None):
         for s in range(batch):
             if remaining[s] == 0 and next_req < len(queue):
                 prompt = torch.as_tensor(queue[next_req][None, :], device=dev)
-                row = M.init_cache(cfg, 1, s_max, dtype=dtype, device=dev)
-                logits, row = forward(params, cfg, prompt, caches=row, mode="prefill")
+                row = M.init_cache(cfg, 1, s_max, dtype=dtype, device=dev, enc_len=enc_len(cfg))
+                kw = {}
+                if frames is not None:
+                    kw["enc_frames"] = torch.as_tensor(frames[next_req][None], device=dev)
+                logits, row = forward(params, cfg, prompt, caches=row, mode="prefill", **kw)
                 slots.splice(row, s)
                 cur_tok[s, 0] = int(torch.argmax(logits[0, -1]))
                 cur_pos[s] = prompt.shape[1]
@@ -124,10 +142,14 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     queue = [rng.integers(1, cfg.vocab_size, size=args.prompt_len)
              .astype(np.int32) for _ in range(args.requests)]
+    frames = None
+    if cfg.kind == "encdec":
+        frames = [rng.standard_normal((cfg.frontend_len, cfg.d_model)).astype(np.float32)
+                  for _ in range(args.requests)]
 
     t0 = time.time()
     outputs, ticks = serve(cfg, model, queue, batch=args.batch, max_new=args.max_new,
-                           s_max=args.s_max, device=dev)
+                           s_max=args.s_max, device=dev, frames=frames)
     wall = time.time() - t0
     total_new = sum(len(o) for o in outputs)
     print(f"[serve] {args.requests} requests, {total_new} tokens, "

@@ -20,11 +20,14 @@ def make_prefill_step(cfg: M.ModelConfig):
     """``prefill_step(params, batch_data, caches) -> (next_tok (B, 1)
     int32, caches)`` over ``batch_data["tokens"][:, :-1]`` (the training
     layout of S + 1 tokens), the vision stub's ``patch_embeds`` before
-    them where the config has one."""
+    them where the config has one, and the encoder-decoder's
+    ``audio_frames`` (B, frontend_len, D) as the encoder's input."""
     def prefill_step(params, batch_data, caches):
         kw = {}
         if cfg.frontend == "vision_stub":
             kw["embeds"] = batch_data["patch_embeds"]
+        if cfg.kind == "encdec":
+            kw["enc_frames"] = batch_data["audio_frames"]
         logits, caches = M.forward(params, cfg, batch_data["tokens"][:, :-1],
                                    caches=caches, mode="prefill", **kw)
         return torch.argmax(logits[:, -1:], dim=-1).to(torch.int32), caches

@@ -1,8 +1,9 @@
 """Layers of the LLM scaffold, the port's counterpart of
-``repro.models.layers`` but for Mamba: RMSNorm, RoPE, the SwiGLU MLP, GQA
-attention with its prefill and decode caches (the circular buffer of
-sliding-window layers included), MLA with its compressed cache and
-absorbed decode, and the top-k MoE with capacity dispatch.
+``repro.models.layers``: RMSNorm, RoPE, the SwiGLU MLP, GQA attention
+with its prefill and decode caches (the circular buffer of
+sliding-window layers included, RoPE optional), MLA with its compressed
+cache and absorbed decode, the top-k MoE with capacity dispatch, and the
+Mamba-1 selective SSM with its chunked scan.
 
 Functional, as the reference is: parameters are dicts of tensors built by
 the ``init_*`` functions from an explicit ``torch.Generator``, and the
@@ -10,9 +11,9 @@ apply functions take a leading batch axis.  The numerics follow the
 reference's: RMSNorm and RoPE in float32, attention scores and the
 attention output in float32 whatever the compute dtype (the reference's
 ``preferred_element_type=float32`` and its float32 ``p`` times a bf16
-``v``).  MLA and the MoE follow the reference's dtypes step by step
-(see :func:`mla_attention` and :func:`moe_apply`).  Mamba waits for the
-next slice of the port.
+``v``).  MLA, the MoE and Mamba follow the reference's dtypes step by
+step (see :func:`mla_attention`, :func:`moe_apply` and
+:func:`mamba_apply`).
 """
 from __future__ import annotations
 
@@ -68,6 +69,11 @@ def rope(x, positions, *, theta: float = 10000.0):
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def _silu(x):
+    """silu as the reference lowers it: the logistic, then the product."""
+    return x * torch.sigmoid(x)
 
 
 def swiglu(x, w_gate, w_up, w_down):
@@ -140,8 +146,10 @@ def _prefill_cache(cache, k, v, positions, window):
 
 
 def attention(params, x, positions, *, n_rep: int, window: Optional[int],
-              rope_theta: float = 10000.0, cache=None, decode: bool = False):
-    """GQA attention with an optional sliding window and KV cache.
+              rope_theta: float = 10000.0, use_rope: bool = True, cache=None,
+              decode: bool = False):
+    """GQA attention with an optional sliding window and KV cache; q and
+    k are rotated by RoPE unless ``use_rope`` is False (learned positions).
 
     Train/prefill: x (B,S,D) under the causal (and window) mask; returns
     (out, new_cache), new_cache filled iff ``cache`` is given (prefill).
@@ -153,9 +161,10 @@ def attention(params, x, positions, *, n_rep: int, window: Optional[int],
     mask excludes.
     """
     B, S, _ = x.shape
-    q = rope(_heads(x, params["wq"]), positions, theta=rope_theta)
-    k = rope(_heads(x, params["wk"]), positions, theta=rope_theta)
-    v = _heads(x, params["wv"])
+    q, k, v = (_heads(x, params[w]) for w in ("wq", "wk", "wv"))
+    if use_rope:
+        q = rope(q, positions, theta=rope_theta)
+        k = rope(k, positions, theta=rope_theta)
 
     if not decode:
         mask = positions[:, None, :] <= positions[:, :, None]
@@ -362,10 +371,149 @@ def moe_apply(params, x, *, top_k: int, capacity_factor: float = 1.25,
     buf = x.new_zeros((E * C + 1, D))
     buf[dest] = xt.repeat_interleave(top_k, dim=0)
     buf = buf[:E * C].view(E, C, D)
-    g = torch.bmm(buf, params["w_gate"])
-    # silu as the reference's lowers it: the logistic, then the product
-    h = g * torch.sigmoid(g) * torch.bmm(buf, params["w_up"])
+    h = _silu(torch.bmm(buf, params["w_gate"])) * torch.bmm(buf, params["w_up"])
     out = torch.cat([torch.bmm(h, params["w_down"]).view(E * C, D), x.new_zeros((1, D))])
     tok = out[dest].view(B * S, top_k, D)
     y = torch.bmm(gate.to(tok.dtype)[:, None, :], tok)
     return y.view(B, S, D)
+
+
+# -------------------------------------------------------------------- Mamba1
+def init_mamba(gen, d_model, *, d_state, d_conv, expand, dt_rank, dtype):
+    """The reference's draws and constants: ``conv_w`` at scale 0.5,
+    ``conv_b`` zeros, ``dt_bias`` -4 (softplus of it is a small dt),
+    ``A_log = log(1..d_state)`` on every row and ``D`` ones.  The log is
+    taken in float64 and rounded once to float32, then cast: XLA's CPU
+    log is one float32 ulp above that at 7, 47 and 49."""
+    d_inner, dev = expand * d_model, gen.device
+    a_log = np.log(np.arange(1, d_state + 1, dtype=np.float64)).astype(np.float32)
+    return {
+        "in_proj": _init(gen, (d_model, 2 * d_inner), dtype=dtype),
+        "conv_w": _init(gen, (d_conv, d_inner), scale=0.5, dtype=dtype),
+        "conv_b": torch.zeros(d_inner, dtype=dtype, device=dev),
+        "x_proj": _init(gen, (d_inner, dt_rank + 2 * d_state), dtype=dtype),
+        "dt_proj": _init(gen, (dt_rank, d_inner), dtype=dtype),
+        "dt_bias": torch.full((d_inner,), -4.0, dtype=dtype, device=dev),
+        "A_log": torch.from_numpy(a_log).to(dev).expand(d_inner, d_state).to(dtype).contiguous(),
+        "D": torch.ones(d_inner, dtype=dtype, device=dev),
+        "out_proj": _init(gen, (d_inner, d_model), dtype=dtype),
+    }
+
+
+MAMBA_CHUNK = 256   # the reference's chunk: a prefill of a multiple of it scans in chunks
+
+
+def _ssm_chunk_scan(dA, dBx, h0, chunk: int):
+    """The linear recurrence ``h_t = dA_t·h_{t-1} + dBx_t`` over axis 1
+    in chunks of ``chunk`` steps (S a multiple of it), carrying h from
+    chunk to chunk: within a chunk an inclusive Hillis-Steele scan of
+    the pairs (a, b) under ``(a1, b1)∘(a2, b2) = (a1·a2, a2·b1 + b2)``
+    in log2(chunk) passes, then ``hs = aa·h + bb``.  The reference's
+    ``lax.associative_scan`` combines in another order, so the two agree
+    to float32 rounding.  Running products are never divided out: the
+    product of 256 dA underflows.  dA, dBx: (B, S, Di, N) float32; h0:
+    (B, Di, N).  Returns (hs (B, S, Di, N), h at the last step)."""
+    S = dA.shape[1]
+    hs = torch.empty_like(dA)
+    h = h0
+    for c0 in range(0, S, chunk):
+        a, b = dA[:, c0:c0 + chunk], dBx[:, c0:c0 + chunk]
+        d = 1
+        while d < chunk:
+            b = torch.cat([b[:, :d], torch.addcmul(b[:, d:], a[:, d:], b[:, :-d])], 1)
+            a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], 1)
+            d *= 2
+        torch.addcmul(b, a, h[:, None], out=hs[:, c0:c0 + chunk])
+        h = hs[:, c0 + chunk - 1]
+    return hs, h
+
+
+def _ssm_step_scan(dA, dBx, h0):
+    """The same recurrence one step at a time, as the reference's
+    ``lax.scan`` when S is not a multiple of the chunk.  It is kept
+    beside the chunked scan because it is the reference's own order: its
+    states equal the reference's bit for bit on the CPU, where the
+    chunked order differs from them in the last bits
+    (``tests/test_torch_mamba_encdec.py::test_ssm_step_scan_is_the_reference_order``),
+    so a prompt of any length that is not a multiple of the chunk, most
+    of them, rounds as the reference's does."""
+    hs = torch.empty_like(dA)
+    h = h0
+    for t in range(dA.shape[1]):
+        h = torch.addcmul(dBx[:, t], dA[:, t], h, out=hs[:, t])
+    return hs, h
+
+
+def mamba_apply(params, x, *, d_state: int, d_conv: int, cache=None, decode: bool = False):
+    """Mamba-1 selective SSM.  x: (B, S, D) -> (out, new_cache).
+
+    Prefill/train: a causal depthwise conv over zero padding (``d_conv``
+    products in the compute dtype, added in order), then the scan from
+    h = 0 (``cache["h"]`` is not read, as in the reference): chunked when
+    S is a multiple of ``MAMBA_CHUNK`` and at least it, else step by step.
+    With a cache, returns ``{"conv": the last d_conv-1 inputs (the
+    cache's and the prompt's when S is shorter), "h": the last state}``.
+    Decode (S = 1): one contraction over (d_conv, Di) of the cached
+    inputs and this one, one recurrence step from ``cache["h"]``; both
+    written into ``cache`` in place, and the same dict returned.
+
+    Dtypes, the reference's step by step: dt = softplus (``logaddexp(.,
+    0)``) in the compute dtype; dA = exp(dt·A) float32 with A =
+    -exp(A_log) in float32; dBx = (dt·conv)·B as two compute-dtype
+    products, then float32; the recurrence, y = hs·C and y + conv·D and
+    y·silu(z) in float32; y cast to ``x``'s dtype before ``out_proj``.
+    ``init_cache`` holds h in float32.
+    """
+    B, S, _ = x.shape
+    Di = params["in_proj"].shape[-1] // 2
+    R = params["dt_proj"].shape[0]
+    xz = x @ params["in_proj"]
+    xin, z = xz[..., :Di], xz[..., Di:]
+    w = params["conv_w"]
+    if not decode:
+        xpad = torch.cat([xin.new_zeros((B, d_conv - 1, Di)), xin], 1)
+        conv = xpad[:, :S] * w[0]
+        for i in range(1, d_conv):
+            conv = conv + xpad[:, i:i + S] * w[i]
+    else:
+        hist = torch.cat(_same_dtype(cache["conv"], xin), 1)         # (B, d_conv, Di)
+        conv = (hist.float() * w.float()).sum(1, keepdim=True).to(
+            torch.promote_types(hist.dtype, w.dtype))
+    conv = _silu(conv + params["conv_b"])
+
+    proj = conv @ params["x_proj"]
+    dt_r, Bm, Cm = proj[..., :R], proj[..., R:R + d_state], proj[..., R + d_state:]
+    dt = dt_r @ params["dt_proj"] + params["dt_bias"]
+    dt = torch.logaddexp(dt, dt.new_zeros(()))                     # (B, S, Di)
+    A = -torch.exp(params["A_log"].float())                         # (Di, N)
+    dA = torch.exp(dt.float()[..., None] * A)                       # (B, S, Di, N)
+    dBx = ((dt * conv)[..., None] * Bm[:, :, None, :]).float()
+
+    if not decode:
+        h0 = dA.new_zeros((B, Di, d_state))
+        if S % MAMBA_CHUNK == 0 and S >= MAMBA_CHUNK:
+            hs, h_last = _ssm_chunk_scan(dA, dBx, h0, MAMBA_CHUNK)
+        else:
+            hs, h_last = _ssm_step_scan(dA, dBx, h0)
+        y = (hs @ Cm.float()[..., None])[..., 0]
+    else:
+        h_last = torch.addcmul(dBx[:, 0], cache["h"].float(), dA[:, 0])
+        y = (h_last @ Cm[:, 0].float()[..., None])[..., 0][:, None]
+
+    y = (y + conv * params["D"]) * _silu(z)
+    out = y.to(x.dtype) @ params["out_proj"]
+    new_cache = None
+    if decode:
+        cache["conv"].copy_(hist[:, 1:])
+        cache["h"].copy_(h_last)
+        new_cache = cache
+    elif cache is not None:
+        # the last d_conv-1 inputs, copied (and h_last, a view of hs), so
+        # that the row cache holds neither xpad nor hs
+        if S >= d_conv - 1:
+            state = xpad[:, S:].clone()
+        else:
+            state = torch.cat(_same_dtype(cache["conv"], xin), 1)[:, -(d_conv - 1):]
+        new_cache = {"conv": state.to(cache["conv"].dtype),
+                     "h": h_last.to(cache["h"].dtype, copy=True)}
+    return out, new_cache

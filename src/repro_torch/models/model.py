@@ -13,10 +13,10 @@ scans each group over a stacked ``repeats`` axis; the port keeps one
 parameter dict and one cache dict per layer, in the order the blocks
 apply them.
 
-GQA and MLA attention layers with the dense SwiGLU MLP or the MoE (and
-its shared experts) are ported: Mamba, layers without an MLP,
-cross-attention, the encoder-decoder and learned positions
-(``use_rope=False``) raise ``NotImplementedError``.  The reference's
+Every layer kind of the reference runs: GQA (RoPE or learned positions,
+``use_rope=False``) and MLA attention, Mamba, with the dense SwiGLU MLP,
+the MoE (and its shared experts) or no MLP, and cross-attention over the
+encoder of the encoder-decoder (``kind="encdec"``).  The reference's
 ``shardctx.constrain`` calls and the knobs ``seq_parallel``,
 ``seq_shard_kv`` and ``serve_params_tp_only`` choose layouts over a
 device mesh and change no value; on one card the port leaves them out,
@@ -26,6 +26,7 @@ training slice.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -157,32 +158,19 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------- support
-_NOT_PORTED = {
-    "mamba": "Mamba layers: ROADMAP.md section A, item 2b (Mamba and its chunked scan)",
-    "none": "layers without an MLP (Mamba's): ROADMAP.md section A, item 2b",
-    "cross_attn": "cross-attention: ROADMAP.md section A, item 2c (the encoder-decoder)",
-    "encdec": "the encoder-decoder: ROADMAP.md section A, item 2c (the encoder-decoder)",
-    "no_rope": "learned positions (use_rope=False): ROADMAP.md section A, item 2c "
-               "(the encoder-decoder)",
-}
-
-
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet:
-    anything but GQA or MLA attention layers with the dense MLP or the
-    MoE over RoPE."""
-    if cfg.kind == "encdec":
-        raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED['encdec']}")
-    if not cfg.use_rope:
-        raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED['no_rope']}")
+    """Raise ``ValueError`` for a model kind, layer kind or MLP the
+    reference does not define."""
+    if cfg.kind not in ("decoder", "encdec"):
+        raise ValueError(f"{cfg.name}: model kind {cfg.kind!r}")
     for pattern, _ in cfg.blocks:
         for spec in pattern:
-            for what in (spec.kind if spec.kind not in ("attn", "mla") else None,
-                         spec.mlp if spec.mlp not in ("dense", "moe") else None,
-                         "cross_attn" if spec.cross_attn else None):
-                if what is not None:
-                    raise NotImplementedError(
-                        f"{cfg.name}: {_NOT_PORTED.get(what, what + ' is not ported')}")
+            if spec.kind not in ("attn", "mla", "mamba") or spec.mlp not in ("dense", "moe",
+                                                                             "none"):
+                raise ValueError(f"{cfg.name}: layer {spec}")
+
+
+ENC_SPEC = LayerSpec(kind="attn", window=None, mlp="dense")
 
 
 def layer_specs(cfg: ModelConfig) -> list:
@@ -198,14 +186,19 @@ def _dtype(name: str) -> torch.dtype:
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     """Random parameters in ``cfg.param_dtype`` on the generator's device,
     drawn by the reference's rules (``init_params``, ``_init_layer``):
-    ``{"embed", "final_norm", ["lm_head"], "layers": [per layer]}``, each
-    layer ``{"norm1", "norm2", "attn", "mlp"}``: ``attn`` GQA's ``{wq,
-    wk, wv, wo}`` or MLA's ``{wq, w_dkv, w_kr, w_uk, w_uv, wo}`` (``d_v =
-    head_dim``), ``mlp`` the dense ``{w_gate, w_up, w_down}`` or the
+    ``{"embed", "final_norm", ["lm_head"], ["pos_embed"], "layers": [per
+    layer], ["enc"]}``.  ``pos_embed`` (max_seq, D) is there without
+    RoPE.  Each layer holds ``norm1`` and ``attn``: GQA's ``{wq, wk, wv,
+    wo}``, MLA's ``{wq, w_dkv, w_kr, w_uk, w_uv, wo}`` (``d_v =
+    head_dim``) or Mamba's (:func:`layers.init_mamba`); with an MLP
+    ``norm2`` and ``mlp``, the dense ``{w_gate, w_up, w_down}`` or the
     MoE's ``{router, w_gate, w_up, w_down[, shared]}`` with its float32
-    router.  Each weight is drawn in float32 and cast on its own (an
-    expert stack one expert at a time), so the whole model is never held
-    in float32."""
+    router; with cross-attention ``normc`` and ``cross``, attention with
+    as many KV heads as heads.  The encoder-decoder's ``enc`` is
+    ``{"layers": [n_enc_layers dense attention layers], "final_norm",
+    "pos_embed"}``.  Each weight is drawn in float32 and cast on its own
+    (an expert stack one expert at a time), so the whole model is never
+    held in float32."""
     check_supported(cfg)
     dtype, dev = _dtype(cfg.param_dtype), generator.device
     D = cfg.d_model
@@ -213,24 +206,40 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
               "final_norm": torch.zeros(D, dtype=dtype, device=dev)}
     if not cfg.tie_embeddings:
         params["lm_head"] = L._init(generator, (D, cfg.vocab_size), dtype=dtype)
+    if not cfg.use_rope:
+        params["pos_embed"] = L._init(generator, (cfg.max_seq, D), scale=0.02, dtype=dtype)
     params["layers"] = [_init_layer(generator, spec, cfg, dtype) for spec in layer_specs(cfg)]
+    if cfg.kind == "encdec":
+        params["enc"] = {
+            "layers": [_init_layer(generator, ENC_SPEC, cfg, dtype)
+                       for _ in range(cfg.n_enc_layers)],
+            "final_norm": torch.zeros(D, dtype=dtype, device=dev),
+            "pos_embed": L._init(generator, (cfg.max_seq, D), scale=0.02, dtype=dtype),
+        }
     return params
 
 
 def _init_layer(gen, spec: LayerSpec, cfg: ModelConfig, dtype) -> dict:
     D, dev = cfg.d_model, gen.device
-    p = {"norm1": torch.zeros(D, dtype=dtype, device=dev),
-         "norm2": torch.zeros(D, dtype=dtype, device=dev)}
+    p = {"norm1": torch.zeros(D, dtype=dtype, device=dev)}
+    if spec.mlp != "none":
+        p["norm2"] = torch.zeros(D, dtype=dtype, device=dev)
     if spec.kind == "mla":
         p["attn"] = L.init_mla(gen, D, cfg.n_heads, kv_lora=cfg.kv_lora, d_nope=cfg.d_nope,
                                d_rope=cfg.d_rope, d_v=cfg.head_dim, dtype=dtype)
+    elif spec.kind == "mamba":
+        p["attn"] = L.init_mamba(gen, D, d_state=cfg.d_state, d_conv=cfg.d_conv,
+                                 expand=cfg.expand, dt_rank=cfg.dt_rank_eff, dtype=dtype)
     else:
         p["attn"] = L.init_attention(gen, D, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dtype)
     if spec.mlp == "moe":
         p["mlp"] = L.init_moe(gen, D, cfg.d_ff_expert, cfg.n_experts, cfg.n_shared,
                               cfg.d_ff_expert, dtype)
-    else:
+    elif spec.mlp == "dense":
         p["mlp"] = L.init_mlp(gen, D, cfg.d_ff, dtype)
+    if spec.cross_attn:
+        p["normc"] = torch.zeros(D, dtype=dtype, device=dev)
+        p["cross"] = L.init_attention(gen, D, cfg.n_heads, cfg.n_heads, cfg.head_dim, dtype)
     return p
 
 
@@ -250,7 +259,8 @@ class Model(nn.Module):
     """The model as a module: the parameters of :func:`init_params`
     (or ``params``, e.g. from ``interop.model_params_from_jax``) on the
     card unless ``device`` says otherwise, and :func:`forward` over them.
-    Serving holds them frozen (``requires_grad=False``)."""
+    The encoder's parameters are ``enc`` (its norm and positions) and
+    ``enc_layers``.  Serving holds them frozen (``requires_grad=False``)."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0,
                  params: Optional[dict] = None):
@@ -260,12 +270,20 @@ class Model(nn.Module):
         dev = resolve_device(device)
         if params is None:
             params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
-        self.top = _as_parameters({k: v for k, v in params.items() if k != "layers"})
+        self.top = _as_parameters({k: v for k, v in params.items() if k not in ("layers", "enc")})
         self.layers = nn.ModuleList(_as_parameters(lp) for lp in params["layers"])
+        if "enc" in params:
+            enc = params["enc"]
+            self.enc = _as_parameters({k: v for k, v in enc.items() if k != "layers"})
+            self.enc_layers = nn.ModuleList(_as_parameters(lp) for lp in enc["layers"])
 
     def params(self) -> dict:
         """The parameters as the dict :func:`forward` takes."""
-        return {**_as_tensors(self.top), "layers": [_as_tensors(m) for m in self.layers]}
+        out = {**_as_tensors(self.top), "layers": [_as_tensors(m) for m in self.layers]}
+        if hasattr(self, "enc"):
+            out["enc"] = {**_as_tensors(self.enc),
+                          "layers": [_as_tensors(m) for m in self.enc_layers]}
+        return out
 
     def forward(self, tokens=None, **kw):
         return forward(self.params(), self.cfg, tokens, **kw)
@@ -273,43 +291,87 @@ class Model(nn.Module):
 
 # ------------------------------------------------------------------ cache
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16,
-               device=None) -> list:
+               device=None, enc_len: int = 0) -> list:
     """Decode caches, one dict per layer in the order of
     :func:`layer_specs`: on a GQA layer ``k`` and ``v`` (batch, C,
     n_kv_heads, head_dim) with ``C = min(s_max, window)`` on window layers
     and ``s_max`` on global ones; on an MLA layer the compressed ``c_kv``
     (batch, s_max, kv_lora) and ``k_rope`` (batch, s_max, d_rope); on
-    both ``pos_k`` (batch, C) int32 at int32 max."""
+    both ``pos_k`` (batch, C) int32 at int32 max.  A Mamba layer holds
+    ``conv`` (batch, d_conv - 1, d_inner) in ``dtype`` and ``h`` (batch,
+    d_inner, d_state) in float32 whatever ``dtype``; a cross-attention
+    layer adds ``ck`` and ``cv`` (batch, enc_len, n_heads, head_dim)."""
     check_supported(cfg)
     dev = resolve_device(device)
 
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
     def layer_cache(spec):
-        if spec.kind == "mla":
-            return {"c_kv": torch.zeros((batch, s_max, cfg.kv_lora), dtype=dtype, device=dev),
-                    "k_rope": torch.zeros((batch, s_max, cfg.d_rope), dtype=dtype, device=dev),
-                    "pos_k": torch.full((batch, s_max), L.INT32_MAX, dtype=torch.int32,
-                                        device=dev)}
-        C = min(s_max, spec.window) if spec.window else s_max
-        kv = (batch, C, cfg.n_kv_heads, cfg.head_dim)
-        return {"k": torch.zeros(kv, dtype=dtype, device=dev),
-                "v": torch.zeros(kv, dtype=dtype, device=dev),
-                "pos_k": torch.full((batch, C), L.INT32_MAX, dtype=torch.int32, device=dev)}
+        if spec.kind == "mamba":
+            c = {"conv": zeros(batch, cfg.d_conv - 1, cfg.d_inner),
+                 "h": zeros(batch, cfg.d_inner, cfg.d_state, dt=torch.float32)}
+        elif spec.kind == "mla":
+            c = {"c_kv": zeros(batch, s_max, cfg.kv_lora),
+                 "k_rope": zeros(batch, s_max, cfg.d_rope),
+                 "pos_k": torch.full((batch, s_max), L.INT32_MAX, dtype=torch.int32,
+                                     device=dev)}
+        else:
+            C = min(s_max, spec.window) if spec.window else s_max
+            c = {"k": zeros(batch, C, cfg.n_kv_heads, cfg.head_dim),
+                 "v": zeros(batch, C, cfg.n_kv_heads, cfg.head_dim),
+                 "pos_k": torch.full((batch, C), L.INT32_MAX, dtype=torch.int32, device=dev)}
+        if spec.cross_attn:
+            c["ck"] = zeros(batch, enc_len, cfg.n_heads, cfg.head_dim)
+            c["cv"] = zeros(batch, enc_len, cfg.n_heads, cfg.head_dim)
+        return c
 
     return [layer_cache(spec) for spec in layer_specs(cfg)]
 
 
 # ------------------------------------------------------------------ forward
-def _apply_layer(lp, spec: LayerSpec, cfg: ModelConfig, x, positions, cache, decode):
+def _cross_attention(p, h, ck, cv, head_dim):
+    """Cross-attention of ``h`` over the encoder's keys and values, with
+    no mask: float32 scores over sqrt(head_dim), a float32 ``p·cv`` cast
+    to ``h``'s dtype, then ``wo``."""
+    B, S, _ = h.shape
+    q = L._heads(h, p["wq"])
+    s = torch.einsum("bshk,bthk->bsht", q.float(), ck.float()) / math.sqrt(head_dim)
+    o = torch.einsum("bsht,bthk->bshk", s.softmax(-1), cv.float()).to(h.dtype)
+    H, hd, D = p["wo"].shape
+    return o.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, D)
+
+
+def _apply_layer(lp, spec: LayerSpec, cfg: ModelConfig, x, positions, cache, decode,
+                 enc_out=None):
     h = L.rms_norm(x, lp["norm1"])
-    if spec.kind == "mla":
+    if spec.kind == "mamba":
+        out, new_c = L.mamba_apply(lp["attn"], h, d_state=cfg.d_state, d_conv=cfg.d_conv,
+                                   cache=cache, decode=decode)
+    elif spec.kind == "mla":
         out, new_c = L.mla_attention(lp["attn"], h, positions, d_nope=cfg.d_nope,
                                      d_rope=cfg.d_rope, rope_theta=cfg.rope_theta,
                                      cache=cache, decode=decode)
     else:
         out, new_c = L.attention(lp["attn"], h, positions,
                                  n_rep=cfg.n_heads // cfg.n_kv_heads, window=spec.window,
-                                 rope_theta=cfg.rope_theta, cache=cache, decode=decode)
+                                 rope_theta=cfg.rope_theta, use_rope=cfg.use_rope,
+                                 cache=cache, decode=decode)
     x = x + out
+    if spec.cross_attn:
+        # Decode reads the encoder's keys and values from the cache (the
+        # dict attention wrote in place, so new_c holds them); prefill
+        # computes them from enc_out and stores them in x's dtype.
+        h = L.rms_norm(x, lp["normc"])
+        if decode:
+            ck, cv = cache["ck"], cache["cv"]
+        else:
+            ck, cv = L._heads(enc_out, lp["cross"]["wk"]), L._heads(enc_out, lp["cross"]["wv"])
+            if new_c is not None:
+                new_c.update(ck=ck.to(x.dtype), cv=cv.to(x.dtype))
+        x = x + _cross_attention(lp["cross"], h, ck, cv, cfg.head_dim)
+    if spec.mlp == "none":
+        return x, new_c
     h = L.rms_norm(x, lp["norm2"])
     if spec.mlp == "moe":
         out = _moe(lp["mlp"], h, cfg)
@@ -329,8 +391,23 @@ def _moe(mp, h, cfg: ModelConfig):
     return L.moe_apply(routed, h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
 
 
+def _encode(params, cfg: ModelConfig, frames, cdt):
+    """The encoder over ``frames`` (B, Te, D): learned positions 0..Te-1,
+    dense attention layers run as causal attention with every position 0
+    (so the mask passes everywhere: the reference's bidirectional
+    encoder), then its final norm."""
+    enc = params["enc"]
+    B, Te, _ = frames.shape
+    pos = torch.arange(Te, device=frames.device)
+    e = frames.to(cdt) + enc["pos_embed"][pos].to(cdt)
+    zeros = torch.zeros((B, Te), dtype=torch.int32, device=frames.device)
+    for lp in enc["layers"]:
+        e, _ = _apply_layer(lp, ENC_SPEC, cfg, e, zeros, None, False)
+    return L.rms_norm(e, enc["final_norm"])
+
+
 def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None, positions=None,
-            caches=None, mode: str = "train"):
+            caches=None, mode: str = "train", enc_frames=None):
     """Forward pass.
 
     mode='train'   : full-sequence causal logits.
@@ -340,7 +417,10 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None, positions=Non
                      positions (B,1).
 
     ``embeds`` (B, Lv, D) is the vision stub's prefix, put before the
-    tokens' embeddings.  Embeddings, the layers and the head run in
+    tokens' embeddings.  Without RoPE, ``pos_embed`` at the positions is
+    added to them.  The encoder-decoder encodes ``enc_frames`` (B, Te,
+    D) in train and prefill mode (decode reads the cross-attention
+    caches).  Embeddings, the layers and the head run in
     ``cfg.compute_dtype``; the tied head is ``x @ embed.T`` in it.
     """
     if mode not in ("train", "prefill", "decode"):
@@ -358,12 +438,17 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None, positions=Non
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    if not cfg.use_rope:
+        x = x + params["pos_embed"][positions.long()].to(cdt)
+    enc_out = None
+    if cfg.kind == "encdec" and not decode:
+        enc_out = _encode(params, cfg, enc_frames, cdt)
 
     specs = layer_specs(cfg)
     caches = caches if caches is not None else [None] * len(specs)
     new_caches = []
     for lp, spec, c in zip(params["layers"], specs, caches):
-        x, nc = _apply_layer(lp, spec, cfg, x, positions, c, decode)
+        x, nc = _apply_layer(lp, spec, cfg, x, positions, c, decode, enc_out)
         new_caches.append(nc)
 
     x = L.rms_norm(x, params["final_norm"])

@@ -33,7 +33,7 @@ from repro_torch.models import model as M
 
 DENSE = ("stablelm-1.6b", "gemma3-4b", "granite-20b", "internlm2-20b", "internvl2-2b")
 MLA_MOE = ("deepseek-v2-lite-16b", "kimi-k2-1t-a32b")
-NOT_PORTED = ("falcon-mamba-7b", "jamba-v0.1-52b", "whisper-base")
+SSM_ENCDEC = ("falcon-mamba-7b", "jamba-v0.1-52b", "whisper-base")
 TOL = dict(rtol=2e-4, atol=2e-4)
 LAYER_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_ULPS = 8
@@ -58,18 +58,23 @@ def weights(rcfg, cfg, seed=0):
 
 
 def inputs(cfg, batch, seq, seed=0):
-    """Tokens and, for the vision stub, its prefix embeddings."""
+    """Tokens and the stub's inputs: the vision stub's prefix embeddings
+    (``embeds``) or the encoder-decoder's audio frames (``enc_frames``)."""
     rs = np.random.default_rng(seed)
     toks = rs.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
-    embeds = None
+    stub = {}
     if cfg.frontend == "vision_stub":
-        embeds = rs.standard_normal((batch, cfg.frontend_len, cfg.d_model)).astype(np.float32)
-    return toks, embeds
+        stub["embeds"] = rs.standard_normal((batch, cfg.frontend_len, cfg.d_model)).astype(
+            np.float32)
+    if cfg.kind == "encdec":
+        stub["enc_frames"] = rs.standard_normal((batch, cfg.frontend_len, cfg.d_model)).astype(
+            np.float32)
+    return toks, stub
 
 
-def both(toks, embeds):
-    j = dict(embeds=None if embeds is None else jnp.asarray(embeds))
-    t = dict(embeds=None if embeds is None else torch.as_tensor(embeds))
+def both(toks, stub):
+    j = {k: jnp.asarray(v) for k, v in stub.items()}
+    t = {k: torch.as_tensor(v) for k, v in stub.items()}
     return jnp.asarray(toks), j, torch.as_tensor(toks), t
 
 
@@ -81,12 +86,15 @@ def assert_caches(ref_caches, caches, cfg):
         for r in range(reps):
             for j in range(len(pattern)):
                 got = caches[i]
-                for name in [n for n in got if n != "pos_k"]:   # k, v or c_kv, k_rope
+                assert set(got) == set(group[j])
+                # k, v or c_kv, k_rope, or Mamba's conv and h; ck, cv
+                for name in [n for n in got if n != "pos_k"]:
                     np.testing.assert_allclose(got[name].numpy(),
                                                np.asarray(group[j][name])[r], **TOL)
-                np.testing.assert_array_equal(got["pos_k"].numpy(),
-                                              np.asarray(group[j]["pos_k"])[r])
-                assert got["pos_k"].dtype == torch.int32
+                if "pos_k" in got:
+                    np.testing.assert_array_equal(got["pos_k"].numpy(),
+                                                  np.asarray(group[j]["pos_k"])[r])
+                    assert got["pos_k"].dtype == torch.int32
                 i += 1
     assert i == len(caches)
 
@@ -185,7 +193,7 @@ def test_global_prefill_longer_than_its_cache_raises():
 
 
 # ------------------------------------------------------------------ model
-@pytest.mark.parametrize("name", DENSE + MLA_MOE + ("smoke",))
+@pytest.mark.parametrize("name", DENSE + MLA_MOE + SSM_ENCDEC + ("smoke",))
 def test_forward_train_matches_reference(name):
     rcfg, cfg = configs(name)
     p, tp = weights(rcfg, cfg)
@@ -196,18 +204,21 @@ def test_forward_train_matches_reference(name):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
-@pytest.mark.parametrize("name", DENSE + MLA_MOE)
+@pytest.mark.parametrize("name", DENSE + MLA_MOE + SSM_ENCDEC)
 def test_prefill_caches_and_decode_match_reference(name):
     """Prefill of 12 tokens (gemma3's window shrunk to 8, so its window
     layers take the roll) into caches of 32, then three greedy decode
-    steps: logits and every layer's k, v and pos_k after each."""
+    steps: logits and every layer's cache entries after each (k, v,
+    pos_k; MLA's c_kv, k_rope; Mamba's conv, h; cross-attention's ck,
+    cv)."""
     rcfg, cfg = configs(name)
     p, tp = weights(rcfg, cfg, seed=1)
     B, S, s_max = 2, 12, 32
-    toks, embeds = inputs(cfg, B, S, seed=1)
-    jt, jkw, tt, tkw = both(toks, embeds)
-    rc = RM.init_cache(rcfg, B, s_max, dtype=jnp.float32)
-    tc = M.init_cache(cfg, B, s_max, dtype=torch.float32, device="cpu")
+    toks, stub = inputs(cfg, B, S, seed=1)
+    jt, jkw, tt, tkw = both(toks, stub)
+    enc_len = cfg.frontend_len if cfg.kind == "encdec" else 0
+    rc = RM.init_cache(rcfg, B, s_max, dtype=jnp.float32, enc_len=enc_len)
+    tc = M.init_cache(cfg, B, s_max, dtype=torch.float32, device="cpu", enc_len=enc_len)
     want, rc = ref_forward(p, rcfg, jt, caches=rc, mode="prefill", **jkw)
     got, tc = M.forward(tp, cfg, tt, caches=tc, mode="prefill", **tkw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
@@ -302,21 +313,3 @@ def test_model_params_from_jax_splits_the_repeats_axis():
                                   p["groups"][1][0]["mlp"]["w_up"][0])
     with pytest.raises(ValueError, match="groups hold"):
         interop.model_params_from_jax(p, configs("gemma3-4b")[1], device="cpu")
-
-
-@pytest.mark.parametrize("name", NOT_PORTED + ("no_rope", "cross_attn"))
-def test_other_families_raise_not_implemented(name):
-    if name == "no_rope":
-        cfg = dataclasses.replace(shrink(get_arch("stablelm-1.6b").model), use_rope=False)
-    elif name == "cross_attn":
-        base = shrink(get_arch("stablelm-1.6b").model)
-        spec = dataclasses.replace(base.blocks[0][0][0], cross_attn=True)
-        cfg = dataclasses.replace(base, blocks=(((spec,), 1),))
-    else:
-        cfg = shrink(get_arch(name).model)
-    for call in (lambda: M.init_params(cfg, torch.Generator()),
-                 lambda: M.Model(cfg, device="cpu"),
-                 lambda: M.init_cache(cfg, 1, 8, device="cpu"),
-                 lambda: M.forward({}, cfg, torch.zeros(1, 2, dtype=torch.int64))):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md section A, item 2"):
-            call()
