@@ -147,7 +147,19 @@ and runs, in order, failing on the first phase that fails:
     (32 requests, prompt 32, 64 new tokens, 8 slots, s_max 448) with
     16a's metrics and the ck/cv cache bytes, and in float32 at full depth
     teacher-forced decode against train mode and the card against the
-    CPU.  It launches none of B1-B3 (counters).
+    CPU.  It launches none of B1-B3 (counters);
+19. training, TF32 off: (a) stablelm-1.6b at full width and depth in
+    float32 with AdamW through launch/train.py's main, 12 steps of 4 x
+    512 tokens: finite, falling losses, step ms (median after 2 warm-up
+    steps, CUDA events), tokens/s, the optimizer's share, peak memory,
+    the step's bound and share, and a profiler trace of one step (busy
+    share, top aten ops); (b) the 100m preset for 12 steps with a
+    checkpoint every 5, resumed from step 10 under deterministic
+    algorithms: the same losses bit for bit, and one save and one restore
+    of its state timed; (c) jamba-v0.1-52b's layers 4-5 (attention, then
+    Mamba with the MoE) in float32 at capacity factor E/k, batch 1 at 256
+    and 200 tokens (both scan paths): the loss and every parameter's
+    gradient, card against CPU.  It launches none of B1-B3 (counters).
 
 The card's name and power limit, then a JSON object with one entry per
 kernel, are the two lines before the last; the last line is
@@ -352,6 +364,25 @@ LLM_JAMBA_CPU = dict(layers=(4, 6), prompt=64)
 # natural decoder context); float32 checks at full depth.
 LLM_WHISPER = dict(arch="whisper-base", requests=32, prompt=32, max_new=64, batch=8, s_max=448)
 LLM_WHISPER_TF = dict(prompt=32, decode=32, s_max=96)
+# Slice 12.  Phase 19 trains, TF32 off.  19a: stablelm-1.6b at full width
+# and depth through launch/train.py's main in the registry's float32 with
+# AdamW, its 256 x 4096 tokens per step cut to 4 x 512: the sequence
+# because float32 S x S scores at 4096 do not fit one card without remat,
+# the batch to keep the phase short; two warm-up steps before the medians.
+# Then the same driver at `wide_batch` sequences per step, the largest
+# multiple of 4 whose predicted peak leaves a margin of the card's 80 GB
+# (the headroom the batch cut leaves), for `wide_steps` steps.
+TRAIN_MAIN = dict(arch="stablelm-1.6b", seq=512, batch=4, steps=12, warmup=2,
+                  wide_batch=12, wide_steps=6)
+# 19b: the 100m preset (8 x 512) for 12 steps, a checkpoint every 5, then
+# --resume from step 10: its losses must equal the first run's.
+TRAIN_RESUME = dict(preset="100m", steps=12, every=5)
+# 19c: gradients, card against CPU, float32 at jamba's width: layers 4-5 of
+# its period (18c.2's cut) at capacity factor E/k, batch 1 at 256 tokens
+# (the chunked scan) and 200 (the per-step scan); the loss at rtol 2e-4,
+# each gradient within 1e-4 of its largest |value|.
+TRAIN_GRAD = dict(arch="jamba-v0.1-52b", layers=(4, 6), seqs=(256, 200))
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 2e-4, 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -3322,6 +3353,270 @@ def phase18_mamba_encdec(smi):
     return n
 
 
+# ------------------------------------------------------------- slice 12
+def train_bound(cfg, n_params, batch, seq):
+    """The least time of one float32 train step, in ms, and what bounds
+    it: the operations, 6 per parameter and token (forward 2, backward
+    4) plus the attention's two products of every query-key pair (4·H·hd
+    each, the full S x S that the port computes before its mask) three
+    times over, at the float32 rate; or the bytes, the parameters and
+    AdamW's m and v each read once and written once, at the HBM rate."""
+    from repro_torch.models.model import layer_specs
+    tokens = batch * seq
+    attn = sum(spec.kind == "attn" for spec in layer_specs(cfg))
+    ops = 6 * n_params * tokens + 3 * attn * 4 * cfg.n_heads * cfg.head_dim * seq * tokens
+    state_bytes = 3 * 4 * n_params
+    ops_ms, bytes_ms = ops / FP32_OPS_PER_S * 1e3, 2 * state_bytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations", ops) if ops_ms >= bytes_ms else (bytes_ms, "bytes", ops)
+
+
+@contextlib.contextmanager
+def timed_train_steps():
+    """Every train step that ``launch.steps.make_train_step`` builds, and
+    its optimizer update (``opt_step``), timed with CUDA events.  Yields
+    {"step": [ms], "opt": [ms]}, filled on leaving."""
+    from repro_torch.launch import steps as steps_mod
+    real_make, real_opt = steps_mod.make_train_step, steps_mod.opt_step
+    marks = {"step": [], "opt": []}
+    out = {"step": [], "opt": []}
+
+    def timed(kind, fn):
+        def call(*a, **kw):
+            ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev[0].record()
+            r = fn(*a, **kw)
+            ev[1].record()
+            marks[kind].append(ev)
+            return r
+        return call
+
+    steps_mod.make_train_step = lambda *a, **kw: timed("step", real_make(*a, **kw))
+    steps_mod.opt_step = timed("opt", real_opt)
+    try:
+        yield out
+    finally:
+        steps_mod.make_train_step, steps_mod.opt_step = real_make, real_opt
+        torch.cuda.synchronize()
+        for kind, pairs in marks.items():
+            out[kind] = [a.elapsed_time(b) for a, b in pairs]
+
+
+def train_main_run(T, batch, steps):
+    """``launch.train.main`` on the card at ``batch`` x ``T["seq"]`` for
+    ``steps`` steps, every step and its ``opt_step`` timed.  Checks the
+    losses are finite; returns (losses, step ms and optimizer ms of the
+    steps after the warm-up, peak card memory, main's wall)."""
+    from repro_torch.launch import train as train_mod
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--arch", T["arch"], "--seq", str(T["seq"]), "--batch", str(batch),
+            "--steps", str(steps), "--log-every", "1", "--device", DEV]
+    with timed_train_steps() as times:
+        t0 = time.perf_counter()
+        losses = train_mod.main(argv)
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"phase 19a: losses {losses} at batch {batch}")
+    return losses, times["step"][T["warmup"]:], times["opt"][T["warmup"]:], peak, wall
+
+
+def train_step_line(cfg, n_params, T, batch, steps, opt, peak):
+    """The step's median ms, tokens/s, optimizer share, bound and peak."""
+    step_ms, opt_ms = statistics.median(steps), statistics.median(opt)
+    bound_ms, bound_by, ops = train_bound(cfg, n_params, batch, T["seq"])
+    log(f"  batch {batch}: step {step_ms:.3f} ms (median of {len(steps)} steps after "
+        f"{T['warmup']} warm-up, CUDA events; min {min(steps):.3f}, max {max(steps):.3f}); "
+        f"{batch * T['seq'] / step_ms * 1e3:.1f} tokens/s; optimizer (opt_step) {opt_ms:.3f} ms, "
+        f"{100 * opt_ms / step_ms:.1f}% of the step")
+    log(f"  batch {batch}: bound {bound_ms:.3f} ms by {bound_by} ({ops:.4g} operations at "
+        f"67 TFLOP/s; the state read and written once, {fmt_mem(6 * 4 * n_params)} at "
+        f"3.35 TB/s, {6 * 4 * n_params / HBM_BYTES_PER_S * 1e3:.3f} ms), the step at "
+        f"{100 * bound_ms / step_ms:.1f}% of it; peak card memory {fmt_mem(peak)} of "
+        f"{fmt_mem(torch.cuda.get_device_properties(0).total_memory)}")
+    return step_ms, bound_ms
+
+
+def phase19a_train(smi):
+    """stablelm-1.6b trained at full width and depth through
+    ``launch.train.main``: finite, falling losses; step ms, tokens/s,
+    peak memory and the share of the step's bound; a profiler trace of
+    one step of a fresh state (busy share, top aten ops); then the
+    driver at the wider batch, its step, share and peak memory."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import OptConfig
+    T = TRAIN_MAIN
+    cfg = get_arch(T["arch"]).model
+    log(f"phase 19a: training {cfg.name} at full width and depth, {cfg.param_dtype} parameters "
+        f"and compute, AdamW, TF32 off; cut: {T['batch']} x {T['seq']} tokens per step, not the "
+        f"--arch default of 256 x 4096 (the sequence: float32 S x S scores at 4096 without "
+        f"remat do not fit; the batch: the phase's time); {smi}")
+    losses, steps, opt, peak, wall = train_main_run(T, T["batch"], T["steps"])
+    check(losses[-1] < losses[0], f"phase 19a: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    n_params = cfg.param_count()[0]
+    log(f"  {n_params:,} parameters (param_count, embeddings tied); state (params, m, v) "
+        f"{fmt_mem(3 * 4 * n_params)}; main's wall {wall:.1f} s for {T['steps']} steps, init "
+        f"and the synthetic corpus included")
+    log(f"  losses {', '.join(f'{x:.4f}' for x in losses)}: finite, falling")
+    step_ms, bound_ms = train_step_line(cfg, n_params, T, T["batch"], steps, opt, peak)
+    # A profiler trace of one step of a fresh state (its losses unchecked).
+    ocfg = OptConfig(lr=3e-4, total_steps=100, warmup_steps=5)
+    state = train_mod.build_state(cfg, ocfg, seed=1, device=DEV)
+    toks = torch.as_tensor(np.random.default_rng(19).integers(
+        0, cfg.vocab_size, (T["batch"], T["seq"] + 1)), device=DEV)
+    step = steps_mod.make_train_step(cfg, ocfg)
+
+    def one():
+        return step(state, {"tokens": toks})[1]
+
+    dev, busy, ok = profile_calls(one, 1)
+    log(f"  profiler, one step: device {busy:.3f} ms{'' if ok else ' (incomplete)'} in the "
+        f"{step_ms:.3f} ms step: busy {100 * busy / step_ms:.1f}%; {len(dev)} device ops")
+    log(f"  device ms per step by aten op (self): {device_by_op(one, 1)}")
+    del state, step
+    losses, steps, opt, peak, wall = train_main_run(T, T["wide_batch"], T["wide_steps"])
+    log(f"  the same driver at {T['wide_batch']} x {T['seq']} tokens per step, "
+        f"{T['wide_steps']} steps in {wall:.1f} s: losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)} (finite)")
+    train_step_line(cfg, n_params, T, T["wide_batch"], steps, opt, peak)
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "bound_ms": bound_ms}
+
+
+def phase19b_resume(smi):
+    """The 100m preset trained with a checkpoint every 5 steps, then
+    resumed from step 10: the same losses, bit for bit (deterministic
+    algorithms: the embedding's backward accumulates without atomics);
+    one save and one restore of its state timed."""
+    import tempfile
+    from repro_torch.checkpoint import restore_state, save_state
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import OptConfig
+    from repro_torch._tree import flatten
+    R = TRAIN_RESUME
+    log(f"phase 19b: resume on the card, preset {R['preset']}, {R['steps']} steps, a checkpoint "
+        f"every {R['every']}, deterministic algorithms; {smi}")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = ["--preset", R["preset"], "--steps", str(R["steps"]), "--ckpt-dir", tmp,
+                    "--log-every", "100", "--device", DEV]
+            first = train_mod.main(argv + ["--ckpt-every", str(R["every"])])
+            again = train_mod.main(argv + ["--ckpt-every", "100", "--resume"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    start = R["steps"] - len(again)
+    check(start == R["every"] * (R["steps"] // R["every"]),
+          f"phase 19b: resumed at step {start}")
+    check(again == first[start:], f"phase 19b: resumed losses {again} != {first[start:]}")
+    log(f"  losses {', '.join(f'{x:.6f}' for x in first)}; resumed at step {start}: "
+        f"{', '.join(f'{x:.6f}' for x in again)}, equal bit for bit")
+    cfg, _, _ = train_mod.preset_config(R["preset"])
+    state = train_mod.build_state(cfg, OptConfig(), seed=0, device=DEV)
+    nbytes = sum(t.numel() * t.element_size() for t in flatten(state).values())
+    with tempfile.TemporaryDirectory() as tmp:
+        sync()
+        t0 = time.perf_counter()
+        save_state(tmp, 1, state)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, _ = restore_state(tmp, 1, state)
+        sync()
+        restore_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(flatten(back).values(), flatten(state).values()))
+    check(same, "phase 19b: the restored state differs")
+    log(f"  save_state of {fmt_mem(nbytes)} (params, m, v, step): {save_s:.3f} s "
+        f"({nbytes / save_s / 1e9:.2f} GB/s); restore_state onto the card: {restore_s:.3f} s "
+        f"({nbytes / restore_s / 1e9:.2f} GB/s), equal bit for bit (host clocks)")
+    del state, back
+    torch.cuda.empty_cache()
+
+
+def phase19c_gradients(smi):
+    """Gradients of jamba's layers 4-5 (attention with a dense MLP, Mamba
+    with the MoE) at full width in float32, card against CPU, through
+    both scan paths: the loss and every parameter's gradient, with the
+    MoE dispatch equal (or parting at a router near-tie, logged)."""
+    from repro_torch._tree import flatten
+    from repro_torch.models import model as M
+    G = TRAIN_GRAD
+    base = llm_cfg(G["arch"], "float32")
+    ((pattern, _),) = base.blocks
+    lo, hi = G["layers"]
+    cut = dataclasses.replace(base, blocks=((pattern[lo:hi], 1),),
+                              capacity_factor=base.n_experts / base.top_k)
+    log(f"phase 19c: gradients, card against CPU, float32, {base.name} layers {lo}-{hi - 1} "
+        f"({', '.join(f'{s.kind} + {s.mlp}' for s in pattern[lo:hi])}), capacity factor E/k = "
+        f"{cut.capacity_factor:.6g}; cut: depth {base.n_layers} -> {cut.n_layers} (the CPU's "
+        f"memory and time); {smi}")
+    params = M.init_params(cut, torch.Generator(device=DEV).manual_seed(19))
+    host = tree_map(lambda t: t.detach().cpu(), params)
+    for t in list(flatten(params).values()) + list(flatten(host).values()):
+        t.requires_grad_(True)
+    for S in G["seqs"]:
+        toks = torch.as_tensor(np.random.default_rng(S).integers(0, cut.vocab_size, (1, S + 1)))
+        path = "chunked scan" if S % 256 == 0 else "per-step scan"
+        res = {}
+        for where, p, tk in (("card", params, toks.to(DEV)), ("cpu", host, toks)):
+            if where == "card":
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with counted_drops(keep=True) as calls:
+                loss = M.lm_loss(p, cut, {"tokens": tk})
+            flat = flatten(p)
+            grads = torch.autograd.grad(loss, list(flat.values()))
+            sync()
+            res[where] = (float(loss.detach()), dict(zip(flat, grads)), calls[0][1],
+                          time.perf_counter() - t0)
+            if where == "card":
+                peak = torch.cuda.max_memory_allocated()
+        (lc, gc, dc, sc), (lh, gh, dh, sh) = res["card"], res["cpu"]
+        drops = sum(int(r["dropped"].sum()) for r in dc + dh)
+        check(drops == 0, f"phase 19c: {drops} picks dropped at capacity factor E/k")
+        t = same_dispatch(f"19c {S} tokens", dc, dh, cut.top_k)
+        check(t is None, f"phase 19c: the dispatch parts at token {t} (a router near-tie, "
+              f"logged above): the gradients cannot be compared")
+        lerr = abs(lc - lh) / abs(lh)
+        worst, worst_name = 0.0, None
+        for name, g in gc.items():
+            want = gh[name]
+            r = float((g.cpu() - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+            if r > worst:
+                worst, worst_name = r, name
+        log(f"  {S} tokens ({path}): loss card {lc:.7f}, CPU {lh:.7f}, rel err {lerr:.3e} "
+            f"(tolerance {TRAIN_LOSS_RTOL:g}); {len(gc)} gradients, worst max |dg| / max |g| "
+            f"{worst:.3e} ({worst_name}; tolerance {TRAIN_GRAD_TOL:g}); dispatch equal, 0 drops; "
+            f"card {sc:.2f} s, CPU {sh:.2f} s (host clocks, first call); peak card memory of the "
+            f"card's pass {fmt_mem(peak)}")
+        check(lerr <= TRAIN_LOSS_RTOL, f"phase 19c: loss beyond rtol at {S} tokens")
+        check(worst <= TRAIN_GRAD_TOL, f"phase 19c: gradient {worst_name} beyond its tolerance")
+        del res, gc, gh
+    del params, host
+    torch.cuda.empty_cache()
+
+
+def phase19_train(smi):
+    """Training on the card: 19a, 19b and 19c with TF32 off.  Returns B1's,
+    B2's and B3's launches in the phase (it checks they are none)."""
+    t_phase = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    read = counted_launches()
+    try:
+        phase19a_train(smi)
+        phase19b_resume(smi)
+        phase19c_gradients(smi)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    n = read()
+    check(n == {"b1": 0, "b2": 0, "b3": 0}, f"phase 19: launched {n} of B1-B3")
+    log(f"  B1, B2 and B3 launches in phase 19: {n}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return n
+
+
 def b3_bound(chains, n, n_slots, n_steps=QAP_STEPS):
     """The least time of B3: p read and written once, f and the blocks' F
     and D; two threefry2x32 per move on the integer lanes plus the
@@ -3606,6 +3901,7 @@ def main(argv=None) -> int:
     p16 = phase16_llm(smi)
     p17 = phase17_moe(smi)
     p18 = phase18_mamba_encdec(smi)
+    p19 = phase19_train(smi)
     b1 = dict(route="cuda", source="src/repro_torch/kernels/csrc/metropolis_sweep.cu",
               replaces="src/repro/kernels/metropolis_sweep.py:81", library_ms=None)
     kernels = [
@@ -3615,7 +3911,8 @@ def main(argv=None) -> int:
                               "phase 10": elastic_b1, "phase 13": temper["b1"],
                               "phase 14a": tel_launches["b1"], "phase 14b": auto_b1,
                               "phase 15": p15["b1_delta"], "phase 16": p16["b1"],
-                              "phase 17": p17["b1"], "phase 18": p18["b1"]},
+                              "phase 17": p17["b1"], "phase 18": p18["b1"],
+                              "phase 19": p19["b1"]},
          "max_abs_err": max(b1_err["delta"], temper["max_abs_err"]),
          "ms": t["delta"][0], "wrapper_ms": t["delta"][1], "plain_ms": t["delta"][2],
          "bound_ms": t["delta"][3], "bound_by": t["delta"][4]},
@@ -3624,7 +3921,7 @@ def main(argv=None) -> int:
          "launches_by_path": {"phase 4": full_launches, "phase 11": suite["b1"],
                               "phase 12": table7["b1"], "phase 15": p15["b1_full"],
                               "phase 16": p16["b1"], "phase 17": p17["b1"],
-                              "phase 18": p18["b1"]},
+                              "phase 18": p18["b1"], "phase 19": p19["b1"]},
          "max_abs_err": max(b1_err["full"], suite["max_abs_err"], table7["max_abs_err"]),
          "ms": t["full"][0], "wrapper_ms": t["full"][1], "plain_ms": t["full"][2],
          "bound_ms": t["full"][3], "bound_by": t["full"][4]},
@@ -3635,7 +3932,8 @@ def main(argv=None) -> int:
          "launches_by_path": {"phase 3": launches["argmin_reduce"], "phase 4": p4["b2"],
                               "phase 11": suite["b2"], "phase 12": table7["b2"],
                               "phase 15": p15["b2"], "phase 16": p16["b2"],
-                              "phase 17": p17["b2"], "phase 18": p18["b2"]},
+                              "phase 17": p17["b2"], "phase 18": p18["b2"],
+                              "phase 19": p19["b2"]},
          "max_abs_err": b2_err,
          "ms": t["b2"][0], "wrapper_ms": t["b2"][1], "plain_ms": t["b2"][2],
          "bound_ms": t["b2"][3], "bound_by": "bytes", "library_ms": t["b2"][4]},
@@ -3646,7 +3944,7 @@ def main(argv=None) -> int:
          "launches_by_path": {"phase 8": b3_launches, "phase 10": elastic_b3,
                               "phase 13": temper["b3"], "phase 14a": tel_launches["b3"],
                               "phase 16": p16["b3"], "phase 17": p17["b3"],
-                              "phase 18": p18["b3"]},
+                              "phase 18": p18["b3"], "phase 19": p19["b3"]},
          "max_abs_err": b3_err,
          "ms": b3[0], "wrapper_ms": b3[1], "plain_ms": b3[2], "bound_ms": b3[3],
          "bound_by": b3[4], "library_ms": None},

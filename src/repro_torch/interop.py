@@ -1,9 +1,9 @@
 """State carried across between the JAX package and the port.
 
 The "weights" of this system are its configurations, chain states and
-the LLM scaffold's parameters.  These helpers take them from the plain
-Python/numpy forms both packages share, so the same inputs reach both
-without this package importing JAX or ``repro``.
+the LLM scaffold's parameters and training state.  These helpers take
+them from the plain Python/numpy forms both packages share, so the same
+inputs reach both without this package importing JAX or ``repro``.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch._tree import map_tree
 from repro_torch.core.annealing import SAConfig
 from repro_torch.models.model import ENC_SPEC, LayerSpec, ModelConfig
 from repro_torch.objectives import SUITE
@@ -156,3 +157,42 @@ def model_params_from_jax(params, cfg: ModelConfig, device=None) -> dict:
                       "final_norm": _tensor(enc["final_norm"], dev),
                       "pos_embed": _tensor(enc["pos_embed"], dev)}
     return out
+
+
+def _vstates(tree, path="") -> dict:
+    """Adafactor's second moments of the reference's state: {tree path:
+    {"vr", "vc"} or {"v"}} at every stacked leaf."""
+    if isinstance(tree, dict) and tree and set(tree) <= {"vr", "vc", "v"} \
+            and not isinstance(next(iter(tree.values())), (dict, list, tuple)):
+        return {path: tree}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out = {}
+    for k, v in items:
+        out.update(_vstates(v, f"{path}/{k}" if path else str(k)))
+    return out
+
+
+def opt_state_from_jax(opt, cfg: ModelConfig, device=None) -> dict:
+    """The port's optimizer state (``optim.init_opt_state``'s layout) from
+    the reference's, on ``device`` (default: the card): the moments ``m``
+    (and AdamW's ``v``) split into one dict per layer as the parameters
+    are, AdamW's ``v`` in float32 (the reference's after its first
+    update, ``optim.adamw_init``), Adafactor's second moments kept per
+    stacked leaf under the reference's tree path (``groups/0/1/attn/wq``:
+    ``vr``, ``vc`` or ``v``), and ``step`` as an int32 scalar."""
+    dev = resolve_device(device)
+    adafactor = isinstance(opt["v"]["final_norm"], dict)
+    v = ({name: {k: _tensor(a, dev) for k, a in st.items()}
+          for name, st in _vstates(opt["v"]).items()} if adafactor
+         else map_tree(lambda _, t: t.float(), model_params_from_jax(opt["v"], cfg, dev)))
+    return {"m": model_params_from_jax(opt["m"], cfg, dev), "v": v,
+            "step": torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32, device=dev)}
+
+
+def train_state_from_jax(state, cfg: ModelConfig, device=None) -> dict:
+    """``launch.train.build_state``'s ``{"params", "opt"}`` from the
+    reference's training state: the parameters as leaves that require
+    grad, and :func:`opt_state_from_jax`."""
+    params = map_tree(lambda _, t: t.requires_grad_(True),
+                      model_params_from_jax(state["params"], cfg, device))
+    return {"params": params, "opt": opt_state_from_jax(state["opt"], cfg, device)}

@@ -1,2 +1,2 @@
-"""Launch plumbing: device meshes over ``torch.distributed``, the LLM
-serving steps and driver, and the training presets."""
+"""Launch plumbing: device meshes over ``torch.distributed``, and the LLM
+scaffold's training and serving steps and drivers."""

@@ -2,8 +2,9 @@
 ``repro.models.layers``: RMSNorm, RoPE, the SwiGLU MLP, GQA attention
 with its prefill and decode caches (the circular buffer of
 sliding-window layers included, RoPE optional), MLA with its compressed
-cache and absorbed decode, the top-k MoE with capacity dispatch, and the
-Mamba-1 selective SSM with its chunked scan.
+cache and absorbed decode, the top-k MoE with capacity dispatch (locally
+or expert-parallel over a process group), and the Mamba-1 selective SSM
+with its chunked scan.
 
 Functional, as the reference is: parameters are dicts of tensors built by
 the ``init_*`` functions from an explicit ``torch.Generator``, and the
@@ -22,6 +23,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 INT32_MAX = torch.iinfo(torch.int32).max
@@ -346,10 +348,31 @@ def moe_dispatch(router, xt, top_k: int, capacity_factor: float):
     return gate, picks, dest, C
 
 
+class _AllToAll(torch.autograd.Function):
+    """The symmetric all_to_all over ``group``: chunk j of dim 0 goes to
+    member j, which puts it at its chunk i (this rank's place in the
+    group).  The exchange is its own transpose, so its backward is the
+    same exchange of the gradient: why the reference keeps it symmetric."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_to_all(grad, ctx.group), None
+
+
+def _all_to_all(x, group):
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
+
+
 def moe_apply(params, x, *, top_k: int, capacity_factor: float = 1.25,
-              ep_axis: Optional[str] = None, ep_size: int = 1):
-    """Top-k MoE with capacity dispatch, the reference's local form.
-    x (B, S, D) -> (B, S, D).
+              ep_group=None, ep_size: int = 1):
+    """Top-k MoE with capacity dispatch.  x (B, S, D) -> (B, S, D).
 
     The T = B·S tokens of one call share each expert's C slots, so a
     token's output depends on the tokens routed before it.  Kept picks
@@ -357,22 +380,42 @@ def moe_apply(params, x, *, top_k: int, capacity_factor: float = 1.25,
     off and never read), every expert runs its C rows through SwiGLU as
     one batched matmul per weight, and each token gathers its k rows
     against a zero row for a dropped pick and sums them by its gates in
-    one product over k in ``x``'s dtype.  The expert-parallel form
-    (``ep_size > 1``, an ``all_to_all`` over a mesh axis) is not ported.
+    one product over k in ``x``'s dtype.
+
+    Expert-parallel form (``ep_size > 1``): every rank of the process
+    group ``ep_group`` (of ``ep_size`` ranks) calls it with its own
+    tokens, the whole router and its E/ep experts (rank i of the group
+    holds experts ``[i·E/ep, (i+1)·E/ep)``).  Each rank dispatches its
+    tokens over all E experts as the local form does, the (ep, E/ep, C,
+    D) buffer goes through the reference's symmetric ``all_to_all``, each
+    rank runs its experts over the ep·C rows of its peers, and the outputs
+    come back by the same exchange.  Autograd carries it: on each rank
+    the gradient is that of the sum of every rank's loss.
     """
-    if ep_axis is not None and ep_size > 1:
-        raise NotImplementedError(
-            "expert-parallel MoE (ep_size > 1): ROADMAP.md section A, item 2d (expert "
-            "parallelism across ranks); one card computes the local form")
     B, S, D = x.shape
     E = params["router"].shape[-1]
+    if ep_size > 1:
+        if ep_group is None or dist.get_world_size(ep_group) != ep_size:
+            raise ValueError(f"the expert-parallel MoE needs an ep_group of ep_size = "
+                             f"{ep_size} ranks")
+        if E % ep_size or params["w_gate"].shape[0] != E // ep_size:
+            raise ValueError(f"{E} experts over {ep_size} ranks: each rank holds E/ep, "
+                             f"not {params['w_gate'].shape[0]}")
     xt = x.reshape(B * S, D)
     gate, _, dest, C = moe_dispatch(params["router"], xt, top_k, capacity_factor)
     buf = x.new_zeros((E * C + 1, D))
     buf[dest] = xt.repeat_interleave(top_k, dim=0)
     buf = buf[:E * C].view(E, C, D)
+    if ep_size > 1:
+        # [j, e, c]: peer j's slot c for my local expert e
+        buf = _AllToAll.apply(buf.reshape(ep_size, E // ep_size, C, D), ep_group)
+        buf = buf.transpose(0, 1).reshape(E // ep_size, ep_size * C, D)
     h = _silu(torch.bmm(buf, params["w_gate"])) * torch.bmm(buf, params["w_up"])
-    out = torch.cat([torch.bmm(h, params["w_down"]).view(E * C, D), x.new_zeros((1, D))])
+    out = torch.bmm(h, params["w_down"])
+    if ep_size > 1:
+        out = out.view(E // ep_size, ep_size, C, D).transpose(0, 1)
+        out = _AllToAll.apply(out, ep_group)
+    out = torch.cat([out.reshape(E * C, D), x.new_zeros((1, D))])
     tok = out[dest].view(B * S, top_k, D)
     y = torch.bmm(gate.to(tok.dtype)[:, None, :], tok)
     return y.view(B, S, D)
@@ -411,10 +454,13 @@ def _ssm_chunk_scan(dA, dBx, h0, chunk: int):
     in log2(chunk) passes, then ``hs = aa·h + bb``.  The reference's
     ``lax.associative_scan`` combines in another order, so the two agree
     to float32 rounding.  Running products are never divided out: the
-    product of 256 dA underflows.  dA, dBx: (B, S, Di, N) float32; h0:
-    (B, Di, N).  Returns (hs (B, S, Di, N), h at the last step)."""
+    product of 256 dA underflows.  Every pass makes new tensors (no
+    ``out=``), so autograd differentiates the scan; its backward keeps the
+    log2(chunk) passes of (B, chunk, Di, N) float32 of every chunk alive.
+    dA, dBx: (B, S, Di, N) float32; h0: (B, Di, N).  Returns (hs (B, S,
+    Di, N), h at the last step)."""
     S = dA.shape[1]
-    hs = torch.empty_like(dA)
+    chunks = []
     h = h0
     for c0 in range(0, S, chunk):
         a, b = dA[:, c0:c0 + chunk], dBx[:, c0:c0 + chunk]
@@ -423,8 +469,9 @@ def _ssm_chunk_scan(dA, dBx, h0, chunk: int):
             b = torch.cat([b[:, :d], torch.addcmul(b[:, d:], a[:, d:], b[:, :-d])], 1)
             a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], 1)
             d *= 2
-        torch.addcmul(b, a, h[:, None], out=hs[:, c0:c0 + chunk])
-        h = hs[:, c0 + chunk - 1]
+        chunks.append(torch.addcmul(b, a, h[:, None]))
+        h = chunks[-1][:, -1]
+    hs = chunks[0] if len(chunks) == 1 else torch.cat(chunks, 1)
     return hs, h
 
 
@@ -436,12 +483,13 @@ def _ssm_step_scan(dA, dBx, h0):
     chunked order differs from them in the last bits
     (``tests/test_torch_mamba_encdec.py::test_ssm_step_scan_is_the_reference_order``),
     so a prompt of any length that is not a multiple of the chunk, most
-    of them, rounds as the reference's does."""
-    hs = torch.empty_like(dA)
-    h = h0
+    of them, rounds as the reference's does.  The states are stacked
+    after the loop, so autograd differentiates it."""
+    h, hs = h0, []
     for t in range(dA.shape[1]):
-        h = torch.addcmul(dBx[:, t], dA[:, t], h, out=hs[:, t])
-    return hs, h
+        h = torch.addcmul(dBx[:, t], dA[:, t], h)
+        hs.append(h)
+    return torch.stack(hs, 1), h
 
 
 def mamba_apply(params, x, *, d_state: int, d_conv: int, cache=None, decode: bool = False):

@@ -20,8 +20,9 @@ encoder of the encoder-decoder (``kind="encdec"``).  The reference's
 ``shardctx.constrain`` calls and the knobs ``seq_parallel``,
 ``seq_shard_kv`` and ``serve_params_tp_only`` choose layouts over a
 device mesh and change no value; on one card the port leaves them out,
-and ``remat`` and ``scan_unroll`` likewise.  ``lm_loss`` waits for the
-training slice.
+and ``remat`` and ``scan_unroll`` likewise.  :func:`lm_loss` is the
+training objective; under a mesh with a ``model`` axis and ``moe_ep`` the
+MoE takes its expert-parallel form (:func:`_moe`).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch._device import resolve_device
@@ -260,7 +262,8 @@ class Model(nn.Module):
     (or ``params``, e.g. from ``interop.model_params_from_jax``) on the
     card unless ``device`` says otherwise, and :func:`forward` over them.
     The encoder's parameters are ``enc`` (its norm and positions) and
-    ``enc_layers``.  Serving holds them frozen (``requires_grad=False``)."""
+    ``enc_layers``.  Serving holds them frozen (``requires_grad=False``);
+    training builds its own leaves (``launch.train.build_state``)."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0,
                  params: Optional[dict] = None):
@@ -343,7 +346,7 @@ def _cross_attention(p, h, ck, cv, head_dim):
 
 
 def _apply_layer(lp, spec: LayerSpec, cfg: ModelConfig, x, positions, cache, decode,
-                 enc_out=None):
+                 enc_out=None, mesh=None):
     h = L.rms_norm(x, lp["norm1"])
     if spec.kind == "mamba":
         out, new_c = L.mamba_apply(lp["attn"], h, d_state=cfg.d_state, d_conv=cfg.d_conv,
@@ -374,7 +377,7 @@ def _apply_layer(lp, spec: LayerSpec, cfg: ModelConfig, x, positions, cache, dec
         return x, new_c
     h = L.rms_norm(x, lp["norm2"])
     if spec.mlp == "moe":
-        out = _moe(lp["mlp"], h, cfg)
+        out = _moe(lp["mlp"], h, cfg, mesh)
         if "shared" in lp["mlp"]:
             out = out + L.mlp_apply(lp["mlp"]["shared"], h)
     else:
@@ -382,13 +385,64 @@ def _apply_layer(lp, spec: LayerSpec, cfg: ModelConfig, x, positions, cache, dec
     return x + out, new_c
 
 
-def _moe(mp, h, cfg: ModelConfig):
-    """The routed experts in the local form.  The reference takes the
-    expert-parallel form only under a mesh with a ``model`` axis; one card
-    has none, so ``moe_ep=True`` computes the local form here as the
-    reference does without such a mesh."""
+class _SumGrad(torch.autograd.Function):
+    """The identity, whose backward sums the gradient over ``group``."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity, whose backward scales the gradient by ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.scale, None
+
+
+def _moe(mp, h, cfg: ModelConfig, mesh=None):
+    """The routed experts: the local form, or under a mesh with a
+    ``model`` axis and ``cfg.moe_ep`` the expert-parallel one (the
+    reference's ``shard_map`` over that axis).  Then the ranks of a
+    ``model`` group hold the same tokens (the batch is split over the
+    other axes only) and whole, equal parameters; rank i computes experts
+    ``[i·E/ep, (i+1)·E/ep)`` over the tokens of every peer.  The result
+    is the local form's, and so is each rank's gradient, as the
+    reference's ``shard_map`` transpose gives it: the output's gradient
+    is divided among the ep replicas that each count it, and the
+    gradients of the replicated inputs (the tokens, the router and the
+    expert stacks, of which each rank fills its slice) are summed over
+    the group.  The shared experts stay outside, on every rank.  So the
+    compute is split and the memory is not: every rank holds every expert
+    and its optimizer state, and each expert stack's whole gradient is
+    all-reduced, where the reference keeps one E/ep slice per rank
+    (ROADMAP.md section A, item 5)."""
     routed = {k: mp[k] for k in ("router", "w_gate", "w_up", "w_down")}
-    return L.moe_apply(routed, h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+    if not (cfg.moe_ep and mesh is not None and "model" in mesh.mesh_dim_names):
+        return L.moe_apply(routed, h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+    group = mesh.get_group("model")
+    ep, i = dist.get_world_size(group), mesh.get_local_rank("model")
+    n = cfg.n_experts // ep
+    h = _SumGrad.apply(h, group)
+    local = {k: _SumGrad.apply(w, group) for k, w in routed.items()}
+    for k in ("w_gate", "w_up", "w_down"):
+        local[k] = local[k][i * n:(i + 1) * n]
+    y = L.moe_apply(local, h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                    ep_group=group, ep_size=ep)
+    return _ScaleGrad.apply(y, 1.0 / ep)
 
 
 def _encode(params, cfg: ModelConfig, frames, cdt):
@@ -407,7 +461,7 @@ def _encode(params, cfg: ModelConfig, frames, cdt):
 
 
 def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None, positions=None,
-            caches=None, mode: str = "train", enc_frames=None):
+            caches=None, mode: str = "train", enc_frames=None, mesh=None):
     """Forward pass.
 
     mode='train'   : full-sequence causal logits.
@@ -422,6 +476,7 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None, positions=Non
     D) in train and prefill mode (decode reads the cross-attention
     caches).  Embeddings, the layers and the head run in
     ``cfg.compute_dtype``; the tied head is ``x @ embed.T`` in it.
+    ``mesh`` (a ``DeviceMesh``) is read by the MoE only (:func:`_moe`).
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, not {mode!r}")
@@ -448,7 +503,7 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None, positions=Non
     caches = caches if caches is not None else [None] * len(specs)
     new_caches = []
     for lp, spec, c in zip(params["layers"], specs, caches):
-        x, nc = _apply_layer(lp, spec, cfg, x, positions, c, decode, enc_out)
+        x, nc = _apply_layer(lp, spec, cfg, x, positions, c, decode, enc_out, mesh)
         new_caches.append(nc)
 
     x = L.rms_norm(x, params["final_norm"])
@@ -457,3 +512,29 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None, positions=Non
     if mode == "train":
         return logits
     return logits, new_caches
+
+
+def lm_loss(params, cfg: ModelConfig, batch, mesh=None):
+    """Next-token cross entropy, the reference's ``lm_loss``:
+    ``batch["tokens"]`` (B, S + 1) integer, the first S the inputs and
+    the last S the targets; float32 logits, ``logsumexp`` less the
+    target's logit, averaged over the targets >= 0 (a negative target is
+    masked out).  The vision stub's ``patch_embeds`` go before the
+    tokens, and only the text positions' logits are scored; an
+    encoder-decoder encodes ``audio_frames``.  ``mesh`` as in
+    :func:`forward`."""
+    tokens = batch["tokens"]
+    inputs, targets = tokens[:, :-1], tokens[:, 1:].long()
+    kw = {}
+    if cfg.frontend == "vision_stub":
+        kw["embeds"] = batch["patch_embeds"]
+    if cfg.kind == "encdec":
+        kw["enc_frames"] = batch["audio_frames"]
+    logits = forward(params, cfg, inputs, mesh=mesh, **kw)
+    if cfg.frontend == "vision_stub":
+        logits = logits[:, -targets.shape[1]:]
+    logits = logits.float()
+    lse = torch.logsumexp(logits, -1)
+    ll = logits.gather(-1, targets.clamp_min(0)[..., None])[..., 0]
+    mask = (targets >= 0).float()
+    return ((lse - ll) * mask).sum() / mask.sum().clamp_min(1.0)

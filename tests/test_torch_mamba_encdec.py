@@ -462,8 +462,8 @@ def test_unknown_layer_kinds_raise_and_expert_parallelism_still_raises():
     with pytest.raises(ValueError, match="model kind"):
         M.forward({}, dataclasses.replace(cfg, kind="encoder"), torch.zeros(1, 2, dtype=torch.int64))
     moe = L.init_moe(torch.Generator().manual_seed(0), 16, 8, 4, 0, 8, torch.float32)
-    with pytest.raises(NotImplementedError, match="expert-parallel"):
-        L.moe_apply(moe, torch.zeros(1, 2, 16), top_k=2, ep_axis="model", ep_size=2)
+    with pytest.raises(ValueError, match="ep_group"):
+        L.moe_apply(moe, torch.zeros(1, 2, 16), top_k=2, ep_size=2)
 
 
 # ---------------------------------------------------------------- serving

@@ -289,9 +289,9 @@ def test_moe_ep_without_a_mesh_is_the_local_form():
 
 def test_moe_expert_parallel_raises():
     _, tp = moe_params(jnp.float32)
-    with pytest.raises(NotImplementedError, match="expert-parallel"):
-        L.moe_apply(tp, torch.zeros(1, 2, D), top_k=TOP_K, ep_axis="model", ep_size=2)
-    out = L.moe_apply(tp, torch.zeros(1, 2, D), top_k=TOP_K, ep_axis="model", ep_size=1)
+    with pytest.raises(ValueError, match="ep_group"):
+        L.moe_apply(tp, torch.zeros(1, 2, D), top_k=TOP_K, ep_size=2)
+    out = L.moe_apply(tp, torch.zeros(1, 2, D), top_k=TOP_K, ep_size=1)
     assert out.shape == (1, 2, D)
 
 
