@@ -159,7 +159,19 @@ and runs, in order, failing on the first phase that fails:
     of its state timed; (c) jamba-v0.1-52b's layers 4-5 (attention, then
     Mamba with the MoE) in float32 at capacity factor E/k, batch 1 at 256
     and 200 tokens (both scan paths): the loss and every parameter's
-    gradient, card against CPU.  It launches none of B1-B3 (counters).
+    gradient, card against CPU.  It launches none of B1-B3 (counters);
+20. the dry run held against the card, TF32 off: (a) the op census of
+    19a's cell (stablelm-1.6b float32, AdamW, 4 x 512, a world of one)
+    run on fake tensors, its FLOPs against a torch.profiler trace's
+    (with_flops) of one real step within 1% and its peak against
+    max_memory_allocated within 10%; (b) remat at the reference's
+    sequence of 4096: for "full" and "dots" the largest batch whose
+    census peak stays under 75 GB, three steps at it (predicted against
+    measured peak, step ms against the step's bound), and at 4 x 512 the
+    gradients with each mode bit-equal to those without under
+    deterministic algorithms; (c) the dry run's records of stablelm-1.6b
+    train_4k and the SA cell on the single-pod mesh, computed on the
+    host over a fake world of 256.  It launches none of B1-B3.
 
 The card's name and power limit, then a JSON object with one entry per
 kernel, are the two lines before the last; the last line is
@@ -188,22 +200,9 @@ ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
-FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
-BF16_OPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
-# Hopper has 64 INT32 lanes per SM beside its 128 FP32 ones:
-# 132 SMs x 64 lanes x 1.98 GHz boost clock.
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# One float32 instruction per lane and cycle (an FMA counts two of the
-# 67 TFLOP/s): the rate at which the SMs issue lane-instructions.
-LANE_INSTR_PER_S = FP32_OPS_PER_S / 2
-# Integer ops of one threefry2x32: 2 key adds, 20 rounds of add, rotate and
-# xor, 5 key injections of 3 adds (csrc/rng.cuh).
-THREEFRY_OPS = 2 + 20 * 3 + 5 * 3
-# Lane-instructions of one full-variant step beyond its new term: the
-# changed lane's re-fold (ceil(dim / 32) adds, counted apart), five tree
-# adds, f, the accept test's subtraction, division, clip and exp.
-FULL_STEP_INSTR = 5 + 10
+# The H100's peak rates and the kernels' cost models (bounds.py)
+from repro_torch.kernels.bounds import (BF16_OPS_PER_S, FP32_OPS_PER_S,  # noqa: E402
+                                        HBM_BYTES_PER_S, b1_bounds, b2_bound, b3_bound)
 
 # The F0_g row of the paper's Table 10 as the reference's bench builds it
 # (benchmarks/table10_hybrid.py:29-30, 49): the default, paper-faithful
@@ -249,9 +248,6 @@ DRAIN_AT, RESIZE_AT = 24, 48
 # levels later until a request it can act on is active; the resize, until
 # shard 1 has retired).
 OPS_AT = dict(preempt=12, migrate=16, degrade=20)
-# float32 operations of one move's O(n) delta: per location k, two
-# products of two differences and their sums.
-QAP_DELTA_OPS_PER_N = 10
 # Slice 6.  Phase 11, the paper's Table 9: every suite problem at the width
 # and N of the reference bench's full mode (benchmarks/table9_suite.py:21),
 # the depth cut to its quick ladder (T0 = 50, T_min = 0.1, rho = 0.85).
@@ -383,6 +379,21 @@ TRAIN_RESUME = dict(preset="100m", steps=12, every=5)
 # each gradient within 1e-4 of its largest |value|.
 TRAIN_GRAD = dict(arch="jamba-v0.1-52b", layers=(4, 6), seqs=(256, 200))
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 2e-4, 1e-4
+
+# Slice 13 (phase 20): the dry run (launch.dryrun, launch.opcensus) held
+# against the card.  20a: phase 19a's cell (stablelm-1.6b float32, AdamW,
+# 4 x 512, a world of one); the census's FLOPs against the profiler's
+# within 1%, its peak against max_memory_allocated within 10%.  20b: the
+# same model at the reference's sequence of 4096 with remat "full" and
+# "dots", each at the largest batch whose predicted peak stays under
+# `peak_limit`, `steps` steps; gradients with each remat mode against
+# none at 4 x 512, bit for bit under deterministic algorithms.  20c: the
+# dry run's records of stablelm-1.6b train_4k and the SA cell on the
+# single-pod mesh, on this host.
+DRYRUN_CELL = dict(arch="stablelm-1.6b", seq=512, batch=4)
+DRYRUN_REMAT = dict(arch="stablelm-1.6b", seq=4096, peak_limit=75e9, steps=3)
+DRYRUN_FLOPS_RTOL, DRYRUN_PEAK_RTOL = 0.01, 0.10
+DRYRUN_HOST = dict(arch="stablelm-1.6b", shape="train_4k")
 
 
 class SmokeFailure(RuntimeError):
@@ -1017,25 +1028,6 @@ def phase5_v0_v1():
     check(abs(fc - fp) <= 0.05, "card and plain CPU runs disagree")
 
 
-def b1_bounds(n, dim, N):
-    """The least time of B1 at n chains of dim coordinates and N steps, by
-    variant: (ms, what bounds it).  Bytes: x read once, x and f written
-    once.  Operations: two threefry2x32 per proposal (integer lanes); for
-    full also the initial evaluation (one term per coordinate) and per
-    step one term, the changed lane's re-fold and the accept test (float
-    lanes), with a term's SASS instructions counted in phase 0."""
-    xbytes = 2 * n * dim * 4 + n * 4
-    t_bytes = xbytes / HBM_BYTES_PER_S
-    t_rng = n * N * 2 * THREEFRY_OPS / INT32_OPS_PER_S
-    term = TERM_INSTR
-    t_full = (n * dim * term + n * N * (term + -(-dim // 32) + FULL_STEP_INSTR)) \
-        / LANE_INSTR_PER_S
-    out = {}
-    for v, t_ops in (("delta", t_rng), ("full", max(t_rng, t_full))):
-        out[v] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
-    return out
-
-
 def phase6_times(gen):
     """Kernel times at the main path's shapes: the C entry alone (CUDA
     events around the ctypes call, ``kernel_ms``), beside the whole
@@ -1065,8 +1057,8 @@ def phase6_times(gen):
     lib_min = cuda_ms(lambda: torch.min(f, 0), n=50)
     lib_argmin = cuda_ms(lambda: torch.argmin(f), n=50)
     proposals = n * N
-    bounds = b1_bounds(n, dim, N)
-    b2_bound = (n + 1) * 4 / HBM_BYTES_PER_S * 1e3
+    bounds = b1_bounds(n, dim, N, TERM_INSTR)
+    b2_b = b2_bound(n + 1)[0]
     log(f"phase 6: at the main path's shapes ({n} x {dim}, N={N}; argmin over {n + 1}); "
         "kernel = CUDA events around the C entry, call = around the wrapper call")
     for v in ("delta", "full"):
@@ -1077,14 +1069,14 @@ def phase6_times(gen):
             f"{proposals / (k * 1e-3):.4e} proposals/s")
     log(f"  B2: kernel {b2:.4f} ms (call {b2w:.4f} ms), plain {b2p:.4f} ms, "
         f"torch.min(f, 0) {lib_min:.4f} ms, torch.argmin {lib_argmin:.4f} ms, "
-        f"bound {b2_bound:.6f} ms (bytes)")
+        f"bound {b2_b:.6f} ms (bytes)")
     for name, fn, bound in (("B1 delta", lambda: ms.metropolis_sweep_kernel(
                                 x, T, 0, 0, variant="delta", **sweep), bounds["delta"][0]),
                             ("B1 full", lambda: ms.metropolis_sweep_kernel(
                                 x, T, 0, 0, variant="full", **sweep), bounds["full"][0]),
-                            ("B2", lambda: rm.argmin_reduce(f), b2_bound),
-                            ("torch.min(f, 0)", lambda: torch.min(f, 0), b2_bound),
-                            ("torch.argmin", lambda: torch.argmin(f), b2_bound)):
+                            ("B2", lambda: rm.argmin_reduce(f), b2_b),
+                            ("torch.min(f, 0)", lambda: torch.min(f, 0), b2_b),
+                            ("torch.argmin", lambda: torch.argmin(f), b2_b)):
         dev_ms, per_call, names = device_ms(fn, bound_ms=bound)
         shown = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
         log(f"  {name}: device time per call {shown}, {per_call:g} device op(s) per "
@@ -1096,13 +1088,13 @@ def phase6_times(gen):
         for steps in (0, 1, 16, N):
             dev_ms, _, _ = device_ms(lambda: ms.metropolis_sweep_kernel(
                 x, T, 0, 0, variant=variant, kid=0, n_steps=steps, blk=256), n=20,
-                bound_ms=b1_bounds(n, dim, steps)[variant][0])
+                bound_ms=b1_bounds(n, dim, steps, TERM_INSTR)[variant][0])
             shown.append(f"N={steps} {dev_ms:.4f} ms" if dev_ms is not None
                          else f"N={steps} not measured")
         log(f"  B1 {variant} device time by steps: " + ", ".join(shown))
     return dict(delta=(*times["delta"], *bounds["delta"]),
                 full=(*times["full"], *bounds["full"]),
-                b2=(b2, b2w, b2p, b2_bound, lib_min))
+                b2=(b2, b2w, b2p, b2_b, lib_min))
 
 
 def b2_route_times(gen):
@@ -1114,7 +1106,7 @@ def b2_route_times(gen):
         shown = []
         for route in ("one CTA", "grid"):
             dev_ms, per_call, _ = device_ms(lambda: argmin_route(g, route),
-                                            bound_ms=n * 4 / HBM_BYTES_PER_S * 1e3)
+                                            bound_ms=b2_bound(n)[0])
             shown.append(f"{route} {dev_ms:.4f} ms ({per_call:g} op/call)"
                          if dev_ms is not None else f"{route} not measured")
         log(f"  B2 routes at n={n} (ONE_CTA_MAX {rm.ONE_CTA_MAX}), device time: "
@@ -1919,7 +1911,7 @@ def phase12_precision(gen):
         bound = 2 * n * (TABLE7_DIM + 1) * item / HBM_BYTES_PER_S * 1e3
         ms_dev, ops_per, _ = device_ms(run, n=TABLE7_PROFILE_LEVELS, bound_ms=bound)
         per[dtype] = (ms_dev, ops_per, statistics.median(walls[dtype]))
-    b1_bound = b1_bounds(n, TABLE7_DIM, N)["full"] if TERM_INSTR else (None, "")
+    b1_bound = b1_bounds(n, TABLE7_DIM, N, TERM_INSTR)["full"] if TERM_INSTR else (None, "")
 
     def b1_level():
         return ops.metropolis_sweep(x32, 10.0, 3, 0, kid=0, n_steps=N, variant="full")
@@ -3617,16 +3609,224 @@ def phase19_train(smi):
     return n
 
 
-def b3_bound(chains, n, n_slots, n_steps=QAP_STEPS):
-    """The least time of B3: p read and written once, f and the blocks' F
-    and D; two threefry2x32 per move on the integer lanes plus the
-    delta's 10 n float32 operations.  Returns (ms, what bounds it)."""
-    proposals = chains * n_steps
-    qbytes = 2 * chains * n * 4 + chains * 4 + 2 * n_slots * n * n * 4
-    t_bytes = qbytes / HBM_BYTES_PER_S
-    t_ops = (proposals * 2 * THREEFRY_OPS / INT32_OPS_PER_S
-             + proposals * QAP_DELTA_OPS_PER_N * n / FP32_OPS_PER_S)
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+# ------------------------------------------------------------- slice 13
+def f32_cell(arch, seq, batch, remat, mesh, ocfg):
+    """``launch.steps.build_cell`` of a float32 train step of ``arch``
+    at ``batch`` x ``seq`` with ``remat``, over ``mesh``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import build_cell
+    return build_cell(get_arch(arch), "train_4k", mesh, ocfg=ocfg, shape=(seq, batch, "train"),
+                      overrides=dict(param_dtype="float32", compute_dtype="float32",
+                                     remat=remat, moe_ep=False))
+
+
+def census_of(cell):
+    """The op census of one step of ``cell`` on its fake tensors."""
+    from repro_torch.launch.opcensus import op_census
+    with cell.mode:
+        with op_census(*cell.args) as c:
+            cell.fn(*cell.args)
+    return c
+
+
+def real_train(cell, ocfg, seed, steps, profile_flops=False):
+    """``steps`` steps of ``cell``'s model and step on the card from a
+    fresh state (``launch.train.build_state``) and random tokens: step
+    ms (CUDA events), the peak card memory above what was allocated
+    before the state, the losses, and with ``profile_flops`` the FLOPs a
+    ``torch.profiler`` trace (``with_flops``) counts over one more step:
+    (total, of ``mm``/``addmm``/``bmm``)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import train as train_mod
+    cfg, (_, bdata) = cell.model_cfg, cell.args
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    state = train_mod.build_state(cfg, ocfg, seed=seed, device=DEV)
+    toks = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, tuple(bdata["tokens"].shape), dtype=np.int32), device=DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for _ in range(steps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        _, loss = cell.fn(state, {"tokens": toks})
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated() - base
+    flops = None
+    if profile_flops:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     with_flops=True) as prof:
+            cell.fn(state, {"tokens": toks})
+            torch.cuda.synchronize()
+        ka = prof.key_averages()
+        flops = (sum(e.flops for e in ka),
+                 sum(e.flops for e in ka if e.key in ("aten::mm", "aten::addmm", "aten::bmm")))
+    del state, toks
+    torch.cuda.empty_cache()
+    return ms, peak, losses, flops
+
+
+def phase20a_census(smi, mesh, ocfg):
+    C = DRYRUN_CELL
+    cell = f32_cell(C["arch"], C["seq"], C["batch"], "none", mesh, ocfg)
+    t0 = time.perf_counter()
+    c = census_of(cell)
+    t_census = time.perf_counter() - t0
+    ms, peak, losses, (pflops, pmm) = real_train(cell, ocfg, seed=20, steps=1,
+                                                 profile_flops=True)
+    check(all(math.isfinite(x) for x in losses), f"phase 20a: losses {losses}")
+    ferr, perr = abs(c.flops - pflops) / pflops, abs(c.peak - peak) / peak
+    log(f"phase 20a: the dry run's census of phase 19a's cell ({cell.model_cfg.name}, float32, "
+        f"AdamW, {C['batch']} x {C['seq']}, a world of one; fake tensors on "
+        f"{cell.layout['device']}, census {t_census:.1f} s) against one step on the card; {smi}")
+    log(f"  FLOPs: census {c.flops:.6e}, profiler (with_flops) {pflops:.6e} (of it mm/addmm/bmm "
+        f"{pmm:.6e}): {100 * ferr:.3f}% apart (limit {100 * DRYRUN_FLOPS_RTOL:.0f}%)")
+    log(f"  peak: census {fmt_mem(c.peak)}, max_memory_allocated {fmt_mem(peak)}: "
+        f"{100 * perr:.2f}% apart (limit {100 * DRYRUN_PEAK_RTOL:.0f}%); the step {ms[0]:.3f} ms")
+    check(ferr <= DRYRUN_FLOPS_RTOL, f"phase 20a: FLOPs {c.flops} vs profiler {pflops}")
+    check(perr <= DRYRUN_PEAK_RTOL, f"phase 20a: peak {c.peak} vs measured {peak}")
+    return {"flops": (c.flops, pflops), "peak": (c.peak, peak)}
+
+
+def largest_batch(arch, seq, remat, mesh, ocfg, limit):
+    """The largest batch whose census peak stays under ``limit``: the
+    peak is linear in the batch, so two censuses place it and a third
+    confirms it (one more per step down).  Returns (batch, its census)."""
+    p1 = census_of(f32_cell(arch, seq, 1, remat, mesh, ocfg)).peak
+    p2 = census_of(f32_cell(arch, seq, 2, remat, mesh, ocfg)).peak
+    b = max(1, int((limit - p1) // (p2 - p1)) + 1)
+    while True:
+        c = census_of(f32_cell(arch, seq, b, remat, mesh, ocfg))
+        if c.peak < limit or b == 1:
+            return b, c, (p1, p2)
+        b -= 1
+
+
+@contextlib.contextmanager
+def expandable_segments():
+    """The caching allocator's expandable segments, on for the span: at
+    4096 tokens each layer's float32 scores are blocks of gigabytes of
+    varying sizes, and fixed segments leave many of them reserved but
+    unusable."""
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+
+
+def phase20b_remat(smi, mesh, ocfg):
+    from repro_torch._tree import flatten
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import model as M
+    R = DRYRUN_REMAT
+    log(f"phase 20b: remat on the card, {R['arch']} float32 at {R['seq']} tokens, each mode at "
+        f"the largest batch whose predicted peak is under {R['peak_limit'] / 1e9:.0f} GB; {smi}")
+    out = {}
+    for remat in ("full", "dots"):
+        t0 = time.perf_counter()
+        b, c, (p1, p2) = largest_batch(R["arch"], R["seq"], remat, mesh, ocfg, R["peak_limit"])
+        t_fit = time.perf_counter() - t0
+        cell = f32_cell(R["arch"], R["seq"], b, remat, mesh, ocfg)
+        with expandable_segments():
+            ms, peak, losses, _ = real_train(cell, ocfg, seed=21, steps=R["steps"])
+        check(all(math.isfinite(x) for x in losses), f"phase 20b: {remat} losses {losses}")
+        n_params = cell.model_cfg.param_count()[0]
+        bound_ms, bound_by, _ = train_bound(cell.model_cfg, n_params, b, R["seq"])
+        step = statistics.median(ms[1:])
+        log(f"  remat {remat}: batch {b} (census peaks {fmt_mem(p1)} at 1, {fmt_mem(p2)} at 2; "
+            f"fit in {t_fit:.1f} s); predicted peak {fmt_mem(c.peak)}, measured "
+            f"{fmt_mem(peak)} ({100 * (c.peak - peak) / peak:+.2f}%)")
+        log(f"  remat {remat}: step ms {', '.join(f'{x:.3f}' for x in ms)} (median of the last "
+            f"{len(ms) - 1}: {step:.3f}); {b * R['seq'] / step * 1e3:.1f} tokens/s; bound "
+            f"{bound_ms:.3f} ms by {bound_by}, the step at {100 * bound_ms / step:.1f}% of it; "
+            f"losses {', '.join(f'{x:.4f}' for x in losses)}")
+        out[remat] = {"batch": b, "pred_peak": c.peak, "peak": peak, "step_ms": step}
+    # bit-equal gradients at 4 x 512 under deterministic algorithms
+    C = DRYRUN_CELL
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        cfg = f32_cell(C["arch"], C["seq"], C["batch"], "none", mesh, ocfg).model_cfg
+        state = train_mod.build_state(cfg, ocfg, seed=22, device=DEV)
+        params = state.pop("params")
+        del state
+        toks = torch.as_tensor(np.random.default_rng(22).integers(
+            0, cfg.vocab_size, (C["batch"], C["seq"] + 1), dtype=np.int32), device=DEV)
+        flat = flatten(params)
+        grads = {}
+        for remat in ("none", "full", "dots"):
+            loss = M.lm_loss(params, dataclasses.replace(cfg, remat=remat), {"tokens": toks})
+            grads[remat] = [loss.detach(), *torch.autograd.grad(loss, list(flat.values()))]
+        for remat in ("full", "dots"):
+            same = all(torch.equal(a, b) for a, b in zip(grads[remat], grads["none"]))
+            log(f"  {C['batch']} x {C['seq']}: loss and {len(flat)} gradients with remat {remat} "
+                f"{'equal' if same else 'NOT equal'} to those without, bit for bit")
+            check(same, f"phase 20b: remat {remat} changed the gradients")
+        del params, flat, grads
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase20c_host(smi):
+    """The dry run's records of one cell and the SA cell on the
+    single-pod mesh, on this host (fake tensors, a fake world of 256)."""
+    import tempfile
+    from repro_torch.launch import dryrun
+    H = DRYRUN_HOST
+    log(f"phase 20c: the dry run on the card machine's host, {H['arch']} {H['shape']} and the SA "
+        f"cell on the (16, 16) mesh (fake world of 256; nothing allocated); {smi}")
+    allocated = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory() as out, dryrun.fake_world(False) as mesh:
+        rec = dryrun.run_cell(H["arch"], H["shape"], multi_pod=False, out_dir=Path(out), mesh=mesh)
+        sa = dryrun.run_sa_cell(multi_pod=False, out_dir=Path(out), mesh=mesh)
+    check(torch.cuda.memory_allocated() == allocated, "phase 20c: the dry run allocated")
+    bpd = rec["bytes_per_device"]
+    log(f"  {H['arch']} {H['shape']}: state {fmt_mem(bpd['state'])} (under the reference's specs "
+        f"{fmt_mem(bpd['state_under_specs'])}), batch {fmt_mem(bpd['batch'])}, activations' peak "
+        f"{fmt_mem(bpd['activations_peak'])}, peak {fmt_mem(bpd['peak'])}; {rec['flops']:.4e} FLOPs, "
+        f"{rec['bytes']:.4e} bytes, collectives {rec['collectives']}; bottleneck {rec['bottleneck']}; "
+        f"fake tensors on {rec['layout']['device']}; build {rec['build_s']:.1f} s, measure "
+        f"{rec['measure_s']:.1f} s")
+    log(f"  SA: {sa['levels']} levels of {sa['chains_per_rank']} chains per rank, launches "
+        f"{sa['launches']}, roofline {sa['roofline']}, bottleneck {sa['bottleneck']}")
+    return rec, sa
+
+
+def phase20_dryrun(smi):
+    """The dry run held against the card: 20a, 20b and 20c, TF32 off.
+    Returns B1's, B2's and B3's launches in the phase (none)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh, start_fake_world
+    from repro_torch.optim import OptConfig
+    t_phase = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    read = counted_launches()
+    ocfg = OptConfig(lr=3e-4, total_steps=100, warmup_steps=5)
+    try:
+        start_fake_world(1)     # a world of one: its all-reduces are no-ops
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+            phase20a_census(smi, mesh, ocfg)
+            phase20b_remat(smi, mesh, ocfg)
+        finally:
+            dist.destroy_process_group()
+        phase20c_host(smi)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    n = read()
+    check(n == {"b1": 0, "b2": 0, "b3": 0}, f"phase 20: launched {n} of B1-B3")
+    log(f"  B1, B2 and B3 launches in phase 20: {n}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return n
 
 
 def phase_b3_times(gen):
@@ -3641,7 +3841,7 @@ def phase_b3_times(gen):
     p = cuda_ms(lambda: qs.qap_sweep_plain(*args, **kw), n=10, warmup=1)
     chains, n = host["p"].shape
     proposals = chains * QAP_STEPS
-    bound, by = b3_bound(chains, n, n_slots)
+    bound, by = b3_bound(chains, n, n_slots, QAP_STEPS)
     log(f"  B3 at phase 8's group shape ({chains} chains, n={n}, N={QAP_STEPS}): "
         f"kernel {k:.4f} ms (the call with its wrapper {call:.4f} ms), plain {p:.4f} ms, "
         f"bound {bound:.4f} ms ({by}), {proposals / (k * 1e-3):.4e} proposals/s")
@@ -3737,8 +3937,9 @@ def against(root, gen):
             x, 5.0, 0, 0, kid=0, n_steps=N, blk=256, variant="delta"), "sa_metropolis_sweep"),
         "B3": (lambda: qs.qap_sweep_kernel(*qargs, n_steps=QAP_STEPS, **qkw), "sa_qap_sweep"),
     }
-    bounds = {"B1 full": b1_bounds(n, dim, N)["full"], "B1 delta": b1_bounds(n, dim, N)["delta"],
-              "B3": b3_bound(*host["p"].shape, SERVE_CFG["n_slots"] // 2)}
+    b1 = b1_bounds(n, dim, N, TERM_INSTR)
+    bounds = {"B1 full": b1["full"], "B1 delta": b1["delta"],
+              "B3": b3_bound(*host["p"].shape, SERVE_CFG["n_slots"] // 2, QAP_STEPS)}
     log(f"  C entry (CUDA events) and device (profiler) ms at {n} x {dim}, N={N} (B1) "
         f"and {host['p'].shape[0]} chains of n=12, N={QAP_STEPS} (B3)")
     for label, lib in (("that", other), ("this", this), ("this", this), ("that", other)):
@@ -3902,6 +4103,7 @@ def main(argv=None) -> int:
     p17 = phase17_moe(smi)
     p18 = phase18_mamba_encdec(smi)
     p19 = phase19_train(smi)
+    p20 = phase20_dryrun(smi)
     b1 = dict(route="cuda", source="src/repro_torch/kernels/csrc/metropolis_sweep.cu",
               replaces="src/repro/kernels/metropolis_sweep.py:81", library_ms=None)
     kernels = [
@@ -3912,7 +4114,7 @@ def main(argv=None) -> int:
                               "phase 14a": tel_launches["b1"], "phase 14b": auto_b1,
                               "phase 15": p15["b1_delta"], "phase 16": p16["b1"],
                               "phase 17": p17["b1"], "phase 18": p18["b1"],
-                              "phase 19": p19["b1"]},
+                              "phase 19": p19["b1"], "phase 20": p20["b1"]},
          "max_abs_err": max(b1_err["delta"], temper["max_abs_err"]),
          "ms": t["delta"][0], "wrapper_ms": t["delta"][1], "plain_ms": t["delta"][2],
          "bound_ms": t["delta"][3], "bound_by": t["delta"][4]},
@@ -3921,7 +4123,8 @@ def main(argv=None) -> int:
          "launches_by_path": {"phase 4": full_launches, "phase 11": suite["b1"],
                               "phase 12": table7["b1"], "phase 15": p15["b1_full"],
                               "phase 16": p16["b1"], "phase 17": p17["b1"],
-                              "phase 18": p18["b1"], "phase 19": p19["b1"]},
+                              "phase 18": p18["b1"], "phase 19": p19["b1"],
+                              "phase 20": p20["b1"]},
          "max_abs_err": max(b1_err["full"], suite["max_abs_err"], table7["max_abs_err"]),
          "ms": t["full"][0], "wrapper_ms": t["full"][1], "plain_ms": t["full"][2],
          "bound_ms": t["full"][3], "bound_by": t["full"][4]},
@@ -3933,7 +4136,7 @@ def main(argv=None) -> int:
                               "phase 11": suite["b2"], "phase 12": table7["b2"],
                               "phase 15": p15["b2"], "phase 16": p16["b2"],
                               "phase 17": p17["b2"], "phase 18": p18["b2"],
-                              "phase 19": p19["b2"]},
+                              "phase 19": p19["b2"], "phase 20": p20["b2"]},
          "max_abs_err": b2_err,
          "ms": t["b2"][0], "wrapper_ms": t["b2"][1], "plain_ms": t["b2"][2],
          "bound_ms": t["b2"][3], "bound_by": "bytes", "library_ms": t["b2"][4]},
@@ -3944,7 +4147,8 @@ def main(argv=None) -> int:
          "launches_by_path": {"phase 8": b3_launches, "phase 10": elastic_b3,
                               "phase 13": temper["b3"], "phase 14a": tel_launches["b3"],
                               "phase 16": p16["b3"], "phase 17": p17["b3"],
-                              "phase 18": p18["b3"], "phase 19": p19["b3"]},
+                              "phase 18": p18["b3"], "phase 19": p19["b3"],
+                              "phase 20": p20["b3"]},
          "max_abs_err": b3_err,
          "ms": b3[0], "wrapper_ms": b3[1], "plain_ms": b3[2], "bound_ms": b3[3],
          "bound_by": b3[4], "library_ms": None},

@@ -32,14 +32,16 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.kernels.bounds import BF16_OPS_PER_S, HBM_BYTES_PER_S, NVLINK_BYTES_PER_S
 from repro_torch.models.model import ModelConfig
 from repro_torch.objectives.base import Objective
 
-# NVIDIA H100 SXM5 80GB, from NVIDIA's H100 Tensor Core GPU datasheet:
-PEAK_FLOPS = 989e12       # dense BF16 tensor-core peak, FLOP/s
-HBM_BW = 3.35e12          # HBM3 bandwidth, bytes/s
-LINK_BW = 450e9           # NVLink, bytes/s each way (900 GB/s both ways)
-HBM_CAP = 80e9            # memory capacity, bytes (80 GB)
+# NVIDIA H100 SXM5 80GB, from NVIDIA's H100 Tensor Core GPU datasheet
+# (kernels/bounds.py):
+PEAK_FLOPS = BF16_OPS_PER_S     # dense BF16 tensor-core peak, FLOP/s
+HBM_BW = HBM_BYTES_PER_S        # HBM3 bandwidth, bytes/s
+LINK_BW = NVLINK_BYTES_PER_S    # NVLink, bytes/s each way (900 GB/s both ways)
+HBM_CAP = 80e9                  # memory capacity, bytes (80 GB)
 
 REMAT_CHOICES = ("none", "dots", "full")
 # extra fwd-flops multiplier: none=0, dots≈.3 (recompute non-dot), full=1

@@ -17,8 +17,10 @@ hand with ``torch.distributed.init_process_group(backend,
 store=torch.distributed.FileStore(path, world_size), rank=r,
 world_size=world_size)`` (a ``HashStore`` serves a world of one).
 
-``make_production_mesh`` (256 and 512 chips) serves only the reference's
-HLO dry run, which is not ported.
+``make_production_mesh`` (256 and 512 chips) serves the dry run
+(``launch.dryrun``), over a fake world: torch's ``"fake"`` backend
+(:func:`start_fake_world`), whose collectives return at once and move no
+data.  A mesh over it sizes a step; it computes nothing.
 """
 from __future__ import annotations
 
@@ -41,6 +43,19 @@ START_GROUP = (
     "world_size=world_size) in every rank (nccl for cuda, gloo for cpu)")
 
 
+FAKE_BACKEND = "fake"
+
+
+def start_fake_world(world_size: int) -> None:
+    """A process group of ``world_size`` ranks, this process being rank
+    0, in which no other rank exists: the ``"fake"`` backend over
+    ``FakeStore`` (torch's testing module), whose collectives return at
+    once and move no data.  For the dry run only; end it with
+    ``torch.distributed.destroy_process_group()``."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group(FAKE_BACKEND, store=FakeStore(), rank=0, world_size=world_size)
+
+
 def require_group() -> None:
     """Raise, saying how to start one, unless a process group is up."""
     if not dist.is_available() or not dist.is_initialized():
@@ -48,18 +63,32 @@ def require_group() -> None:
 
 
 def _check_group(device_type: str) -> None:
+    """The process group's backend must be the one ``device_type``
+    needs; the dry run's fake one passes for a ``cpu`` mesh only, so no
+    mesh of the card ever runs over collectives that move nothing."""
     require_group()
     want = BACKENDS[device_type]
     have = str(dist.get_backend())
-    if want not in have:
+    if want not in have and not (have == FAKE_BACKEND and device_type == "cpu"):
         raise ValueError(
             f"a {device_type} mesh needs a {want} process group, not {have!r}")
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    """Single pod: (data=16, model=16) = 256 ranks.  Multi-pod: (pod=2,
+    data=16, model=16) = 512 ranks.  A ``cpu`` mesh over the world the
+    caller started: for the dry run, :func:`start_fake_world` of that
+    size, which needs no card."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, "cpu")
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str], device=None) -> DeviceMesh:
     """A mesh of ``shape`` over every rank, with dims named ``axes``, on
     ``device`` (default: the card).  ``prod(shape)`` must equal the world
-    size."""
+    size.  The process group's backend follows the device (``BACKENDS``),
+    or, for a ``cpu`` mesh, is the dry run's fake one."""
     dev = resolve_device(device)
     if dev.type not in BACKENDS:
         raise ValueError(f"make_mesh: unsupported device {dev}")

@@ -100,22 +100,24 @@ def _heads(x, w):
 
 
 def _gqa_scores(q, k, n_rep):
-    """q: (B,S,H,hd), k: (B,T,Hkv,hd) -> (B,S,H,T) float32, by grouping the
-    n_rep query heads of each KV head, never by repeating K.  Both sides
-    are cast to float32 first: bf16 to float32 is exact, so the products
-    are the reference's bf16 products accumulated in float32."""
+    """q: (B,S,H,hd), k: (B,T,Hkv,hd) -> (B,Hkv,S,n_rep,T) float32, by
+    grouping the n_rep query heads of each KV head, never by repeating K.
+    Both sides are cast to float32 first: bf16 to float32 is exact, so
+    the products are the reference's bf16 products accumulated in
+    float32.  The scores stay in the layout of the batched product that
+    makes them, contiguous, so the softmax and its backward read them as
+    they are where a (B,S,H,T) view would make each copy them."""
     B, S, H, hd = q.shape
     qg = q.float().view(B, S, H // n_rep, n_rep, hd)
-    s = torch.einsum("bsgrk,btgk->bsgrt", qg, k.float())
-    return s.reshape(B, S, H, k.shape[1]) / math.sqrt(hd)
+    return torch.einsum("bsgrk,btgk->bgsrt", qg, k.float()) / math.sqrt(hd)
 
 
 def _gqa_out(p, v, n_rep):
-    """p: (B,S,H,T) float32, v: (B,T,Hkv,hd) -> (B,S,H,hd) float32, as
-    the reference promotes float32 p times a bf16 v."""
-    B, S, H, T = p.shape
-    o = torch.einsum("bsgrt,btgk->bsgrk", p.view(B, S, H // n_rep, n_rep, T), v.float())
-    return o.reshape(B, S, H, v.shape[-1])
+    """p: (B,Hkv,S,n_rep,T) float32, v: (B,T,Hkv,hd) -> (B,S,H,hd)
+    float32, as the reference promotes float32 p times a bf16 v."""
+    B, G, S, R, T = p.shape
+    o = torch.einsum("bgsrt,btgk->bsgrk", p, v.float())
+    return o.reshape(B, S, G * R, v.shape[-1])
 
 
 def _softmax(scores, mask):
@@ -172,7 +174,7 @@ def attention(params, x, positions, *, n_rep: int, window: Optional[int],
         mask = positions[:, None, :] <= positions[:, :, None]
         if window is not None:
             mask = mask & (positions[:, None, :] > positions[:, :, None] - window)
-        out = _gqa_out(_softmax(_gqa_scores(q, k, n_rep), mask[:, :, None, :]), v, n_rep)
+        out = _gqa_out(_softmax(_gqa_scores(q, k, n_rep), mask[:, None, :, None, :]), v, n_rep)
         new_cache = None if cache is None else _prefill_cache(cache, k, v, positions, window)
     else:
         C = cache["k"].shape[1]
@@ -186,8 +188,8 @@ def attention(params, x, positions, *, n_rep: int, window: Optional[int],
         valid = pc <= pos[:, None]
         if window is not None:
             valid = valid & (pc > pos[:, None] - window)
-        scores = _gqa_scores(q, cache["k"], n_rep)  # (B,1,H,C)
-        out = _gqa_out(_softmax(scores, valid[:, None, None, :]), cache["v"], n_rep)
+        scores = _gqa_scores(q, cache["k"], n_rep)  # (B,Hkv,1,n_rep,C)
+        out = _gqa_out(_softmax(scores, valid[:, None, None, None, :]), cache["v"], n_rep)
         new_cache = cache
 
     H, hd, D = params["wo"].shape

@@ -19,10 +19,13 @@ the MoE (and its shared experts) or no MLP, and cross-attention over the
 encoder of the encoder-decoder (``kind="encdec"``).  The reference's
 ``shardctx.constrain`` calls and the knobs ``seq_parallel``,
 ``seq_shard_kv`` and ``serve_params_tp_only`` choose layouts over a
-device mesh and change no value; on one card the port leaves them out,
-and ``remat`` and ``scan_unroll`` likewise.  :func:`lm_loss` is the
-training objective; under a mesh with a ``model`` axis and ``moe_ep`` the
-MoE takes its expert-parallel form (:func:`_moe`).
+device mesh and change no value; the port's compute leaves them out
+(``launch.steps`` gives their specs), and ``scan_unroll`` likewise.
+``remat`` ("full" or "dots") checkpoints each instance of a block
+pattern in train mode, as the reference checkpoints its scan body
+(:func:`_rematted`): the same values, with less held for the backward.
+:func:`lm_loss` is the training objective; under a mesh with a ``model``
+axis and ``moe_ep`` the MoE takes its expert-parallel form (:func:`_moe`).
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch._device import resolve_device
 from repro_torch.models import layers as L
@@ -445,18 +449,54 @@ def _moe(mp, h, cfg: ModelConfig, mesh=None):
     return _ScaleGrad.apply(y, 1.0 / ep)
 
 
-def _encode(params, cfg: ModelConfig, frames, cdt):
+def _rows(table, idx):
+    """``table[idx]`` for an integer ``idx``, by ``embedding``: its
+    backward adds the gradient rows of repeated indices in a fixed order.
+    Indexing's backward (``index_put_`` with accumulate) adds them with
+    atomic float adds across the intra-op threads on the CPU, whose order,
+    and so whose last bits, change from run to run.  A negative index
+    counts from the end, as in indexing (a padded batch's masked ``-1``
+    among the inputs reads the last row, as the reference's does)."""
+    return nn.functional.embedding(torch.where(idx < 0, idx + table.shape[0], idx), table)
+
+
+#: The products ``remat="dots"`` keeps for the backward: matmuls with no
+#: batch dims, which the port's projections (``x @ w``, w 2-D) lower to;
+#: the attention's per-head scores and the expert stacks are ``bmm``s and
+#: are recomputed, as ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``
+#: does.
+DOTS_SAVED = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def _rematted(fn, remat: str):
+    """``fn`` (tensor -> tensor) run under ``torch.utils.checkpoint``:
+    "full" keeps only its input for the backward and recomputes the
+    rest; "dots" keeps the outputs of :data:`DOTS_SAVED` too; "none"
+    leaves ``fn`` as it is."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return lambda x: ckpt.checkpoint(fn, x, use_reentrant=False)
+    if remat == "dots":
+        return lambda x: ckpt.checkpoint(
+            fn, x, use_reentrant=False,
+            context_fn=lambda: ckpt.create_selective_checkpoint_contexts(DOTS_SAVED))
+    raise ValueError(f"remat must be none, full or dots, not {remat!r}")
+
+
+def _encode(params, cfg: ModelConfig, frames, cdt, remat="none"):
     """The encoder over ``frames`` (B, Te, D): learned positions 0..Te-1,
     dense attention layers run as causal attention with every position 0
     (so the mask passes everywhere: the reference's bidirectional
-    encoder), then its final norm."""
+    encoder), then its final norm.  Each layer is one ``remat`` region."""
     enc = params["enc"]
     B, Te, _ = frames.shape
     pos = torch.arange(Te, device=frames.device)
-    e = frames.to(cdt) + enc["pos_embed"][pos].to(cdt)
+    e = frames.to(cdt) + _rows(enc["pos_embed"], pos).to(cdt)
     zeros = torch.zeros((B, Te), dtype=torch.int32, device=frames.device)
     for lp in enc["layers"]:
-        e, _ = _apply_layer(lp, ENC_SPEC, cfg, e, zeros, None, False)
+        e = _rematted(lambda h, lp=lp: _apply_layer(lp, ENC_SPEC, cfg, h, zeros, None,
+                                                    False)[0], remat)(e)
     return L.rms_norm(e, enc["final_norm"])
 
 
@@ -488,23 +528,36 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None, positions=Non
     if embeds is not None:
         parts.append(embeds.to(cdt))
     if tokens is not None:
-        parts.append(params["embed"][tokens].to(cdt))
+        parts.append(_rows(params["embed"], tokens).to(cdt))
     x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     if not cfg.use_rope:
-        x = x + params["pos_embed"][positions.long()].to(cdt)
+        x = x + _rows(params["pos_embed"], positions).to(cdt)
+    remat = cfg.remat if mode == "train" else "none"
     enc_out = None
     if cfg.kind == "encdec" and not decode:
-        enc_out = _encode(params, cfg, enc_frames, cdt)
+        enc_out = _encode(params, cfg, enc_frames, cdt, remat)
 
     specs = layer_specs(cfg)
     caches = caches if caches is not None else [None] * len(specs)
-    new_caches = []
-    for lp, spec, c in zip(params["layers"], specs, caches):
-        x, nc = _apply_layer(lp, spec, cfg, x, positions, c, decode, enc_out, mesh)
-        new_caches.append(nc)
+    new_caches = [None] * len(specs)
+
+    def instance(h, span):
+        for j in span:
+            h, new_caches[j] = _apply_layer(params["layers"][j], specs[j], cfg, h, positions,
+                                            caches[j], decode, enc_out, mesh)
+        return h
+
+    # One remat region per instance of a block pattern: the reference's
+    # checkpointed scan body (jamba's 8 layers are one).
+    start = 0
+    for pattern, reps in cfg.blocks:
+        for _ in range(reps):
+            span = range(start, start + len(pattern))
+            start += len(pattern)
+            x = _rematted(lambda h, span=span: instance(h, span), remat)(x)
 
     x = L.rms_norm(x, params["final_norm"])
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]

@@ -235,3 +235,13 @@ def test_heartbeats_and_step_timer(tmp_path):
     timer.start()
     dt = timer.stop()
     assert timer.mean == dt and timer.exceeded_deadline(3 * dt + 1e-3)
+
+
+def test_expert_parallel_remat_is_bit_equal(ranks):
+    """remat "full" and "dots" around regions that hold the EP all_to_all
+    (shrink(deepseek), shrink(jamba)'s 8-layer period) over gloo at world
+    size 2: the exchanges pair up again in the backward, and the loss and
+    every gradient equal those without remat, bit for bit, on every rank."""
+    for r in ranks[2]:
+        assert r["remat_ep"] == {a: {"full": 0.0, "dots": 0.0}
+                                 for a in ("deepseek-v2-lite-16b", "jamba-v0.1-52b")}

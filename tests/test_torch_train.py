@@ -16,6 +16,7 @@ and equal the reference's bit for bit.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import signal
@@ -121,6 +122,132 @@ def test_lm_loss_and_gradients_match_reference(name, seq):
     want = flatten(interop.model_params_from_jax(jax.tree.map(np.asarray, want_grads), cfg,
                                                  device="cpu"))
     assert_grads(dict(zip(flat, grads)), want)
+
+
+def test_lm_loss_with_a_negative_input_token_matches_reference():
+    """A masked ``-1`` inside a row is a target and an input at once: the
+    input reads the embedding's last row, as the reference's indexing
+    does, and the loss and gradients hold the reference's."""
+    rcfg, cfg = configs("stablelm-1.6b")
+    p, _ = weights(rcfg, cfg)
+    rb, tb = batches(cfg, 2, 16, seed=2)
+    rb["tokens"] = rb["tokens"].at[1, 7].set(-1)
+    tb["tokens"][1, 7] = -1
+    want_loss, want_grads = ref_loss_grad(p, rcfg, rb)
+    loss, grads = _loss_grads(port_params(p, cfg), cfg, tb)
+    np.testing.assert_allclose(float(loss), float(want_loss), **LOSS_TOL)
+    want = flatten(interop.model_params_from_jax(jax.tree.map(np.asarray, want_grads), cfg,
+                                                 device="cpu"))
+    assert_grads(grads, want)
+
+
+REMAT_CASES = [("stablelm-1.6b", 16),     # dense: one layer per region
+               ("jamba-v0.1-52b", 20),    # Mamba + attention + MoE: one 8-layer region
+               ("whisper-base", 12)]      # encoder layers and decoder layers
+
+
+def _loss_grads(tp, cfg, tb):
+    flat = flatten(tp)
+    loss = M.lm_loss(tp, cfg, tb)
+    return loss.detach(), dict(zip(flat, torch.autograd.grad(loss, list(flat.values()))))
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+@pytest.mark.parametrize("name,seq", REMAT_CASES)
+def test_remat_gradients_are_bit_equal_and_match_reference(name, seq, remat):
+    """remat recomputes the same values: the loss and every gradient equal
+    those without remat bit for bit; and they hold the reference's
+    ``jax.grad(lm_loss)`` under the same ``remat`` within GRAD_TOL."""
+    rcfg, cfg = configs(name)
+    p, _ = weights(rcfg, cfg)
+    rb, tb = batches(cfg, 2, seq, seed=1)
+    base_loss, base = _loss_grads(port_params(p, cfg), cfg, tb)
+    rcfg_r, cfg_r = (dataclasses.replace(c, remat=remat) for c in (rcfg, cfg))
+    loss, grads = _loss_grads(port_params(p, cfg_r), cfg_r, tb)
+    assert torch.equal(loss, base_loss)
+    assert all(torch.equal(grads[k], base[k]) for k in base)
+    want_loss, want_grads = ref_loss_grad(p, rcfg_r, rb)
+    np.testing.assert_allclose(float(loss), float(want_loss), **LOSS_TOL)
+    want = flatten(interop.model_params_from_jax(jax.tree.map(np.asarray, want_grads), cfg,
+                                                 device="cpu"))
+    assert_grads(grads, want)
+
+
+def _op_calls(cfg, tp, tb):
+    """aten op -> calls over one lm_loss and its gradients."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n[func] = self.n.get(func, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as c:
+        _loss_grads(tp, cfg, tb)
+    return c.n
+
+
+def test_remat_dots_saves_the_projections_and_recomputes_the_scores():
+    """"dots" keeps the outputs of the projections (``mm``, no batch
+    dims) and recomputes the rest, the attention's per-head score
+    products (``bmm``) among them; "full" recomputes the projections
+    too."""
+    rcfg, cfg = configs("stablelm-1.6b")
+    p, _ = weights(rcfg, cfg)
+    _, tb = batches(cfg, 2, 16, seed=1)
+    mm, bmm = torch.ops.aten.mm.default, torch.ops.aten.bmm.default
+    calls = {r: _op_calls(c, port_params(p, c), tb) for r, c in (
+        (r, dataclasses.replace(cfg, remat=r)) for r in ("none", "full", "dots"))}
+    assert calls["dots"][mm] == calls["none"][mm] < calls["full"][mm]
+    assert calls["none"][bmm] < calls["dots"][bmm] == calls["full"][bmm]
+
+
+def test_embedding_gradient_has_no_atomic_accumulation():
+    """The resume fault's cause, pinned: the lookups of ``embed`` and
+    ``pos_embed`` go through ``embedding``, whose backward adds repeated
+    rows in a fixed order, and never through indexing's backward
+    (``index_put_`` with accumulate), which on the CPU adds them with
+    atomic float adds across the intra-op threads in an order, and so
+    with last bits, that vary from run to run under load.  The gradient
+    is then the same bits at 1 thread and at several."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Accumulating(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kw = kwargs or {}
+            if func.overloadpacket in (torch.ops.aten.index_put, torch.ops.aten.index_put_,
+                                       torch.ops.aten._index_put_impl_) and \
+                    (kw.get("accumulate") or (len(args) > 3 and args[3])):
+                self.seen.append(str(func))
+            return func(*args, **kw)
+
+    for name in ("smoke", "whisper-base"):   # embed; learned positions, encoder's too
+        rcfg, cfg = configs(name)
+        p, _ = weights(rcfg, cfg)
+        _, tb = batches(cfg, 4, 128, seed=1)
+        with Accumulating() as mode:
+            _loss_grads(port_params(p, cfg), cfg, tb)
+        assert mode.seen == [], f"{name}: {mode.seen}"
+    w = torch.randn(512, 128, generator=torch.Generator().manual_seed(0), requires_grad=True)
+    tok = torch.randint(0, 512, (4, 128), generator=torch.Generator().manual_seed(1))
+    up = torch.randn(4, 128, 128, generator=torch.Generator().manual_seed(2))
+    threads = torch.get_num_threads()
+    try:
+        torch.set_num_threads(1)
+        one = torch.autograd.grad(M._rows(w, tok), w, up)[0]
+        torch.set_num_threads(max(threads, 4))
+        many = torch.autograd.grad(M._rows(w, tok), w, up)[0]
+    finally:
+        torch.set_num_threads(threads)
+    assert torch.equal(one, many)
 
 
 def test_scans_are_differentiable_and_unchanged_without_grad():

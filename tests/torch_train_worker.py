@@ -122,6 +122,30 @@ def deepseek(world):
     return {"loss": abs(l1 - l0) / abs(l0), "grad": max(rel(g1[k], g0[k]) for k in g0)}
 
 
+def remat_ep(world):
+    """lm_loss of shrink(deepseek) and shrink(jamba) (one 8-layer
+    checkpoint region holding Mamba, attention and the MoE) with moe_ep
+    under a ``model`` mesh, remat "full" and "dots" against none: the
+    all_to_all runs again in the backward on every rank.  Returns the
+    largest |difference| of the loss and of any gradient (0: bit-equal)."""
+    mesh = make_mesh((world,), ("model",), device="cpu")
+    out = {}
+    for arch in ("deepseek-v2-lite-16b", "jamba-v0.1-52b"):
+        cfg = dataclasses.replace(shrink(get_arch(arch).model), moe_ep=True)
+        params = M.init_params(cfg, torch.Generator().manual_seed(2))
+        toks = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 17)))
+        got = {}
+        for remat in ("none", "full", "dots"):
+            flat = flatten(params)
+            for t in flat.values():
+                t.requires_grad_(True)
+            loss = M.lm_loss(params, dataclasses.replace(cfg, remat=remat), {"tokens": toks}, mesh)
+            got[remat] = [loss.detach(), *torch.autograd.grad(loss, list(flat.values()))]
+        out[arch] = {r: max(float((a - b).abs().max()) for a, b in zip(got[r], got["none"]))
+                     for r in ("full", "dots")}
+    return out
+
+
 def train_steps(world, rank, mesh_shape, arch):
     """Three make_train_step steps over a mesh, each rank its share of
     the batch along ``data``, against the same steps unsharded.  A data
@@ -208,6 +232,7 @@ def main(rank: int, world: int, init_file: str, out_dir: str) -> None:
                "ep_moe_apply": ep_moe_apply(rank, world), "ep_mesh_moe": ep_mesh_moe(world),
                "deepseek": deepseek(world)}
         if world == 2:
+            out["remat_ep"] = remat_ep(world)
             out["train"] = train_steps(world, rank, (2, 1), "smoke")
             out["main"] = TT.main(["--device", "cpu", "--preset", "smoke", "--steps", "3",
                                    "--log-every", "100"])
