@@ -171,7 +171,18 @@ and runs, in order, failing on the first phase that fails:
     gradients with each mode bit-equal to those without under
     deterministic algorithms; (c) the dry run's records of stablelm-1.6b
     train_4k and the SA cell on the single-pod mesh, computed on the
-    host over a fake world of 256.  It launches none of B1-B3.
+    host over a fake world of 256.  It launches none of B1-B3;
+21. the training state as each rank's blocks (distributed/sharded.py),
+    TF32 off: (a) 19a's cell through launch/train.py's main under a
+    world-of-one NCCL group, so by the sharded path on a (1, 1) mesh: 4
+    steps under deterministic algorithms bit-equal to the unsharded
+    path's, then 12 timed steps beside 19a's, the rank's state bytes
+    beside bytes_under_specs, peak memory; (b) a checkpoint of the 100m
+    preset saved by the sharded path and restored by the unsharded one,
+    and the other way round, bit for bit; (c) the dry run's train_4k
+    records of stablelm-1.6b, deepseek-v2-lite-16b and kimi-k2 on the
+    host: the state per rank against state_under_specs, the peak
+    against 80 GiB.  It launches none of B1-B3.
 
 The card's name and power limit, then a JSON object with one entry per
 kernel, are the two lines before the last; the last line is
@@ -394,6 +405,20 @@ DRYRUN_CELL = dict(arch="stablelm-1.6b", seq=512, batch=4)
 DRYRUN_REMAT = dict(arch="stablelm-1.6b", seq=4096, peak_limit=75e9, steps=3)
 DRYRUN_FLOPS_RTOL, DRYRUN_PEAK_RTOL = 0.01, 0.10
 DRYRUN_HOST = dict(arch="stablelm-1.6b", shape="train_4k")
+
+# Slice 14 (phase 21): the training state as each rank's blocks by the
+# reference's specs (distributed/sharded.py).  21a: phase 19a's cell
+# through launch/train.py's main under a world-of-one NCCL group, so by
+# the sharded path on a (1, 1) mesh: `det_steps` steps under
+# deterministic algorithms against the unsharded path from the same
+# seed, bit for bit, then 19a's 12 timed steps.  21b: a checkpoint of the
+# `ckpt_preset` state after one step, saved by the sharded path (async)
+# and restored by the unsharded one, and saved by the unsharded path and
+# restored by the sharded one, bit for bit.  21c: the dry run's train
+# records of `host_archs` on the single-pod mesh, on this host.
+SHARDED = dict(det_steps=4, ckpt_preset="100m",
+               host_archs=("stablelm-1.6b", "deepseek-v2-lite-16b", "kimi-k2-1t-a32b"),
+               host_shape="train_4k")
 
 
 class SmokeFailure(RuntimeError):
@@ -3393,7 +3418,7 @@ def timed_train_steps():
             out[kind] = [a.elapsed_time(b) for a, b in pairs]
 
 
-def train_main_run(T, batch, steps):
+def train_main_run(T, batch, steps, label="phase 19a"):
     """``launch.train.main`` on the card at ``batch`` x ``T["seq"]`` for
     ``steps`` steps, every step and its ``opt_step`` timed.  Checks the
     losses are finite; returns (losses, step ms and optimizer ms of the
@@ -3409,7 +3434,7 @@ def train_main_run(T, batch, steps):
         wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     check(len(losses) == steps and all(math.isfinite(x) for x in losses),
-          f"phase 19a: losses {losses} at batch {batch}")
+          f"{label}: losses {losses} at batch {batch}")
     return losses, times["step"][T["warmup"]:], times["opt"][T["warmup"]:], peak, wall
 
 
@@ -3597,7 +3622,7 @@ def phase19_train(smi):
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     read = counted_launches()
     try:
-        phase19a_train(smi)
+        p19a = phase19a_train(smi)
         phase19b_resume(smi)
         phase19c_gradients(smi)
     finally:
@@ -3606,7 +3631,7 @@ def phase19_train(smi):
     check(n == {"b1": 0, "b2": 0, "b3": 0}, f"phase 19: launched {n} of B1-B3")
     log(f"  B1, B2 and B3 launches in phase 19: {n}; phase wall "
         f"{time.perf_counter() - t_phase:.1f} s")
-    return n
+    return {**n, "p19a": p19a}
 
 
 # ------------------------------------------------------------- slice 13
@@ -4062,6 +4087,153 @@ def serve_against(root):
     log("  champions bit-equal between the trees")
 
 
+# ------------------------------------------------------------- slice 14
+def phase21a_sharded_train(smi, p19a):
+    """Phase 19a's cell by the sharded path (a world-of-one NCCL group, a
+    (1, 1) mesh): its losses against the unsharded path's, bit for bit
+    under deterministic algorithms; then 19a's timed steps beside 19a's."""
+    T, det = TRAIN_MAIN, SHARDED["det_steps"]
+    log(f"phase 21a: {T['arch']} float32, AdamW, {T['batch']} x {T['seq']} tokens, TF32 off, "
+        f"through launch.train.main under a world-of-one NCCL group: the state as the rank's "
+        f"blocks on a (1, 1) mesh (every block the whole leaf, every group of one a view); {smi}")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        whole = train_main_run(T, T["batch"], det, "phase 21a")[0]
+        with world_of_one():
+            blocks = train_main_run(T, T["batch"], det, "phase 21a")[0]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(blocks == whole, f"phase 21a: sharded losses {blocks} != unsharded {whole}")
+    log(f"  {det} steps under deterministic algorithms, unsharded and sharded: "
+        f"{', '.join(f'{x:.6f}' for x in blocks)}, equal bit for bit")
+    with world_of_one():
+        losses, steps, opt, peak, wall = train_main_run(T, T["batch"], T["steps"], "phase 21a")
+    check(losses[-1] < losses[0], f"phase 21a: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    step_ms = statistics.median(steps)
+    log(f"  sharded, {T['steps']} steps in {wall:.1f} s (main's wall): losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; step {step_ms:.3f} ms (median of "
+        f"{len(steps)} after {T['warmup']} warm-up, CUDA events; min {min(steps):.3f}, max "
+        f"{max(steps):.3f}), optimizer {statistics.median(opt):.3f} ms; phase 19a's unsharded "
+        f"step in this run {p19a['step_ms']:.3f} ms: {100 * (step_ms / p19a['step_ms'] - 1):+.2f}%; "
+        f"peak card memory {fmt_mem(peak)}")
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "peak": peak}
+
+
+def phase21b_checkpoints(smi):
+    """A checkpoint saved by the sharded path restores into the unsharded
+    one, and the other way round, bit for bit (the preset's state after
+    one step); the sharded save and restore timed."""
+    import tempfile
+    from repro_torch._tree import flatten
+    from repro_torch.checkpoint import CheckpointManager, restore_state, save_state
+    from repro_torch.distributed import sharded
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import OptConfig
+    cfg, seq, batch = train_mod.preset_config(SHARDED["ckpt_preset"])
+    ocfg = OptConfig(lr=3e-4, total_steps=100, warmup_steps=5)
+    log(f"phase 21b: checkpoints of the {SHARDED['ckpt_preset']} preset's state (AdamW, after one "
+        f"step of {batch} x {seq}) between the sharded path ((1, 1) mesh, world of one) and the "
+        f"unsharded one; {smi}")
+    toks = torch.as_tensor(np.random.default_rng(21).integers(0, cfg.vocab_size, (batch, seq + 1)),
+                           device=DEV)
+
+    def same(a, b):
+        fa, fb = flatten(a), flatten(b)
+        return fa.keys() == fb.keys() and all(torch.equal(fa[k].detach(), fb[k].detach())
+                                              for k in fa)
+
+    with world_of_one(), tempfile.TemporaryDirectory() as a, tempfile.TemporaryDirectory() as b:
+        mesh = make_mesh((1, 1), ("data", "model"), device=DEV)
+        specs = steps_mod.train_specs(cfg, ocfg, mesh)
+        blocks = train_mod.build_state(cfg, ocfg, seed=0, device=DEV, mesh=mesh, specs=specs)
+        steps_mod.make_train_step(cfg, ocfg, mesh, batch, specs=specs)(blocks, {"tokens": toks})
+        sync()
+        t0 = time.perf_counter()
+        mgr = CheckpointManager(a, specs=specs, mesh=mesh)
+        mgr.save_async(1, blocks, {"data_step": 1})
+        mgr.wait()
+        save_s = time.perf_counter() - t0
+        whole, _ = restore_state(a, 1, train_mod.build_state(cfg, ocfg, seed=1, device=DEV))
+        out = same(whole, sharded.gather_state(blocks, specs, mesh))
+        save_state(b, 1, whole, {"data_step": 1})
+        like = train_mod.build_state(cfg, ocfg, seed=1, device=DEV, mesh=mesh, specs=specs)
+        t0 = time.perf_counter()
+        back, extras = CheckpointManager(b, specs=specs, mesh=mesh).restore(like)
+        sync()
+        restore_s = time.perf_counter() - t0
+        back_ok = same(back, blocks) and extras == {"data_step": 1}
+        nbytes = sharded.block_bytes(blocks)
+        del blocks, whole, like, back
+    check(out, "phase 21b: the sharded save restored by the unsharded path differs")
+    check(back_ok, "phase 21b: the unsharded save restored by the sharded path differs")
+    log(f"  sharded save_async of {fmt_mem(nbytes)} (gathered leaf by leaf, one writer): "
+        f"{save_s:.3f} s ({nbytes / save_s / 1e9:.2f} GB/s); restored by the unsharded path "
+        f"equal bit for bit; the unsharded save restored as blocks: {restore_s:.3f} s "
+        f"({nbytes / restore_s / 1e9:.2f} GB/s), equal bit for bit (host clocks)")
+    torch.cuda.empty_cache()
+
+
+def phase21c_host(smi):
+    """The dry run's train records on the single-pod mesh, on this host:
+    each rank's state against the reference's specs, the peak, and
+    whether it fits the card."""
+    import tempfile
+    from repro_torch._tree import flatten
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.optim import OptConfig
+    log(f"phase 21c: the dry run's {SHARDED['host_shape']} records of "
+        f"{', '.join(SHARDED['host_archs'])} on the (16, 16) mesh (fake world of 256, fake tensors "
+        f"on the host's fake device); {smi}")
+    card = torch.cuda.get_device_properties(0).total_memory
+    recs = {}
+    with tempfile.TemporaryDirectory() as out, dryrun.fake_world(False) as mesh:
+        for arch in SHARDED["host_archs"]:
+            rec = dryrun.run_cell(arch, SHARDED["host_shape"], multi_pod=False, out_dir=Path(out),
+                                  mesh=mesh)
+            cfg = steps_mod._dryrun_model_cfg(get_arch(arch), SHARDED["host_shape"], mesh)
+            leaves = len(flatten(steps_mod.state_shapes(cfg, OptConfig(**rec["optimizer"]))))
+            bpd = rec["bytes_per_device"]
+            # each storage is rounded up to the allocator's 512-byte blocks on a cuda fake device
+            slack = 511 * leaves if rec["layout"]["device"] == "cuda" else 0
+            check(bpd["state_under_specs"] <= bpd["state"] <= bpd["state_under_specs"] + slack,
+                  f"phase 21c: {arch} state {bpd['state']} against {bpd['state_under_specs']}")
+            log(f"  {arch}: state {fmt_mem(bpd['state'])} per rank ({leaves} leaves), under the "
+                f"reference's specs {fmt_mem(bpd['state_under_specs'])}; peak {fmt_mem(bpd['peak'])} "
+                f"(activations {fmt_mem(bpd['activations_peak'])}), "
+                f"{'fits' if bpd['peak'] <= 80 * 2**30 else 'does not fit'} 80 GiB "
+                f"({'fits' if bpd['peak'] <= card else 'does not fit'} this card's "
+                f"{fmt_mem(card)}); collectives {rec['collectives']}; {rec['optimizer']['kind']}; "
+                f"bottleneck {rec['bottleneck']}; build {rec['build_s']:.1f} s, measure "
+                f"{rec['measure_s']:.1f} s")
+            recs[arch] = bpd
+    return recs
+
+
+def phase21_sharded_state(smi, p19a):
+    """The training state as each rank's blocks: 21a, 21b and 21c, TF32
+    off.  Returns B1's, B2's and B3's launches in the phase (none)."""
+    t_phase = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    read = counted_launches()
+    try:
+        phase21a_sharded_train(smi, p19a)
+        phase21b_checkpoints(smi)
+        phase21c_host(smi)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    n = read()
+    check(n == {"b1": 0, "b2": 0, "b3": 0}, f"phase 21: launched {n} of B1-B3")
+    log(f"  B1, B2 and B3 launches in phase 21: {n}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return n
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
     if not (args == [] or (len(args) == 2 and args[0] == "--against")):
@@ -4104,6 +4276,7 @@ def main(argv=None) -> int:
     p18 = phase18_mamba_encdec(smi)
     p19 = phase19_train(smi)
     p20 = phase20_dryrun(smi)
+    p21 = phase21_sharded_state(smi, p19["p19a"])
     b1 = dict(route="cuda", source="src/repro_torch/kernels/csrc/metropolis_sweep.cu",
               replaces="src/repro/kernels/metropolis_sweep.py:81", library_ms=None)
     kernels = [
@@ -4114,7 +4287,8 @@ def main(argv=None) -> int:
                               "phase 14a": tel_launches["b1"], "phase 14b": auto_b1,
                               "phase 15": p15["b1_delta"], "phase 16": p16["b1"],
                               "phase 17": p17["b1"], "phase 18": p18["b1"],
-                              "phase 19": p19["b1"], "phase 20": p20["b1"]},
+                              "phase 19": p19["b1"], "phase 20": p20["b1"],
+                              "phase 21": p21["b1"]},
          "max_abs_err": max(b1_err["delta"], temper["max_abs_err"]),
          "ms": t["delta"][0], "wrapper_ms": t["delta"][1], "plain_ms": t["delta"][2],
          "bound_ms": t["delta"][3], "bound_by": t["delta"][4]},
@@ -4124,7 +4298,7 @@ def main(argv=None) -> int:
                               "phase 12": table7["b1"], "phase 15": p15["b1_full"],
                               "phase 16": p16["b1"], "phase 17": p17["b1"],
                               "phase 18": p18["b1"], "phase 19": p19["b1"],
-                              "phase 20": p20["b1"]},
+                              "phase 20": p20["b1"], "phase 21": p21["b1"]},
          "max_abs_err": max(b1_err["full"], suite["max_abs_err"], table7["max_abs_err"]),
          "ms": t["full"][0], "wrapper_ms": t["full"][1], "plain_ms": t["full"][2],
          "bound_ms": t["full"][3], "bound_by": t["full"][4]},
@@ -4136,7 +4310,8 @@ def main(argv=None) -> int:
                               "phase 11": suite["b2"], "phase 12": table7["b2"],
                               "phase 15": p15["b2"], "phase 16": p16["b2"],
                               "phase 17": p17["b2"], "phase 18": p18["b2"],
-                              "phase 19": p19["b2"], "phase 20": p20["b2"]},
+                              "phase 19": p19["b2"], "phase 20": p20["b2"],
+                              "phase 21": p21["b2"]},
          "max_abs_err": b2_err,
          "ms": t["b2"][0], "wrapper_ms": t["b2"][1], "plain_ms": t["b2"][2],
          "bound_ms": t["b2"][3], "bound_by": "bytes", "library_ms": t["b2"][4]},
@@ -4148,7 +4323,7 @@ def main(argv=None) -> int:
                               "phase 13": temper["b3"], "phase 14a": tel_launches["b3"],
                               "phase 16": p16["b3"], "phase 17": p17["b3"],
                               "phase 18": p18["b3"], "phase 19": p19["b3"],
-                              "phase 20": p20["b3"]},
+                              "phase 20": p20["b3"], "phase 21": p21["b3"]},
          "max_abs_err": b3_err,
          "ms": b3[0], "wrapper_ms": b3[1], "plain_ms": b3[2], "bound_ms": b3[3],
          "bound_by": b3[4], "library_ms": None},

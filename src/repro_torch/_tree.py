@@ -2,18 +2,26 @@
 from __future__ import annotations
 
 
-def flatten(tree, prefix: str = "") -> dict:
-    """{"a/b/0/c": tensor} over nested dicts and lists, in their order."""
+def flatten(tree, prefix: str = "", seqs=(list, tuple)) -> dict:
+    """{"a/b/0/c": tensor} over nested dicts and ``seqs``, in their
+    order (a tree of specs passes ``seqs=(list,)``: a spec is a tuple)."""
     if isinstance(tree, dict):
         items = tree.items()
-    elif isinstance(tree, (list, tuple)):
+    elif isinstance(tree, seqs):
         items = enumerate(tree)
     else:
         return {prefix: tree}
     out = {}
     for k, v in items:
-        out.update(flatten(v, f"{prefix}/{k}" if prefix else str(k)))
+        out.update(flatten(v, f"{prefix}/{k}" if prefix else str(k), seqs))
     return out
+
+
+def at(tree, path: str):
+    """The subtree at ``path`` ("layers/3/attn")."""
+    for k in path.split("/"):
+        tree = tree[int(k)] if isinstance(tree, list) else tree[k]
+    return tree
 
 
 def map_tree(fn, tree, prefix: str = ""):

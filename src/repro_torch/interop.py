@@ -189,10 +189,19 @@ def opt_state_from_jax(opt, cfg: ModelConfig, device=None) -> dict:
             "step": torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32, device=dev)}
 
 
-def train_state_from_jax(state, cfg: ModelConfig, device=None) -> dict:
+def train_state_from_jax(state, cfg: ModelConfig, device=None, mesh=None) -> dict:
     """``launch.train.build_state``'s ``{"params", "opt"}`` from the
     reference's training state: the parameters as leaves that require
-    grad, and :func:`opt_state_from_jax`."""
-    params = map_tree(lambda _, t: t.requires_grad_(True),
-                      model_params_from_jax(state["params"], cfg, device))
-    return {"params": params, "opt": opt_state_from_jax(state["opt"], cfg, device)}
+    grad, and :func:`opt_state_from_jax`.  Under ``mesh`` (a
+    ``DeviceMesh``) this rank's blocks of them, as ``build_state(...,
+    mesh=)`` holds them: each whole leaf cut by the state's specs
+    (``launch.steps.state_specs``)."""
+    params = model_params_from_jax(state["params"], cfg, device)
+    out = {"params": params, "opt": opt_state_from_jax(state["opt"], cfg, device)}
+    if mesh is not None:
+        from repro_torch.distributed import sharded
+        from repro_torch.launch.steps import param_specs, state_specs
+        out = sharded.shard_state(out, state_specs(out, param_specs(params, cfg, mesh), cfg),
+                                  mesh)
+    map_tree(lambda _, t: t.requires_grad_(True), out["params"])
+    return out

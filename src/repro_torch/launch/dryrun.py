@@ -78,8 +78,7 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool, out_dir: Path,
     t_build = time.time() - t0
     with cell.mode:
         sizes = {k: Census().hold(v) for k, v in cell.parts.items()}
-        state = cell.parts.get("state", cell.parts.get("params"))
-        under_specs = bytes_under_specs(state, cell.specs, mesh)
+        under_specs = bytes_under_specs(cell.whole, cell.specs, mesh)
         with op_census(*cell.args) as census:
             cell.fn(*cell.args)
     t_measure = time.time() - t0 - t_build

@@ -119,6 +119,14 @@ def slot_pool_mesh(n_shards: int, device=None) -> List[torch.device]:
     return slot_pool_devices(n_shards, resolve_device(device))
 
 
+def mesh_axes(mesh) -> dict:
+    """{axis name: size} of a ``DeviceMesh`` or a ``(sizes, names)`` pair."""
+    if isinstance(mesh, DeviceMesh):
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
+    sizes, names = mesh
+    return dict(zip(names, sizes))
+
+
 def dp_axes(mesh: DeviceMesh) -> tuple:
     """Axes used for batch/FSDP sharding ('pod' folds into DP)."""
     return tuple(a for a in mesh.mesh_dim_names if a != "model")
@@ -153,10 +161,11 @@ def _coords(mesh: DeviceMesh) -> dict:
 
 
 def shard_index(mesh: DeviceMesh, axes, rank=None) -> int:
-    """The row-major coordinate of ``rank`` (default: this one) over the
+    """The row-major coordinate of ``rank`` (default: this one, by the
+    mesh's own record of its coordinate, which reads no tensor) over the
     dims ``axes``, in the order given: the index of its slice of chains."""
     names = mesh.mesh_dim_names
-    c = _coords(mesh)[dist.get_rank() if rank is None else rank]
+    c = mesh.get_coordinate() if rank is None else _coords(mesh)[rank]
     idx = 0
     for a in axes:
         d = names.index(a)

@@ -14,10 +14,15 @@ a layer's spec here is the reference's without that entry.  A mesh is a
 ``DeviceMesh`` or a ``(sizes, names)`` pair: the rules read only its
 axes' names and sizes.
 
-The specs describe the reference's layout, which the port's compute does
-not take: every rank holds the whole state and its share of the batch
-(ROADMAP.md section A, item 5), and the layout knobs ``seq_shard_kv``,
-``serve_params_tp_only`` and ``seq_parallel`` change the specs only.
+The training state takes the specs' layout: under ``make_train_step``'s
+``specs`` each rank stores its block of every parameter, gradient and
+optimizer moment (``distributed.sharded``), the experts of the
+expert-parallel MoE as its E/ep slice, and its share of the batch.  The
+compute over ``model`` stays replicated (the experts aside): no heads,
+d_ff or vocabulary split over it.  Serving keeps whole parameters on
+every rank, and the layout knobs ``seq_shard_kv``,
+``serve_params_tp_only`` and ``seq_parallel`` change the specs only
+(ROADMAP.md section A, items 6 and 7).
 ``repro.launch.shardctx`` has no counterpart: its ``constrain`` pins a
 traced activation to a layout, where each of the port's ranks holds
 local tensors, so :func:`activation_policy` gives the layout as DTensor
@@ -27,31 +32,23 @@ placements and nothing applies it.  Next tokens are int32, by
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, NamedTuple, Optional
 
 import torch
-import torch.distributed as dist
-from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import Replicate, Shard
 
-from repro_torch._tree import flatten, map_tree
+from repro_torch._tree import at, flatten, map_tree
 from repro_torch.configs.common import SHAPES, ArchSpec
-from repro_torch.launch.mesh import dp_axes
+from repro_torch.distributed import sharded
+from repro_torch.launch.mesh import dp_axes, mesh_axes
 from repro_torch.models import model as M
 from repro_torch.optim import OptConfig, init_opt_state, opt_step
 from repro_torch.optim.optimizers import leaf_groups
 
 
 # ----------------------------------------------------------- spec assignment
-def mesh_axes(mesh) -> dict:
-    """{axis name: size} of a ``DeviceMesh`` or a ``(sizes, names)`` pair."""
-    if isinstance(mesh, DeviceMesh):
-        return dict(zip(mesh.mesh_dim_names, mesh.shape))
-    sizes, names = mesh
-    return dict(zip(names, sizes))
-
-
 def _dp(axes: dict) -> tuple:
     """The batch and FSDP axes: every axis but 'model' ('pod' folds into DP)."""
     return tuple(a for a in axes if a != "model")
@@ -182,12 +179,6 @@ def tp_only(pspecs):
     return tuple(a if a == "model" else None for a in pspecs)
 
 
-def _at(tree, path: str):
-    for k in path.split("/"):
-        tree = tree[int(k)] if isinstance(tree, list) else tree[k]
-    return tree
-
-
 def state_specs(state_shapes, pspecs, model: M.ModelConfig):
     """Specs for the ``{"params", "opt"}`` train state: the moments
     mirror the parameters; Adafactor's second moments, kept per stacked
@@ -201,15 +192,15 @@ def state_specs(state_shapes, pspecs, model: M.ModelConfig):
     def spec(path, _):
         head, _, rest = path.partition("/")
         if head == "params":
-            return _at(pspecs, rest)
+            return at(pspecs, rest)
         kind, _, sub = rest.partition("/")
         if kind == "step":
             return ()
         if sub in param_paths:          # m, and AdamW's v
-            return _at(pspecs, sub)
+            return at(pspecs, sub)
         name, stat = sub.rsplit("/", 1)  # Adafactor's {"vr", "vc"} or {"v"}
         stacked, paths = groups[name]
-        base = (None, *_at(pspecs, paths[0])) if stacked else _at(pspecs, paths[0])
+        base = (None, *at(pspecs, paths[0])) if stacked else at(pspecs, paths[0])
         return {"v": base, "vr": base[:-1], "vc": base[:-2] + base[-1:]}[stat]
 
     return map_tree(spec, state_shapes)
@@ -315,44 +306,76 @@ def activation_policy(cfg: M.ModelConfig, mesh, batch: int) -> dict:
     return {k: placements(v, mesh) for k, v in pol.items()}
 
 
-def make_train_step(cfg: M.ModelConfig, ocfg: OptConfig, mesh=None, batch=None):
+def make_train_step(cfg: M.ModelConfig, ocfg: OptConfig, mesh=None, batch=None, specs=None):
     """``train_step(state, batch_data) -> (state, loss)``: ``lm_loss``,
     its gradients by ``torch.autograd``, then the optimizer's update
     applied in place (``optim.opt_step``, Adafactor stacked by ``cfg``'s
     blocks).  ``state`` is ``{"params", "opt"}`` (``launch.train.build_state``),
     written in place and returned; ``loss`` is a 0-d float32 tensor.
 
-    Under a mesh (a ``DeviceMesh``) every rank holds the whole state and
-    its share of the batch along the data axes (every dim but
-    ``model``): the gradients and the loss are averaged over those axes,
-    one all-reduce per axis, and the MoE takes its expert-parallel form
-    over ``model`` where ``cfg.moe_ep`` asks (``models.model._moe``).
-    ``batch`` is the reference's, which sizes its activation layout; the
-    port has none and does not read it."""
+    Under a mesh (a ``DeviceMesh``) each rank holds its share of the
+    batch along the data axes (every dim but ``model``), the loss is
+    averaged over them, and the MoE takes its expert-parallel form over
+    ``model`` where ``cfg.moe_ep`` asks (``models.model._moe``).  With
+    ``specs`` (:func:`train_specs`, the state's ``state_specs``) the
+    state is each rank's blocks (``build_state(..., mesh=)``): every leaf
+    is gathered where its layer runs, its gradient comes back as the
+    block, reduce-scattered over the data axes its spec names
+    (``distributed.sharded.gather``), and the optimizer updates the
+    blocks.  Without ``specs`` every rank holds the whole state.  Either
+    way a gradient is then all-reduced over the data axes its leaf is not
+    cut over, and divided by their size.  ``batch`` is the reference's,
+    which sizes its activation layout; the port has none and does not
+    read it."""
     axes = dp_axes(mesh) if mesh is not None else ()
+    pspecs = specs["params"] if specs is not None else None
 
-    def mean_over_data(t):
-        for a in axes:
-            dist.all_reduce(t, group=mesh.get_group(a))
-        for a in axes:
-            t /= mesh.shape[mesh.mesh_dim_names.index(a)]
+    def mean_over(t, over):     # a group of one leaves t as it is
+        over = [a for a in over if mesh_axes(mesh)[a] > 1]
+        sharded.all_reduce_over(t, over, mesh)
+        for a in over:
+            t /= mesh_axes(mesh)[a]
         return t
 
     def train_step(state, batch_data):
         params = state["params"]
         flat = flatten(params)
-        loss = M.lm_loss(params, cfg, batch_data, mesh)
+        loss = M.lm_loss(params, cfg, batch_data, mesh, specs=pspecs)
         grads = torch.autograd.grad(loss, list(flat.values()), materialize_grads=True)
         loss = loss.detach()
         if axes:
-            for g in grads:
-                mean_over_data(g)
-            mean_over_data(loss)
+            fs = sharded.spec_paths(pspecs) if pspecs is not None else {}
+            for path, g in zip(flat, grads):
+                cut = [a for d in (sharded.cut_axes(fs[path], mesh) if fs else ()) for a in d]
+                mean_over(g, [a for a in axes if a not in cut])
+            mean_over(loss, axes)
         by_path = dict(zip(flat, grads))
-        opt_step(map_tree(lambda path, _: by_path[path], params), params, state["opt"], ocfg, cfg)
+        opt_step(map_tree(lambda path, _: by_path[path], params), params, state["opt"], ocfg, cfg,
+                 pspecs, mesh)
         return state, loss
 
     return train_step
+
+
+@functools.lru_cache(maxsize=None)
+def state_shapes(cfg: M.ModelConfig, ocfg: Optional[OptConfig] = None) -> dict:
+    """The whole parameters (``models.model.init_params``), or with
+    ``ocfg`` the whole ``{"params", "opt"}`` train state, as meta tensors
+    of their shapes and dtypes: drawn on fake tensors, nothing allocated,
+    once per configuration (kimi-k2 draws its 23040 experts one at a
+    time); the tree is shared, so read it only."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        params = M.init_params(cfg, torch.Generator().manual_seed(0))
+        tree = {"params": params, "opt": init_opt_state(params, ocfg, cfg)} if ocfg else params
+    return map_tree(lambda _, t: torch.empty(t.shape, dtype=t.dtype, device="meta"), tree)
+
+
+def train_specs(cfg: M.ModelConfig, ocfg: OptConfig, mesh) -> dict:
+    """The train state's specs over ``mesh``: :func:`state_specs` of the
+    whole state under :func:`param_specs`."""
+    whole = state_shapes(cfg, ocfg)
+    return state_specs(whole, param_specs(whole["params"], cfg, mesh), cfg)
 
 
 def make_prefill_step(cfg: M.ModelConfig):
@@ -395,7 +418,9 @@ class Cell:
     it), at the shapes one rank holds.  ``parts`` names the arguments'
     trees (``state`` or ``params``, ``batch``, ``cache``); ``specs`` holds
     the reference layout's specs of the state (``param_specs`` /
-    ``state_specs``); ``layout`` says how the rank's share was cut."""
+    ``state_specs``) and ``whole`` the state (or parameters) whole, as
+    fake tensors no rank holds; ``layout`` says how the rank's share was
+    cut."""
     arch_id: str
     shape_name: str
     kind: str
@@ -407,6 +432,7 @@ class Cell:
     specs: Any
     layout: dict
     ocfg: Optional[OptConfig] = None
+    whole: Any = None
 
 
 def _dryrun_model_cfg(spec: ArchSpec, shape_name: str, mesh,
@@ -439,12 +465,13 @@ def build_cell(spec: ArchSpec, shape_name: str, mesh, ocfg: Optional[OptConfig] 
                overrides: Optional[dict] = None, shape: Optional[tuple] = None) -> Cell:
     """The port's step and fake arguments for one cell over ``mesh`` (a
     ``DeviceMesh``, over a fake world for the dry run), in the port's
-    layout: the whole parameters (and optimizer state) on the rank, the
-    batch split over the data axes by :func:`_fit`, the caches the same
-    way, and where ``_fit`` gives None (batch 1) the whole cache, as the
-    port has no sequence parallelism.  The fake tensors lie on
-    :func:`fake_device`; ``shape``: ``(seq, batch, kind)`` in place of
-    ``SHAPES[shape_name]``.  Allocates nothing."""
+    layout: a train cell's state as the rank's blocks by
+    :func:`state_specs` and the sharded step; a serving cell's whole
+    parameters; the batch split over the data axes by :func:`_fit`, the
+    caches the same way, and where ``_fit`` gives None (batch 1) the
+    whole cache, as the port has no sequence parallelism.  The fake
+    tensors lie on :func:`fake_device`; ``shape``: ``(seq, batch, kind)``
+    in place of ``SHAPES[shape_name]``.  Allocates nothing."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     seq, batch, kind = shape or SHAPES[shape_name]
     cfg = _dryrun_model_cfg(spec, shape_name, mesh, overrides, shape)
@@ -458,13 +485,17 @@ def build_cell(spec: ArchSpec, shape_name: str, mesh, ocfg: Optional[OptConfig] 
     split = math.prod(axes[a] for a in ((dp,) if isinstance(dp, str) else dp or ()))
     local = batch // split
     layout = {"device": dev.type, "batch_local": local, "batch_split_over": dp,
-              "params": "whole on every rank",
+              "params": ("the rank's block of every leaf of the state by state_specs (the data "
+                         "axes and 'model' where a dim divides; the experts' E/ep slice under "
+                         "moe_ep), gathered where each layer runs" if kind == "train" else
+                         "whole on every rank (serving keeps whole parameters)"),
               "cache": None if kind == "train" else
               ("split like the batch" if dp else "whole on the rank (no sequence parallelism)")}
-    mode = FakeTensorMode(allow_non_fake_inputs=True)  # init_params' numpy constants
+    mode = FakeTensorMode(allow_non_fake_inputs=True)
     with mode:
-        params = M.init_params(cfg, torch.Generator().manual_seed(0))
-        params = map_tree(lambda _, t: t.to(dev), params)
+        whole = map_tree(lambda _, t: torch.empty(t.shape, dtype=t.dtype, device=dev),
+                         state_shapes(cfg, ocfg if kind == "train" else None))
+        params = whole["params"] if kind == "train" else whole
         pspecs = param_specs(params, cfg, mesh)
         if kind != "train" and cfg.serve_params_tp_only:
             pspecs = tp_only(pspecs)
@@ -473,13 +504,13 @@ def build_cell(spec: ArchSpec, shape_name: str, mesh, ocfg: Optional[OptConfig] 
             return torch.zeros((n, *struct.shape[1:]), dtype=struct.dtype, device=dev)
 
         if kind == "train":
-            params = map_tree(lambda _, t: t.requires_grad_(True), params)
-            state = {"params": params, "opt": init_opt_state(params, ocfg, cfg)}
+            specs = state_specs(whole, pspecs, cfg)
+            state = sharded.shard_state(whole, specs, mesh)
+            map_tree(lambda _, t: t.requires_grad_(True), state["params"])
             bdata = {k: fake(v, local) for k, v in batch_struct(cfg, seq, batch).items()}
-            fn = make_train_step(cfg, ocfg, mesh, batch)
+            fn = make_train_step(cfg, ocfg, mesh, batch, specs=specs)
             args = (state, bdata)
             parts = {"state": state, "batch": bdata}
-            specs = state_specs(state, pspecs, cfg)
         else:
             enc_len = cfg.frontend_len if cfg.kind == "encdec" else 0
             caches = M.init_cache(cfg, local, seq, dtype=M._dtype(cfg.compute_dtype),
@@ -496,7 +527,8 @@ def build_cell(spec: ArchSpec, shape_name: str, mesh, ocfg: Optional[OptConfig] 
             parts = {"params": params, "batch": bdata, "cache": caches}
             specs = pspecs
     return Cell(arch_id=spec.arch_id, shape_name=shape_name, kind=kind, fn=fn, args=args,
-                model_cfg=cfg, mode=mode, parts=parts, specs=specs, layout=layout, ocfg=ocfg)
+                model_cfg=cfg, mode=mode, parts=parts, specs=specs, layout=layout, ocfg=ocfg,
+                whole=whole)
 
 
 def bytes_under_specs(tree, specs, mesh) -> int:

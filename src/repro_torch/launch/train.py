@@ -2,10 +2,13 @@
 checkpoint/restart -> monitoring, the counterpart of
 ``repro.launch.train``.  The same code runs a preset on the CPU
 (``--device cpu``) and an architecture at full width on the card; only
-flags differ.  Under a ``torch.distributed`` process group (``torchrun``)
-it trains over a ``(data, model)`` mesh of every rank
+flags differ.  Under a ``torch.distributed`` process group (the
+caller's, or under ``torchrun`` the one its environment describes, which
+``main`` starts and ends) it trains over a ``(data, model)`` mesh of every rank
 (``--model-parallel`` sizes ``model``), each data coordinate reading its
-own share of every batch.
+own share of every batch, and each rank storing its block of the state
+by the reference's specs (``launch.steps.train_specs``); checkpoints
+hold whole leaves whatever the world size.
 
 Fault-tolerance behaviour (held by tests/test_torch_train.py):
 * resume: ``--resume`` restores the latest checkpoint (params + opt + data
@@ -21,10 +24,13 @@ Usage::
   PYTHONPATH=src python -m repro_torch.launch.train --preset 100m --steps 300 \\
       --ckpt-dir /tmp/ckpt --resume
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b --seq 512 --batch 4
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu \\
+      --preset smoke --steps 12
 """
 from __future__ import annotations
 
 import argparse
+import os
 import signal
 import time
 
@@ -32,12 +38,14 @@ import torch
 import torch.distributed as dist
 
 from repro_torch._device import resolve_device
-from repro_torch._tree import flatten, map_tree
+from repro_torch._tree import at, flatten, map_tree
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.pipeline import DataConfig, make_batches, synthetic_dataset
+from repro_torch.distributed import sharded
 from repro_torch.distributed.monitor import StepTimer
 from repro_torch.launch import steps as S
-from repro_torch.launch.mesh import dp_axes, local_test_mesh, shard_count, shard_index
+from repro_torch.launch.mesh import (BACKENDS, dp_axes, local_test_mesh, shard_count,
+                                     shard_index)
 from repro_torch.models import model as M
 from repro_torch.models.model import LayerSpec, ModelConfig
 from repro_torch.optim import OptConfig, init_opt_state
@@ -65,16 +73,30 @@ def preset_config(name: str) -> tuple[ModelConfig, int, int]:
     return cfg, seq, batch
 
 
-def build_state(cfg: ModelConfig, ocfg: OptConfig, *, seed: int = 0, device=None) -> dict:
+def build_state(cfg: ModelConfig, ocfg: OptConfig, *, seed: int = 0, device=None,
+                mesh=None, specs=None) -> dict:
     """``{"params", "opt"}``: random parameters from ``seed``
     (``models.model.init_params``) as leaves that require grad, and the
     optimizer's zero state beside them, on ``device`` (default: the
-    card).  Every rank of a mesh builds the same state from the same
-    seed."""
+    card).  Every rank draws the same values from the same seed.
+
+    Under ``mesh`` each rank keeps its block of every leaf by ``specs``
+    (default ``launch.steps.train_specs``): it draws each leaf whole, in
+    ``init_params``' order from the same generator, keeps its block and
+    frees the rest before the next draw, so no more than one whole leaf
+    is held; the blocks equal ``sharded.shard_state`` of the whole state
+    bit for bit."""
     dev = resolve_device(device)
-    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if mesh is None:
+        params = M.init_params(cfg, gen)
+        params = map_tree(lambda _, p: p.requires_grad_(True), params)
+        return {"params": params, "opt": init_opt_state(params, ocfg, cfg)}
+    pspecs = (specs if specs is not None else S.train_specs(cfg, ocfg, mesh))["params"]
+    params = M.init_params(cfg, gen, place=lambda path, whole: sharded.shard_leaf(
+        whole, at(pspecs, path), mesh))
     params = map_tree(lambda _, p: p.requires_grad_(True), params)
-    return {"params": params, "opt": init_opt_state(params, ocfg, cfg)}
+    return {"params": params, "opt": init_opt_state(params, ocfg, cfg, pspecs, mesh)}
 
 
 def main(argv=None):
@@ -96,6 +118,14 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    started = False
+    if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        # torchrun describes the group in the environment (RANK, WORLD_SIZE,
+        # MASTER_ADDR, MASTER_PORT, LOCAL_RANK): one card per rank
+        if dev.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group(BACKENDS[dev.type])
+        started = True
     if args.arch:
         from repro_torch.configs import get_arch
         cfg = get_arch(args.arch).model
@@ -115,11 +145,16 @@ def main(argv=None):
     ocfg = OptConfig(lr=args.lr, total_steps=max(args.steps, 100),
                      warmup_steps=min(50, max(5, args.steps // 10)))
 
-    state = build_state(cfg, ocfg, seed=args.seed, device=dev)
-    n_params = sum(p.numel() for p in flatten(state["params"]).values())
+    specs = S.train_specs(cfg, ocfg, mesh) if mesh is not None else None
+    state = build_state(cfg, ocfg, seed=args.seed, device=dev, mesh=mesh, specs=specs)
+    whole = S.state_shapes(cfg, ocfg) if mesh is not None else state
+    n_params = sum(p.numel() for p in flatten(whole["params"]).values())
     print(f"[train] model={cfg.name} params={n_params/1e6:.1f}M "
           f"seq={seq} batch={batch} device={dev} "
           f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape)) if mesh else None}")
+    if mesh is not None:
+        print(f"[train] rank {dist.get_rank()}: state {sharded.block_bytes(state)} bytes, "
+              f"under the reference's specs {S.bytes_under_specs(whole, specs, mesh)}", flush=True)
 
     dcfg = DataConfig(seq_len=seq, global_batch=batch, vocab_size=cfg.vocab_size,
                       seed=args.seed, host_index=host_index, host_count=host_count)
@@ -128,14 +163,14 @@ def main(argv=None):
     start_step = 0
     mgr = None
     if args.ckpt_dir:
-        mgr = CheckpointManager(args.ckpt_dir, keep_last=3)
+        mgr = CheckpointManager(args.ckpt_dir, keep_last=3, specs=specs, mesh=mesh)
         if args.resume and mgr.latest_step() is not None:
             state, extras = mgr.restore(state, device=dev)
             map_tree(lambda _, p: p.requires_grad_(True), state["params"])
             start_step = int(extras["data_step"])
             print(f"[train] resumed at step {start_step}")
 
-    train_step = S.make_train_step(cfg, ocfg, mesh, batch)
+    train_step = S.make_train_step(cfg, ocfg, mesh, batch, specs=specs)
 
     # Emergency checkpoint on preemption (SIGTERM) / Ctrl-C.
     stop = {"now": False}
@@ -181,8 +216,12 @@ def main(argv=None):
 
     wall = time.time() - t_start
     if losses:
+        peak = (f"; peak card memory {torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB"
+                if dev.type == "cuda" else "")
         print(f"[train] done: {len(losses)} steps in {wall:.1f}s "
-              f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+              f"loss {losses[0]:.4f} -> {losses[-1]:.4f}{peak}")
+    if started:
+        dist.destroy_process_group()
     return losses
 
 

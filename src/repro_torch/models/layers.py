@@ -41,6 +41,11 @@ def _init(gen, shape, scale=None, dtype=torch.float32):
     return w.mul_(scale).to(dtype)
 
 
+def _kept(name, t):
+    """The ``place`` of the ``init_*`` functions that keeps every leaf whole."""
+    return t
+
+
 def _init_experts(gen, shape, dtype):
     """:func:`_init` of an (experts, fan_in, fan_out) stack, drawn one
     expert at a time so that no float32 copy of the whole stack is held.
@@ -83,13 +88,16 @@ def swiglu(x, w_gate, w_up, w_down):
 
 
 # ----------------------------------------------------------------- attention
-def init_attention(gen, d_model, n_heads, n_kv_heads, head_dim, dtype):
+def init_attention(gen, d_model, n_heads, n_kv_heads, head_dim, dtype, place=_kept):
+    """Each ``init_*`` passes every leaf, as soon as it is drawn, through
+    ``place(name, leaf)`` and keeps what that returns (the leaf whole by
+    default; ``launch.train.build_state`` keeps a rank's block)."""
     return {
-        "wq": _init(gen, (d_model, n_heads, head_dim), dtype=dtype),
-        "wk": _init(gen, (d_model, n_kv_heads, head_dim), dtype=dtype),
-        "wv": _init(gen, (d_model, n_kv_heads, head_dim), dtype=dtype),
-        "wo": _init(gen, (n_heads, head_dim, d_model),
-                    scale=1.0 / math.sqrt(n_heads * head_dim), dtype=dtype),
+        "wq": place("wq", _init(gen, (d_model, n_heads, head_dim), dtype=dtype)),
+        "wk": place("wk", _init(gen, (d_model, n_kv_heads, head_dim), dtype=dtype)),
+        "wv": place("wv", _init(gen, (d_model, n_kv_heads, head_dim), dtype=dtype)),
+        "wo": place("wo", _init(gen, (n_heads, head_dim, d_model),
+                                scale=1.0 / math.sqrt(n_heads * head_dim), dtype=dtype)),
     }
 
 
@@ -198,15 +206,15 @@ def attention(params, x, positions, *, n_rep: int, window: Optional[int],
 
 
 # ----------------------------------------------------------------------- MLA
-def init_mla(gen, d_model, n_heads, *, kv_lora, d_nope, d_rope, d_v, dtype):
+def init_mla(gen, d_model, n_heads, *, kv_lora, d_nope, d_rope, d_v, dtype, place=_kept):
     return {
-        "wq": _init(gen, (d_model, n_heads, d_nope + d_rope), dtype=dtype),
-        "w_dkv": _init(gen, (d_model, kv_lora), dtype=dtype),
-        "w_kr": _init(gen, (d_model, d_rope), dtype=dtype),
-        "w_uk": _init(gen, (kv_lora, n_heads, d_nope), dtype=dtype),
-        "w_uv": _init(gen, (kv_lora, n_heads, d_v), dtype=dtype),
-        "wo": _init(gen, (n_heads, d_v, d_model),
-                    scale=1.0 / math.sqrt(n_heads * d_v), dtype=dtype),
+        "wq": place("wq", _init(gen, (d_model, n_heads, d_nope + d_rope), dtype=dtype)),
+        "w_dkv": place("w_dkv", _init(gen, (d_model, kv_lora), dtype=dtype)),
+        "w_kr": place("w_kr", _init(gen, (d_model, d_rope), dtype=dtype)),
+        "w_uk": place("w_uk", _init(gen, (kv_lora, n_heads, d_nope), dtype=dtype)),
+        "w_uv": place("w_uv", _init(gen, (kv_lora, n_heads, d_v), dtype=dtype)),
+        "wo": place("wo", _init(gen, (n_heads, d_v, d_model),
+                                scale=1.0 / math.sqrt(n_heads * d_v), dtype=dtype)),
     }
 
 
@@ -291,11 +299,11 @@ def mla_attention(params, x, positions, *, d_nope: int, d_rope: int,
 
 
 # ----------------------------------------------------------------------- MLP
-def init_mlp(gen, d_model, d_ff, dtype):
+def init_mlp(gen, d_model, d_ff, dtype, place=_kept):
     return {
-        "w_gate": _init(gen, (d_model, d_ff), dtype=dtype),
-        "w_up": _init(gen, (d_model, d_ff), dtype=dtype),
-        "w_down": _init(gen, (d_ff, d_model), dtype=dtype),
+        "w_gate": place("w_gate", _init(gen, (d_model, d_ff), dtype=dtype)),
+        "w_up": place("w_up", _init(gen, (d_model, d_ff), dtype=dtype)),
+        "w_down": place("w_down", _init(gen, (d_ff, d_model), dtype=dtype)),
     }
 
 
@@ -304,18 +312,21 @@ def mlp_apply(params, x):
 
 
 # ----------------------------------------------------------------------- MoE
-def init_moe(gen, d_model, d_ff_expert, n_experts, n_shared, d_ff_shared, dtype):
+def init_moe(gen, d_model, d_ff_expert, n_experts, n_shared, d_ff_shared, dtype,
+             place=_kept):
     """The router, always float32 (the reference's), the (E, D, F) and
     (E, F, D) expert stacks, drawn one expert at a time, and the shared
     experts as one SwiGLU MLP of width ``n_shared * d_ff_shared``."""
     p = {
-        "router": _init(gen, (d_model, n_experts), scale=0.02, dtype=torch.float32),
-        "w_gate": _init_experts(gen, (n_experts, d_model, d_ff_expert), dtype),
-        "w_up": _init_experts(gen, (n_experts, d_model, d_ff_expert), dtype),
-        "w_down": _init_experts(gen, (n_experts, d_ff_expert, d_model), dtype),
+        "router": place("router", _init(gen, (d_model, n_experts), scale=0.02,
+                                        dtype=torch.float32)),
+        "w_gate": place("w_gate", _init_experts(gen, (n_experts, d_model, d_ff_expert), dtype)),
+        "w_up": place("w_up", _init_experts(gen, (n_experts, d_model, d_ff_expert), dtype)),
+        "w_down": place("w_down", _init_experts(gen, (n_experts, d_ff_expert, d_model), dtype)),
     }
     if n_shared:
-        p["shared"] = init_mlp(gen, d_model, n_shared * d_ff_shared, dtype)
+        p["shared"] = init_mlp(gen, d_model, n_shared * d_ff_shared, dtype,
+                               place=lambda name, t: place(f"shared/{name}", t))
     return p
 
 
@@ -424,7 +435,7 @@ def moe_apply(params, x, *, top_k: int, capacity_factor: float = 1.25,
 
 
 # -------------------------------------------------------------------- Mamba1
-def init_mamba(gen, d_model, *, d_state, d_conv, expand, dt_rank, dtype):
+def init_mamba(gen, d_model, *, d_state, d_conv, expand, dt_rank, dtype, place=_kept):
     """The reference's draws and constants: ``conv_w`` at scale 0.5,
     ``conv_b`` zeros, ``dt_bias`` -4 (softplus of it is a small dt),
     ``A_log = log(1..d_state)`` on every row and ``D`` ones.  The log is
@@ -433,15 +444,16 @@ def init_mamba(gen, d_model, *, d_state, d_conv, expand, dt_rank, dtype):
     d_inner, dev = expand * d_model, gen.device
     a_log = np.log(np.arange(1, d_state + 1, dtype=np.float64)).astype(np.float32)
     return {
-        "in_proj": _init(gen, (d_model, 2 * d_inner), dtype=dtype),
-        "conv_w": _init(gen, (d_conv, d_inner), scale=0.5, dtype=dtype),
-        "conv_b": torch.zeros(d_inner, dtype=dtype, device=dev),
-        "x_proj": _init(gen, (d_inner, dt_rank + 2 * d_state), dtype=dtype),
-        "dt_proj": _init(gen, (dt_rank, d_inner), dtype=dtype),
-        "dt_bias": torch.full((d_inner,), -4.0, dtype=dtype, device=dev),
-        "A_log": torch.from_numpy(a_log).to(dev).expand(d_inner, d_state).to(dtype).contiguous(),
-        "D": torch.ones(d_inner, dtype=dtype, device=dev),
-        "out_proj": _init(gen, (d_inner, d_model), dtype=dtype),
+        "in_proj": place("in_proj", _init(gen, (d_model, 2 * d_inner), dtype=dtype)),
+        "conv_w": place("conv_w", _init(gen, (d_conv, d_inner), scale=0.5, dtype=dtype)),
+        "conv_b": place("conv_b", torch.zeros(d_inner, dtype=dtype, device=dev)),
+        "x_proj": place("x_proj", _init(gen, (d_inner, dt_rank + 2 * d_state), dtype=dtype)),
+        "dt_proj": place("dt_proj", _init(gen, (dt_rank, d_inner), dtype=dtype)),
+        "dt_bias": place("dt_bias", torch.full((d_inner,), -4.0, dtype=dtype, device=dev)),
+        "A_log": place("A_log", torch.from_numpy(a_log).to(dev).expand(d_inner, d_state)
+                       .to(dtype).contiguous()),
+        "D": place("D", torch.ones(d_inner, dtype=dtype, device=dev)),
+        "out_proj": place("out_proj", _init(gen, (d_inner, d_model), dtype=dtype)),
     }
 
 

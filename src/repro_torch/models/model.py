@@ -26,6 +26,10 @@ pattern in train mode, as the reference checkpoints its scan body
 (:func:`_rematted`): the same values, with less held for the backward.
 :func:`lm_loss` is the training objective; under a mesh with a ``model``
 axis and ``moe_ep`` the MoE takes its expert-parallel form (:func:`_moe`).
+With ``specs`` (``launch.steps.param_specs``) the parameters are each
+rank's blocks (``distributed.sharded``): each leaf is gathered where its
+layer runs, inside the layer's remat region, and what the backward needs
+of it is gathered again (:func:`_gathering`).
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch._device import resolve_device
+from repro_torch._tree import at, map_tree
 from repro_torch.models import layers as L
 
 
@@ -189,7 +194,7 @@ def _dtype(name: str) -> torch.dtype:
 
 
 # ------------------------------------------------------------------ init
-def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
+def init_params(cfg: ModelConfig, generator: torch.Generator, place=None) -> dict:
     """Random parameters in ``cfg.param_dtype`` on the generator's device,
     drawn by the reference's rules (``init_params``, ``_init_layer``):
     ``{"embed", "final_norm", ["lm_head"], ["pos_embed"], "layers": [per
@@ -204,48 +209,66 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     ``{"layers": [n_enc_layers dense attention layers], "final_norm",
     "pos_embed"}``.  Each weight is drawn in float32 and cast on its own
     (an expert stack one expert at a time), so the whole model is never
-    held in float32."""
+    held in float32.  ``place(path, leaf)``, where given, takes each leaf
+    as soon as it is drawn, named by its path (``layers/3/attn/wq``), and
+    what it returns is kept: ``launch.train.build_state`` keeps a rank's
+    block, so no more than one whole leaf is held at a time."""
     check_supported(cfg)
     dtype, dev = _dtype(cfg.param_dtype), generator.device
     D = cfg.d_model
-    params = {"embed": L._init(generator, (cfg.vocab_size, D), scale=0.02, dtype=dtype),
-              "final_norm": torch.zeros(D, dtype=dtype, device=dev)}
+    place = place or L._kept
+    params = {"embed": place("embed", L._init(generator, (cfg.vocab_size, D), scale=0.02,
+                                               dtype=dtype)),
+              "final_norm": place("final_norm", torch.zeros(D, dtype=dtype, device=dev))}
     if not cfg.tie_embeddings:
-        params["lm_head"] = L._init(generator, (D, cfg.vocab_size), dtype=dtype)
+        params["lm_head"] = place("lm_head", L._init(generator, (D, cfg.vocab_size), dtype=dtype))
     if not cfg.use_rope:
-        params["pos_embed"] = L._init(generator, (cfg.max_seq, D), scale=0.02, dtype=dtype)
-    params["layers"] = [_init_layer(generator, spec, cfg, dtype) for spec in layer_specs(cfg)]
+        params["pos_embed"] = place("pos_embed", L._init(generator, (cfg.max_seq, D), scale=0.02,
+                                                         dtype=dtype))
+    params["layers"] = [_init_layer(generator, spec, cfg, dtype, _under(place, f"layers/{j}"))
+                        for j, spec in enumerate(layer_specs(cfg))]
     if cfg.kind == "encdec":
         params["enc"] = {
-            "layers": [_init_layer(generator, ENC_SPEC, cfg, dtype)
-                       for _ in range(cfg.n_enc_layers)],
-            "final_norm": torch.zeros(D, dtype=dtype, device=dev),
-            "pos_embed": L._init(generator, (cfg.max_seq, D), scale=0.02, dtype=dtype),
+            "layers": [_init_layer(generator, ENC_SPEC, cfg, dtype,
+                                   _under(place, f"enc/layers/{j}"))
+                       for j in range(cfg.n_enc_layers)],
+            "final_norm": place("enc/final_norm", torch.zeros(D, dtype=dtype, device=dev)),
+            "pos_embed": place("enc/pos_embed", L._init(generator, (cfg.max_seq, D), scale=0.02,
+                                                        dtype=dtype)),
         }
     return params
 
 
-def _init_layer(gen, spec: LayerSpec, cfg: ModelConfig, dtype) -> dict:
+def _under(place, head):
+    """``place`` for the leaves under ``head``, named from there."""
+    return lambda name, t: place(f"{head}/{name}", t)
+
+
+def _init_layer(gen, spec: LayerSpec, cfg: ModelConfig, dtype, place) -> dict:
     D, dev = cfg.d_model, gen.device
-    p = {"norm1": torch.zeros(D, dtype=dtype, device=dev)}
+    p = {"norm1": place("norm1", torch.zeros(D, dtype=dtype, device=dev))}
     if spec.mlp != "none":
-        p["norm2"] = torch.zeros(D, dtype=dtype, device=dev)
+        p["norm2"] = place("norm2", torch.zeros(D, dtype=dtype, device=dev))
     if spec.kind == "mla":
         p["attn"] = L.init_mla(gen, D, cfg.n_heads, kv_lora=cfg.kv_lora, d_nope=cfg.d_nope,
-                               d_rope=cfg.d_rope, d_v=cfg.head_dim, dtype=dtype)
+                               d_rope=cfg.d_rope, d_v=cfg.head_dim, dtype=dtype,
+                               place=_under(place, "attn"))
     elif spec.kind == "mamba":
         p["attn"] = L.init_mamba(gen, D, d_state=cfg.d_state, d_conv=cfg.d_conv,
-                                 expand=cfg.expand, dt_rank=cfg.dt_rank_eff, dtype=dtype)
+                                 expand=cfg.expand, dt_rank=cfg.dt_rank_eff, dtype=dtype,
+                                 place=_under(place, "attn"))
     else:
-        p["attn"] = L.init_attention(gen, D, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dtype)
+        p["attn"] = L.init_attention(gen, D, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dtype,
+                                     place=_under(place, "attn"))
     if spec.mlp == "moe":
         p["mlp"] = L.init_moe(gen, D, cfg.d_ff_expert, cfg.n_experts, cfg.n_shared,
-                              cfg.d_ff_expert, dtype)
+                              cfg.d_ff_expert, dtype, place=_under(place, "mlp"))
     elif spec.mlp == "dense":
-        p["mlp"] = L.init_mlp(gen, D, cfg.d_ff, dtype)
+        p["mlp"] = L.init_mlp(gen, D, cfg.d_ff, dtype, place=_under(place, "mlp"))
     if spec.cross_attn:
-        p["normc"] = torch.zeros(D, dtype=dtype, device=dev)
-        p["cross"] = L.init_attention(gen, D, cfg.n_heads, cfg.n_heads, cfg.head_dim, dtype)
+        p["normc"] = place("normc", torch.zeros(D, dtype=dtype, device=dev))
+        p["cross"] = L.init_attention(gen, D, cfg.n_heads, cfg.n_heads, cfg.head_dim, dtype,
+                                      place=_under(place, "cross"))
     return p
 
 
@@ -417,36 +440,74 @@ class _ScaleGrad(torch.autograd.Function):
         return grad * ctx.scale, None
 
 
+def _ep(cfg: ModelConfig, mesh) -> bool:
+    """Whether the MoE takes its expert-parallel form over ``model``."""
+    return bool(cfg.moe_ep and mesh is not None and "model" in mesh.mesh_dim_names)
+
+
+EXPERT_STACKS = ("w_gate", "w_up", "w_down")
+
+
 def _moe(mp, h, cfg: ModelConfig, mesh=None):
     """The routed experts: the local form, or under a mesh with a
     ``model`` axis and ``cfg.moe_ep`` the expert-parallel one (the
     reference's ``shard_map`` over that axis).  Then the ranks of a
     ``model`` group hold the same tokens (the batch is split over the
-    other axes only) and whole, equal parameters; rank i computes experts
-    ``[i·E/ep, (i+1)·E/ep)`` over the tokens of every peer.  The result
-    is the local form's, and so is each rank's gradient, as the
-    reference's ``shard_map`` transpose gives it: the output's gradient
-    is divided among the ep replicas that each count it, and the
-    gradients of the replicated inputs (the tokens, the router and the
-    expert stacks, of which each rank fills its slice) are summed over
-    the group.  The shared experts stay outside, on every rank.  So the
-    compute is split and the memory is not: every rank holds every expert
-    and its optimizer state, and each expert stack's whole gradient is
-    all-reduced, where the reference keeps one E/ep slice per rank
-    (ROADMAP.md section A, item 5)."""
-    routed = {k: mp[k] for k in ("router", "w_gate", "w_up", "w_down")}
-    if not (cfg.moe_ep and mesh is not None and "model" in mesh.mesh_dim_names):
+    other axes only); rank i computes experts ``[i·E/ep, (i+1)·E/ep)``
+    over the tokens of every peer.  The result is the local form's, and
+    so is each rank's gradient, as the reference's ``shard_map``
+    transpose gives it: the output's gradient is divided among the ep
+    replicas that each count it, and the gradients of the replicated
+    inputs (the tokens and the router) are summed over the group.  The
+    shared experts stay outside, on every rank.
+
+    A sharded state (:func:`forward`'s ``specs``) stores each expert
+    stack as the rank's E/ep slice, as the reference's ``P("model")``
+    does, and the slice's gradient is the rank's own: no whole (E, D, F)
+    stack is held or all-reduced.  A whole state (every rank the same
+    parameters) holds every stack whole; the rank takes its slice, and
+    the stack's gradient, of which each rank filled its slice, is summed
+    over the group."""
+    routed = {k: mp[k] for k in ("router", *EXPERT_STACKS)}
+    if not _ep(cfg, mesh):
         return L.moe_apply(routed, h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
     group = mesh.get_group("model")
     ep, i = dist.get_world_size(group), mesh.get_local_rank("model")
     n = cfg.n_experts // ep
     h = _SumGrad.apply(h, group)
-    local = {k: _SumGrad.apply(w, group) for k, w in routed.items()}
-    for k in ("w_gate", "w_up", "w_down"):
-        local[k] = local[k][i * n:(i + 1) * n]
+    local = {"router": _SumGrad.apply(routed["router"], group)}
+    for k in EXPERT_STACKS:
+        w = routed[k]
+        local[k] = w if w.shape[0] == n else _SumGrad.apply(w, group)[i * n:(i + 1) * n]
     y = L.moe_apply(local, h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
                     ep_group=group, ep_size=ep)
     return _ScaleGrad.apply(y, 1.0 / ep)
+
+
+def _gathering(params, cfg: ModelConfig, mesh, specs):
+    """``whole(path)``: the parameter (a leaf or a layer's dict) at
+    ``path``, whole.  Without ``specs`` it is ``params``' own; with them
+    ``params`` holds this rank's blocks and each leaf is gathered
+    (``distributed.sharded.gather``), an expert stack of the
+    expert-parallel MoE to the rank's E/ep slice."""
+    if specs is None:
+        return lambda path: at(params, path)
+    from repro_torch.distributed import sharded
+    keep = ("model",) if _ep(cfg, mesh) else ()
+
+    def whole(path):
+        tree, spec = at(params, path), at(specs, path)
+        if not isinstance(tree, dict):
+            return sharded.gather(tree, spec, mesh)
+        moe = "router" in tree.get("mlp", {})
+
+        def one(sub, block):
+            stack = moe and sub in tuple(f"mlp/{k}" for k in EXPERT_STACKS)
+            return sharded.gather(block, at(spec, sub), mesh,
+                                  keep if stack else ())
+        return map_tree(one, tree)
+
+    return whole
 
 
 def _rows(table, idx):
@@ -484,24 +545,24 @@ def _rematted(fn, remat: str):
     raise ValueError(f"remat must be none, full or dots, not {remat!r}")
 
 
-def _encode(params, cfg: ModelConfig, frames, cdt, remat="none"):
+def _encode(whole, cfg: ModelConfig, frames, cdt, remat="none"):
     """The encoder over ``frames`` (B, Te, D): learned positions 0..Te-1,
     dense attention layers run as causal attention with every position 0
     (so the mask passes everywhere: the reference's bidirectional
-    encoder), then its final norm.  Each layer is one ``remat`` region."""
-    enc = params["enc"]
+    encoder), then its final norm.  Each layer is one ``remat`` region.
+    ``whole`` gives the parameters (:func:`_gathering`)."""
     B, Te, _ = frames.shape
     pos = torch.arange(Te, device=frames.device)
-    e = frames.to(cdt) + _rows(enc["pos_embed"], pos).to(cdt)
+    e = frames.to(cdt) + _rows(whole("enc/pos_embed"), pos).to(cdt)
     zeros = torch.zeros((B, Te), dtype=torch.int32, device=frames.device)
-    for lp in enc["layers"]:
-        e = _rematted(lambda h, lp=lp: _apply_layer(lp, ENC_SPEC, cfg, h, zeros, None,
-                                                    False)[0], remat)(e)
-    return L.rms_norm(e, enc["final_norm"])
+    for j in range(cfg.n_enc_layers):
+        e = _rematted(lambda h, j=j: _apply_layer(whole(f"enc/layers/{j}"), ENC_SPEC, cfg, h,
+                                                  zeros, None, False)[0], remat)(e)
+    return L.rms_norm(e, whole("enc/final_norm"))
 
 
 def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None, positions=None,
-            caches=None, mode: str = "train", enc_frames=None, mesh=None):
+            caches=None, mode: str = "train", enc_frames=None, mesh=None, specs=None):
     """Forward pass.
 
     mode='train'   : full-sequence causal logits.
@@ -516,29 +577,46 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None, positions=Non
     D) in train and prefill mode (decode reads the cross-attention
     caches).  Embeddings, the layers and the head run in
     ``cfg.compute_dtype``; the tied head is ``x @ embed.T`` in it.
-    ``mesh`` (a ``DeviceMesh``) is read by the MoE only (:func:`_moe`).
+    ``mesh`` (a ``DeviceMesh``) is read by the MoE (:func:`_moe`) and,
+    with ``specs`` (``launch.steps.param_specs`` of the whole
+    parameters), by the gathers of ``params``, then this rank's blocks
+    (:func:`_gathering`).
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, not {mode!r}")
     check_supported(cfg)
+    if specs is None:
+        return _forward(_gathering(params, cfg, mesh, None), cfg, tokens, embeds, positions,
+                        caches, mode, enc_frames, mesh)
+    from repro_torch.distributed import sharded
+    with sharded.regather_on_unpack():
+        return _forward(_gathering(params, cfg, mesh, specs), cfg, tokens, embeds, positions,
+                        caches, mode, enc_frames, mesh)
+
+
+def _forward(whole, cfg, tokens, embeds, positions, caches, mode, enc_frames, mesh):
     cdt = _dtype(cfg.compute_dtype)
     decode = mode == "decode"
 
+    # The tied embedding is gathered once, for the lookup and the head,
+    # so that its two gradients add before any reduction, as they do on a
+    # whole leaf.
+    embed = whole("embed") if tokens is not None or cfg.tie_embeddings else None
     parts = []
     if embeds is not None:
         parts.append(embeds.to(cdt))
     if tokens is not None:
-        parts.append(_rows(params["embed"], tokens).to(cdt))
+        parts.append(_rows(embed, tokens).to(cdt))
     x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     if not cfg.use_rope:
-        x = x + _rows(params["pos_embed"], positions).to(cdt)
+        x = x + _rows(whole("pos_embed"), positions).to(cdt)
     remat = cfg.remat if mode == "train" else "none"
     enc_out = None
     if cfg.kind == "encdec" and not decode:
-        enc_out = _encode(params, cfg, enc_frames, cdt, remat)
+        enc_out = _encode(whole, cfg, enc_frames, cdt, remat)
 
     specs = layer_specs(cfg)
     caches = caches if caches is not None else [None] * len(specs)
@@ -546,7 +624,7 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None, positions=Non
 
     def instance(h, span):
         for j in span:
-            h, new_caches[j] = _apply_layer(params["layers"][j], specs[j], cfg, h, positions,
+            h, new_caches[j] = _apply_layer(whole(f"layers/{j}"), specs[j], cfg, h, positions,
                                             caches[j], decode, enc_out, mesh)
         return h
 
@@ -559,23 +637,23 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None, positions=Non
             start += len(pattern)
             x = _rematted(lambda h, span=span: instance(h, span), remat)(x)
 
-    x = L.rms_norm(x, params["final_norm"])
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    x = L.rms_norm(x, whole("final_norm"))
+    head = embed.T if cfg.tie_embeddings else whole("lm_head")
     logits = x @ head.to(cdt)
     if mode == "train":
         return logits
     return logits, new_caches
 
 
-def lm_loss(params, cfg: ModelConfig, batch, mesh=None):
+def lm_loss(params, cfg: ModelConfig, batch, mesh=None, specs=None):
     """Next-token cross entropy, the reference's ``lm_loss``:
     ``batch["tokens"]`` (B, S + 1) integer, the first S the inputs and
     the last S the targets; float32 logits, ``logsumexp`` less the
     target's logit, averaged over the targets >= 0 (a negative target is
     masked out).  The vision stub's ``patch_embeds`` go before the
     tokens, and only the text positions' logits are scored; an
-    encoder-decoder encodes ``audio_frames``.  ``mesh`` as in
-    :func:`forward`."""
+    encoder-decoder encodes ``audio_frames``.  ``mesh`` and ``specs`` as
+    in :func:`forward`."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:].long()
     kw = {}
@@ -583,7 +661,7 @@ def lm_loss(params, cfg: ModelConfig, batch, mesh=None):
         kw["embeds"] = batch["patch_embeds"]
     if cfg.kind == "encdec":
         kw["enc_frames"] = batch["audio_frames"]
-    logits = forward(params, cfg, inputs, mesh=mesh, **kw)
+    logits = forward(params, cfg, inputs, mesh=mesh, specs=specs, **kw)
     if cfg.frontend == "vision_stub":
         logits = logits[:, -targets.shape[1]:]
     logits = logits.float()

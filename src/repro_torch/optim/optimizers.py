@@ -21,6 +21,17 @@ State: ``{"m": a tree like the parameters, "v": a tree like them
 int32}``, on the parameters' device.  :func:`opt_update` and
 :func:`opt_step` write it in place under ``torch.no_grad()``, one leaf at
 a time, so the old and new state are never held together.
+
+Blocks: with ``specs`` (``launch.steps.param_specs`` of the whole
+parameters) and ``mesh``, the parameters, gradients and state are each
+rank's blocks (``distributed.sharded``).  AdamW is elementwise and runs
+as it is.  The sums that span a leaf are summed over the axes that cut
+it: ``global_norm`` counts each leaf once, all-reducing its blocks'
+squares over the axes its spec names only; Adafactor decides what to
+factor on the whole stacked shape, and its row and column means and its
+clip's mean are partial sums all-reduced over the axes that cut the
+reduced dims, over the whole size (``sharded.partial_mean``); its ``vr``
+and ``vc`` are blocks too, laid out as ``state_specs`` says.
 """
 from __future__ import annotations
 
@@ -30,6 +41,7 @@ import math
 import torch
 
 from repro_torch._tree import flatten, map_tree
+from repro_torch.distributed import sharded
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,9 +108,21 @@ def schedule_lr(cfg: OptConfig, step):
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
-def global_norm(tree):
-    """sqrt of the sum of every leaf's squares, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in flatten(tree).values()))
+def global_norm(tree, specs=None, mesh=None):
+    """sqrt of the sum of every leaf's squares, in float32.  With
+    ``specs`` the leaves are blocks: the squares of the leaves cut over
+    the same axes are summed, then all-reduced over those axes, so that a
+    leaf replicated over an axis counts once."""
+    flat = flatten(tree)
+    if specs is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in flat.values()))
+    fs = sharded.spec_paths(specs)
+    parts = {}
+    for path, x in flat.items():
+        axes = tuple(a for d in sharded.cut_axes(fs[path], mesh) for a in d)
+        s = torch.sum(torch.square(x.float()))
+        parts[axes] = parts[axes] + s if axes in parts else s
+    return torch.sqrt(sum(sharded.all_reduce_over(s, axes, mesh) for axes, s in parts.items()))
 
 
 # --------------------------------------------------------------- init
@@ -126,16 +150,26 @@ def adamw_init(params, cfg: OptConfig):
             "v": _moments(params, torch.float32), "step": _step0(params)}
 
 
-def adafactor_init(params, cfg: OptConfig, model):
+def _stacked_spec(fs, paths, stacked):
+    spec = fs[paths[0]]
+    return (None, *spec) if stacked else spec
+
+
+def adafactor_init(params, cfg: OptConfig, model, specs=None, mesh=None):
     """m like the parameters; float32 second moments per stacked leaf:
-    ``vr`` and ``vc`` over its last two axes, or a whole ``v``."""
+    ``vr`` and ``vc`` over its last two axes, or a whole ``v`` (blocks of
+    them with ``specs``; what to factor is decided on the whole stacked
+    shape)."""
     flat = flatten(params)
+    fs = sharded.spec_paths(specs) if specs is not None else None
     v = {}
     for name, (stacked, paths) in leaf_groups(params, model).items():
         p = flat[paths[0]]
         shape = ((len(paths),) if stacked else ()) + tuple(p.shape)
+        whole = shape if fs is None else sharded.whole_shape(
+            shape, _stacked_spec(fs, paths, stacked), mesh)
         z = dict(dtype=torch.float32, device=p.device)
-        if _factored_dims(shape) is None:
+        if _factored_dims(whole) is None:
             v[name] = {"v": torch.zeros(shape, **z)}
         else:
             v[name] = {"vr": torch.zeros(shape[:-1], **z),
@@ -144,11 +178,12 @@ def adafactor_init(params, cfg: OptConfig, model):
             "step": _step0(params)}
 
 
-def init_opt_state(params, cfg: OptConfig, model):
+def init_opt_state(params, cfg: OptConfig, model, specs=None, mesh=None):
     """The zero state of ``cfg.kind``; ``model`` (a ``ModelConfig``)
-    gives Adafactor the reference's stacking (:func:`leaf_groups`)."""
+    gives Adafactor the reference's stacking (:func:`leaf_groups`).  With
+    ``specs``, of blocks of ``params`` (see the module's docstring)."""
     if cfg.kind == "adafactor":
-        return adafactor_init(params, cfg, model)
+        return adafactor_init(params, cfg, model, specs, mesh)
     return adamw_init(params, cfg)
 
 
@@ -164,24 +199,30 @@ def _adamw_update(g, p, m, v, lr, cfg: OptConfig, step):
     return -lr * upd, m1, v1
 
 
-def _adafactor_update(g, p, m, v, lr, cfg: OptConfig, step):
-    """One (stacked) leaf; writes ``v``'s statistics in place."""
+def _adafactor_update(g, p, m, v, lr, cfg: OptConfig, step, spec=None, mesh=None):
+    """One (stacked) leaf, or its block under ``spec``; writes ``v``'s
+    statistics in place."""
     g = g.float()
     t = step.float() + 1.0
     beta2 = 1.0 - t ** -0.8  # Adafactor's schedule-free decay
     g2 = g * g + 1e-30
-    if _factored_dims(g.shape) is None:
+    cut = [()] * g.dim() if spec is None else sharded.cut_axes(spec, mesh)
+    whole = g.shape if spec is None else sharded.whole_shape(g.shape, spec, mesh)
+    if _factored_dims(whole) is None:
         v["v"].copy_(beta2 * v["v"] + (1 - beta2) * g2)
         pre = g / (torch.sqrt(v["v"]) + cfg.eps)
     else:
-        vr = beta2 * v["vr"] + (1 - beta2) * g2.mean(-1)
-        vc = beta2 * v["vc"] + (1 - beta2) * g2.mean(-2)
+        mean = sharded.partial_mean
+        vr = beta2 * v["vr"] + (1 - beta2) * mean(g2, -1, cut[-1], whole[-1], mesh)
+        vc = beta2 * v["vc"] + (1 - beta2) * mean(g2, -2, cut[-2], whole[-2], mesh)
         v["vr"].copy_(vr)
         v["vc"].copy_(vc)
-        rfac = vr / vr.mean(-1, keepdim=True).clamp_min(1e-30)
+        rfac = vr / mean(vr, -1, cut[-2], whole[-2], mesh, keepdim=True).clamp_min(1e-30)
         pre = g * torch.rsqrt(rfac[..., None] + cfg.eps) * torch.rsqrt(vc[..., None, :] + cfg.eps)
     # update clipping (RMS <= 1) per Adafactor, once per stacked leaf
-    rms = torch.sqrt((pre * pre).mean() + 1e-30)
+    every = tuple(a for axes in cut for a in axes)
+    rms = torch.sqrt(sharded.partial_mean(pre * pre, None, every, math.prod(whole), mesh)
+                     + 1e-30)
     pre = pre / torch.clamp(rms, min=1.0)
     m1 = cfg.b1 * m.float() + (1 - cfg.b1) * pre
     upd = m1 + cfg.weight_decay * p.float()
@@ -189,14 +230,14 @@ def _adafactor_update(g, p, m, v, lr, cfg: OptConfig, step):
 
 
 @torch.no_grad()
-def _leaf_updates(grads, params, state, cfg: OptConfig, model):
+def _leaf_updates(grads, params, state, cfg: OptConfig, model, specs=None, mesh=None):
     """Yield (parameter paths, their float32 updates) leaf by leaf,
     writing the moments as it goes; then advance the step."""
     step = state["step"]
     lr = schedule_lr(cfg, step)
     scale = None
     if cfg.grad_clip:
-        gn = global_norm(grads)
+        gn = global_norm(grads, specs, mesh)
         scale = torch.clamp(cfg.grad_clip / gn.clamp_min(1e-9), max=1.0)
 
     def clipped(g):
@@ -205,10 +246,12 @@ def _leaf_updates(grads, params, state, cfg: OptConfig, model):
     mdt = getattr(torch, cfg.moment_dtype)
     fg, fp, fm = flatten(grads), flatten(params), flatten(state["m"])
     if cfg.kind == "adafactor":
+        fs = sharded.spec_paths(specs) if specs is not None else None
         for name, (stacked, paths) in leaf_groups(params, model).items():
+            spec = None if fs is None else _stacked_spec(fs, paths, stacked)
             u, m1 = _adafactor_update(clipped(_stack(fg, paths, stacked)),
                                       _stack(fp, paths, stacked), _stack(fm, paths, stacked),
-                                      state["v"][name], lr, cfg, step)
+                                      state["v"][name], lr, cfg, step, spec, mesh)
             for r, path in enumerate(paths):
                 fm[path].copy_((m1[r] if stacked else m1).to(mdt))
             yield paths, list(u) if stacked else [u]
@@ -222,13 +265,14 @@ def _leaf_updates(grads, params, state, cfg: OptConfig, model):
     step += 1
 
 
-def opt_update(grads, params, state, cfg: OptConfig, model):
+def opt_update(grads, params, state, cfg: OptConfig, model, specs=None, mesh=None):
     """Returns (updates, state): float32 updates in a tree like the
     parameters, after the grad clip and the lr schedule; ``state``'s
     moments and step are written in place.  ``model`` gives Adafactor the
-    reference's stacking (:func:`leaf_groups`)."""
+    reference's stacking (:func:`leaf_groups`); ``specs`` and ``mesh``
+    say the trees are blocks (see the module's docstring)."""
     ups = {}
-    for paths, us in _leaf_updates(grads, params, state, cfg, model):
+    for paths, us in _leaf_updates(grads, params, state, cfg, model, specs, mesh):
         ups.update(zip(paths, us))
     return map_tree(lambda path, _: ups[path], params), state
 
@@ -243,12 +287,12 @@ def apply_updates(params, updates):
 
 
 @torch.no_grad()
-def opt_step(grads, params, state, cfg: OptConfig, model):
+def opt_step(grads, params, state, cfg: OptConfig, model, specs=None, mesh=None):
     """:func:`opt_update` then :func:`apply_updates`, leaf by leaf: each
     update is applied and dropped before the next is computed.  Returns
     ``state``."""
     fp = flatten(params)
-    for paths, us in _leaf_updates(grads, params, state, cfg, model):
+    for paths, us in _leaf_updates(grads, params, state, cfg, model, specs, mesh):
         for path, u in zip(paths, us):
             p = fp[path]
             p.copy_((p.float() + u).to(p.dtype))

@@ -332,17 +332,39 @@ def test_build_and_run_cell(arch, shape, fake_world, tmp_path):
     part = "state" if kind == "train" else "params"
     assert bpd["peak"] >= bpd[part] + bpd["batch"] + bpd["cache"] > 0
     assert bpd["peak"] == bpd[part] + bpd["batch"] + bpd["cache"] + bpd["activations_peak"]
-    assert 0 < bpd["state_under_specs"] < bpd[part]
+    if kind == "train":     # the state is the rank's blocks: exactly what the specs give
+        assert 0 < bpd["state_under_specs"] == bpd[part]
+    else:                   # serving keeps whole parameters
+        assert 0 < bpd["state_under_specs"] < bpd[part]
     assert rec["flops"] > 0 and rec["bytes"] == pytest.approx(sum(rec["by_op"].values()))
     assert rec["bottleneck"] in ("compute", "memory", "collective")
     if kind == "train":
-        # the gradients' mean over data, the EP exchanges over model
-        assert set(rec["collectives"]) == {"all-reduce", "all-to-all"}
+        # the leaves' all-gathers and their gradients' reduce-scatters, the
+        # mean over data of what is not cut over it, the EP exchanges
+        assert set(rec["collectives"]) == {"all-gather", "reduce-scatter", "all-reduce",
+                                           "all-to-all"}
         assert rec["optimizer"]["kind"] == "adamw"
     else:
         assert rec["collectives"] == {}
         caches = cell.parts["cache"]
         assert all(t.shape[0] == batch // 2 for c in caches for t in c.values())
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+@pytest.mark.parametrize("arch", RC.ARCH_IDS)
+def test_train_state_equals_state_under_specs(arch, multi_pod, fake_world):
+    """At full width over each production mesh, a train cell's state is
+    the rank's blocks: its bytes (the census's count of the storages it
+    holds) equal the whole state's under the reference's specs."""
+    fake_world(512 if multi_pod else 256)
+    mesh = TM.make_production_mesh(multi_pod=multi_pod)
+    shape = next(s for s, (_, _, kind) in TC.get_arch(arch).shapes() if kind == "train")
+    cell = TS.build_cell(TC.get_arch(arch), shape, mesh)
+    with cell.mode:
+        held = OC.Census().hold(cell.parts["state"])
+        under = TS.bytes_under_specs(cell.whole, cell.specs, mesh)
+    assert cell.layout["params"].startswith("the rank's block")
+    assert held == under > 0
 
 
 def test_sa_cell_counts_launches_times_the_cost_model(fake_world, tmp_path):
@@ -386,15 +408,17 @@ def test_main_writes_a_record_per_cell(tmp_path, monkeypatch):
 
 def test_adafactor_state_under_specs(fake_world):
     """Adafactor's second moments, kept per stacked leaf under the
-    reference's tree path, are laid out by their stacked specs."""
+    reference's tree path, are laid out by their stacked specs: the
+    cell's blocks of them hold what the specs give of the whole."""
     fake_world(4)
     mesh = TM.make_mesh((2, 2), ("data", "model"), device="cpu")
     cell = TS.build_cell(small("deepseek-v2-lite-16b"), "train_4k", mesh,
                          ocfg=OptConfig(kind="adafactor"))
     with cell.mode:
-        state = cell.parts["state"]
-        whole = sum(t.numel() * t.element_size() for t in flatten(state).values())
-        under = TS.bytes_under_specs(state, cell.specs, mesh)
-        v_whole = sum(t.numel() * t.element_size() for t in flatten(state["opt"]["v"]).values())
-        v_under = TS.bytes_under_specs(state["opt"]["v"], cell.specs["opt"]["v"], mesh)
-    assert 0 < under < whole and 0 < v_under < v_whole
+        def nbytes(tree):
+            return sum(t.numel() * t.element_size() for t in flatten(tree).values())
+        state, whole = cell.parts["state"], cell.whole
+        under = TS.bytes_under_specs(whole, cell.specs, mesh)
+        v_under = TS.bytes_under_specs(whole["opt"]["v"], cell.specs["opt"]["v"], mesh)
+    assert 0 < under == nbytes(state) < nbytes(whole)
+    assert 0 < v_under == nbytes(state["opt"]["v"]) < nbytes(whole["opt"]["v"])

@@ -2,6 +2,7 @@
 ``test_torch_distributed.py``.
 
     python tests/torch_train_worker.py RANK WORLD INIT_FILE OUT_DIR
+    python tests/torch_train_worker.py RANK WORLD INIT_FILE OUT_DIR sharded DATA_PKL
 
 Joins a gloo process group of WORLD ranks through ``file://INIT_FILE``
 and runs, on every rank, with inputs from numpy and torch seeds that
@@ -12,12 +13,19 @@ with the same tokens on every rank, ``lm_loss`` of shrink(deepseek) with
 ``moe_ep``) against its local form, values and gradients, and train
 steps over a mesh against the unsharded steps.  Writes what it found to
 ``OUT_DIR/rank{RANK}.json``.
+
+With ``sharded`` it runs the training state held as each rank's blocks
+(``distributed.sharded``; ``test_torch_sharded_state.py``) on the inputs
+of ``DATA_PKL`` (numpy only: the reference's initial states, batches,
+whole leaves to cut and a checkpoint's path): :func:`sharded_cases`,
+written to ``OUT_DIR/sharded{RANK}.pkl``.
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
 import json
+import pickle
 import sys
 from pathlib import Path
 
@@ -25,17 +33,21 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch._tree import flatten
+from repro_torch import interop
+from repro_torch._tree import flatten, map_tree
+from repro_torch.checkpoint import CheckpointManager, restore_state, save_state
 from repro_torch.configs import get_arch, shrink
 from repro_torch.distributed.compression import (compress_grads_tree, compressed_psum,
                                                  init_residuals, quantize_int8)
 from repro_torch.distributed.pipeline import bubble_fraction, make_pipelined_fn
+from repro_torch.distributed.sharded import (block_bytes, gather_state, shard_leaf,
+                                             shard_state)
 from repro_torch.launch import steps as TST
 from repro_torch.launch import train as TT
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
-from repro_torch.optim import OptConfig
+from repro_torch.optim import OptConfig, global_norm, init_opt_state, opt_update
 
 # (shape, dim names, the dims a sum runs over), by world size
 MESHES = {2: (((2,), ("data",), ("data",)),),
@@ -223,11 +235,200 @@ def compressed_tree(rank, mesh, axes):
     return out
 
 
-def main(rank: int, world: int, init_file: str, out_dir: str) -> None:
+# ---------------------------------------------------------- sharded state
+#: The families of the sharded-state cases: dense GQA, MLA + MoE, Mamba +
+#: attention + MoE, and the encoder-decoder.
+FAMILIES = ("stablelm-1.6b", "deepseek-v2-lite-16b", "jamba-v0.1-52b", "whisper-base")
+KINDS = ("adamw", "adafactor")
+#: The (data, model) meshes of the train cases, by world size.
+SHARDED_MESHES = {2: ((2, 1), (1, 2)), 4: ((2, 2),)}
+#: The meshes of the block-order check, by world size: {name: (shape, axes)}.
+BLOCK_MESHES = {2: {"2x1": ((2, 1), ("data", "model")), "1x2": ((1, 2), ("data", "model"))},
+                4: {"2x2": ((2, 2), ("data", "model")),
+                    "pod2x2x1": ((2, 2, 1), ("pod", "data", "model"))}}
+#: Three steps of four sequences of 32 tokens (and one more).
+STEPS, BATCH, SEQ = 3, 4, 32
+#: The checkpoint cases: stablelm, AdamW without the clip (each step then
+#: bit for bit the whole form's), over (2, 1) at world 2 and (2, 2) at 4.
+CKPT_ARCH, CKPT_MESH = "stablelm-1.6b", {2: (2, 1), 4: (2, 2)}
+#: The family also run with remat "full" and "dots" (MLA and the EP MoE).
+REMAT_ARCH = "deepseek-v2-lite-16b"
+
+
+def family_cfg(arch):
+    """shrink() of ``arch``; an MoE with ``moe_ep`` at capacity factor
+    E/k, where no pick drops, so the data split moves no token."""
+    cfg = shrink(get_arch(arch).model)
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, moe_ep=True, capacity_factor=cfg.n_experts / cfg.top_k)
+    return cfg
+
+
+def opt_cfg(kind, clip=1.0):
+    """The sharded cases' optimizer: full lr from the first step, 1e-3.
+    Adam's first steps move each parameter by about lr whatever its
+    gradient's size, so a gradient near 0 that two frameworks round to
+    other last bits moves a parameter by up to 2·lr: at lr 1e-2 one
+    element of jamba's first expert stack (gradient 1.5e-8 of a largest
+    0.018) takes such a flip, and the third loss of the port, whole or
+    sharded, leaves the reference's by 4.7e-4 relative."""
+    return OptConfig(kind=kind, lr=1e-3, warmup_steps=1, total_steps=10, grad_clip=clip)
+
+
+def same(a, b) -> bool:
+    """Two trees of tensors equal bit for bit, leaf by leaf."""
+    fa, fb = flatten(a), flatten(b)
+    return fa.keys() == fb.keys() and all(torch.equal(fa[k].detach(), fb[k].detach())
+                                          for k in fa)
+
+
+def run_steps(cfg, ocfg, mesh, state, data, specs=None, steps=range(STEPS)):
+    """make_train_step's losses over ``steps`` of ``data``'s batches, this
+    rank's share of each along ``data``."""
+    d = mesh.get_local_rank("data")
+    n = mesh.shape[mesh.mesh_dim_names.index("data")]
+    rows = slice(d * BATCH // n, (d + 1) * BATCH // n)
+    step = TST.make_train_step(cfg, ocfg, mesh, BATCH, specs=specs)
+    out = []
+    for s in steps:
+        b = {"tokens": torch.as_tensor(data["tokens"][s][rows])}
+        if cfg.kind == "encdec":
+            b["audio_frames"] = torch.as_tensor(data["frames"][s][rows])
+        out.append(float(step(state, b)[1]))
+    return out
+
+
+def reductions(cfg, mesh):
+    """``global_norm`` and one Adafactor update of seeded gradients, on
+    blocks against the whole leaves: the largest relative differences of
+    the norm, the gathered ``vr``/``vc``/``v`` and the gathered updates."""
+    params = M.init_params(cfg, torch.Generator().manual_seed(6))
+    pspecs = TST.param_specs(params, cfg, mesh)
+    rng = np.random.default_rng(11)
+    grads = map_tree(lambda _, p: torch.as_tensor(rng.standard_normal(tuple(p.shape)),
+                                                  dtype=torch.float32), params)
+    gb, pb = shard_state(grads, pspecs, mesh), shard_state(params, pspecs, mesh)
+    o = OptConfig(kind="adafactor", grad_clip=0.0)
+    sw = init_opt_state(params, o, cfg)
+    sb = init_opt_state(pb, o, cfg, pspecs, mesh)
+    uw, _ = opt_update(grads, params, sw, o, cfg)
+    ub, _ = opt_update(gb, pb, sb, o, cfg, pspecs, mesh)
+    vspecs = TST.state_specs({"params": params, "opt": sw}, pspecs, cfg)["opt"]["v"]
+    stats, want = flatten(gather_state(sb["v"], vspecs, mesh)), flatten(sw["v"])
+    ups, want_u = flatten(gather_state(ub, pspecs, mesh)), flatten(uw)
+    return {"norm": rel(global_norm(gb, pspecs, mesh), global_norm(grads)),
+            "stats": max(rel(stats[k], want[k]) for k in want),
+            "updates": max(rel(ups[k], want_u[k]) for k in want_u)}
+
+
+def sharded_family(arch, mesh, data):
+    """One family over one mesh.  AdamW without the clip from
+    ``build_state``'s seed: the blocks against the whole state cut, three
+    steps' losses and the gathered state against the whole form's over
+    the same mesh, and for :data:`REMAT_ARCH` the same steps with remat
+    "full" and "dots".  AdamW and Adafactor with the clip from the
+    reference's initial state (``interop``'s mesh form): the state's
+    bytes against ``bytes_under_specs``, three steps' losses of the
+    blocks and of the whole form."""
+    cfg = family_cfg(arch)
+    ocfg = opt_cfg("adamw", clip=0.0)
+    specs = TST.train_specs(cfg, ocfg, mesh)
+    blocks = TT.build_state(cfg, ocfg, seed=6, device="cpu", mesh=mesh, specs=specs)
+    whole = TT.build_state(cfg, ocfg, seed=6, device="cpu")
+    out = {"init_equal": same(blocks, shard_state(whole, specs, mesh)),
+           "exact": {"blocks": run_steps(cfg, ocfg, mesh, blocks, data, specs),
+                     "whole": run_steps(cfg, ocfg, mesh, whole, data)}}
+    out["exact"]["state_equal"] = same(gather_state(blocks, specs, mesh), whole)
+    if arch == REMAT_ARCH:  # remat regions that hold the gathers and the EP exchange
+        for remat in ("full", "dots"):
+            rcfg = dataclasses.replace(cfg, remat=remat)
+            st = TT.build_state(rcfg, ocfg, seed=6, device="cpu", mesh=mesh, specs=specs)
+            out["exact"][remat] = run_steps(rcfg, ocfg, mesh, st, data, specs)
+    for kind in KINDS:
+        ocfg = opt_cfg(kind)
+        specs = TST.train_specs(cfg, ocfg, mesh)
+        st = interop.train_state_from_jax(data["state"][kind], cfg, device="cpu", mesh=mesh)
+        out[kind] = {
+            "bytes": block_bytes(st),
+            "under_specs": TST.bytes_under_specs(TST.state_shapes(cfg, ocfg), specs, mesh),
+            "blocks": run_steps(cfg, ocfg, mesh, st, data, specs),
+            "whole": run_steps(cfg, ocfg, mesh,
+                               interop.train_state_from_jax(data["state"][kind], cfg,
+                                                            device="cpu"), data)}
+    out["reductions"] = reductions(cfg, mesh)
+    return out
+
+
+def block_order(world, data):
+    """Every rank's block of each whole leaf of ``data["blocks"]`` over
+    each mesh of :data:`BLOCK_MESHES`."""
+    out = {}
+    for key, (shape, names) in BLOCK_MESHES[world].items():
+        mesh = make_mesh(shape, names, device="cpu")
+        out[key] = {path: shard_leaf(torch.as_tensor(a), spec, mesh).numpy()
+                    for path, (a, spec) in data["blocks"][key].items()}
+    return out
+
+
+def checkpoints(world, data, out_dir):
+    """The world-1 checkpoint at ``data["ckpt"]`` (step 1) restored as
+    blocks, against the whole leaves cut; saved again at this world size
+    (step 1); two steps, then an async save of the blocks (step 3) and a
+    save of the whole form after the same two steps (``whole/``)."""
+    cfg, ocfg = family_cfg(CKPT_ARCH), opt_cfg("adamw", clip=0.0)
+    mesh = make_mesh(CKPT_MESH[world], ("data", "model"), device="cpu")
+    specs = TST.train_specs(cfg, ocfg, mesh)
+    like = TT.build_state(cfg, ocfg, seed=7, device="cpu", mesh=mesh, specs=specs)
+    st, extras = CheckpointManager(data["ckpt"], specs=specs, mesh=mesh).restore(like)
+    whole, _ = restore_state(data["ckpt"], 1, TT.build_state(cfg, ocfg, seed=7, device="cpu"))
+    cut_equal = same(st, shard_state(whole, specs, mesh))
+    mine = CheckpointManager(Path(out_dir) / f"ckpt{world}", specs=specs, mesh=mesh)
+    mine.save(1, st, extras)
+    for s in (st, whole):
+        map_tree(lambda _, p: p.requires_grad_(True), s["params"])
+    steps = range(1, 3)
+    losses = {"blocks": run_steps(cfg, ocfg, mesh, st, data["families"][CKPT_ARCH], specs, steps),
+              "whole": run_steps(cfg, ocfg, mesh, whole, data["families"][CKPT_ARCH], None, steps)}
+    mine.save_async(3, st, {"data_step": 3})
+    mine.wait()
+    if dist.get_rank() == 0:
+        save_state(Path(out_dir) / f"ckpt{world}" / "whole", 3, whole, {"data_step": 3})
+    return {"cut_equal": cut_equal, "losses": losses}
+
+
+def resume(world, out_dir):
+    """launch.train.main under the group (the sharded path) for 5 steps
+    with a checkpoint at step 3, then resumed from it: both runs' losses."""
+    argv = ["--device", "cpu", "--preset", "smoke", "--steps", "5", "--log-every", "100",
+            "--ckpt-dir", str(Path(out_dir) / f"resume{world}")]
+    if world == 4:
+        argv += ["--model-parallel", "2"]
+    first = TT.main(argv + ["--ckpt-every", "3"])
+    return {"first": first, "resumed": TT.main(argv + ["--resume", "--ckpt-every", "100"])}
+
+
+def sharded_cases(rank, world, data, out_dir):
+    out = {"families": {}}
+    for shape in SHARDED_MESHES[world]:
+        mesh = make_mesh(shape, ("data", "model"), device="cpu")
+        for arch in FAMILIES:
+            out["families"][(arch, shape)] = sharded_family(arch, mesh, data["families"][arch])
+    out["blocks"] = block_order(world, data)
+    out["ckpt"] = checkpoints(world, data, out_dir)
+    out["resume"] = resume(world, out_dir)
+    return out
+
+
+def main(rank: int, world: int, init_file: str, out_dir: str, mode=None, data=None) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
                             world_size=world, timeout=datetime.timedelta(seconds=60))
     try:
+        if mode == "sharded":
+            data = pickle.loads(Path(data).read_bytes())
+            out = sharded_cases(rank, world, data, out_dir)
+            Path(out_dir, f"sharded{rank}.pkl").write_bytes(pickle.dumps(out))
+            return
         out = {"compression": compression(rank, world), "pipeline": pipeline(world),
                "ep_moe_apply": ep_moe_apply(rank, world), "ep_mesh_moe": ep_mesh_moe(world),
                "deepseek": deepseek(world)}
@@ -244,4 +445,4 @@ def main(rank: int, world: int, init_file: str, out_dir: str) -> None:
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4], *sys.argv[5:])
