@@ -181,8 +181,20 @@ and runs, in order, failing on the first phase that fails:
     preset saved by the sharded path and restored by the unsharded one,
     and the other way round, bit for bit; (c) the dry run's train_4k
     records of stablelm-1.6b, deepseek-v2-lite-16b and kimi-k2 on the
-    host: the state per rank against state_under_specs, the peak
-    against 80 GiB.  It launches none of B1-B3.
+    host, the compute cut over 'model': the state per rank against
+    state_under_specs, the peak against 80 GiB and beside the replicated
+    compute's.  It launches none of B1-B3;
+22. the compute cut over 'model' (distributed/tensor_parallel.py), TF32
+    off: (a) stablelm-1.6b in bf16 at full width and depth through the
+    sharded prefill and decode steps (a mesh and specs over a
+    world-of-one NCCL group: every group of one) against the unsharded
+    steps, 2 requests x 16 tokens: the same tokens, tick ms beside tick
+    ms; (b) the dry run's prefill_32k and decode_32k records of
+    stablelm-1.6b and deepseek-v2-lite-16b on the host: the parameters
+    per rank against bytes_under_specs, the tensor-parallel all-reduces;
+    (c) granite-20b, internlm2-20b and internvl2-2b in bf16 at full width
+    and depth served by launch/serve.py's loop (one request, prompt 32, 8
+    ticks) with 16a's metrics.  It launches none of B1-B3.
 
 The card's name and power limit, then a JSON object with one entry per
 kernel, are the two lines before the last; the last line is
@@ -418,7 +430,36 @@ DRYRUN_HOST = dict(arch="stablelm-1.6b", shape="train_4k")
 # records of `host_archs` on the single-pod mesh, on this host.
 SHARDED = dict(det_steps=4, ckpt_preset="100m",
                host_archs=("stablelm-1.6b", "deepseek-v2-lite-16b", "kimi-k2-1t-a32b"),
-               host_shape="train_4k")
+               host_shape="train_4k",
+               # 21c's peaks per rank in MiB with the compute replicated over
+               # 'model' (PERF.md section 6), printed beside this run's
+               replicated_peak_mib={"stablelm-1.6b": 202945.3, "deepseek-v2-lite-16b": 198239.4,
+                              "kimi-k2-1t-a32b": 560888.8})
+
+# Slice 15 (phase 22): the compute cut over 'model' as the specs cut the
+# leaves (distributed/tensor_parallel.py).  22a: `arch` in bf16 at full
+# width and depth through make_prefill_step and make_serve_step with a
+# mesh and specs over a world-of-one NCCL group (a (1, 1) mesh: every
+# group of one, so every collective and slice skipped), `requests`
+# prompts of `prompt` tokens and `max_new` tokens each, against the same
+# steps unsharded, `pairs` pairs of runs in turns.  22b: the dry run's
+# `serve_shapes` records of `serve_archs` on the single-pod mesh, on this
+# host: each rank's parameters equal to bytes_under_specs.  22c: the three dense
+# architectures no earlier phase serves, at full width and depth through
+# launch/serve.py's loop: one request, a short prompt, 8 decode ticks.
+TP_SERVE = dict(arch="stablelm-1.6b", requests=2, prompt=64, max_new=16, s_max=128, pairs=3,
+                serve_archs=("stablelm-1.6b", "deepseek-v2-lite-16b"),
+                serve_shapes=("prefill_32k", "decode_32k"))
+LLM_DENSE_REST = dict(archs=("granite-20b", "internlm2-20b", "internvl2-2b"), requests=1,
+                      prompt=32, max_new=9, batch=1, s_max=64)
+# The four-card record (four_cards, not run by main, which needs one
+# card): launch/train.py under torchrun over four cards, `arch` float32
+# with AdamW, `batch` sequences of `seq` tokens, `steps` steps, for each
+# --model-parallel; every run's losses against the --model-parallel 1
+# run's (the compute not cut over 'model') at ORDER_TOL.
+FOUR_CARDS = dict(arch="stablelm-1.6b", seq=512, batch=8, steps=12, timed_from=2,
+                  model_parallel=(1, 2, 4))
+ORDER_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 class SmokeFailure(RuntimeError):
@@ -2824,12 +2865,13 @@ def device_by_op(fn, n, top=8):
                      for e in ops[:top])
 
 
-def serve_load(smi, label, cfg, load, seed=0):
+def serve_load(smi, label, cfg, load, seed=0, breakdown=True):
     """One full-width serving run through ``launch.serve.serve`` (after a
     two-request warm-up), logged: timings, rates, memory, the decode
-    tick's bound and a profiler trace of 10 ticks.  An encoder-decoder's
-    requests carry audio-stub frames (frontend_len, D) from the seed.
-    Returns the model."""
+    tick's bound and a profiler trace of 10 ticks; with ``breakdown`` a
+    second trace's device ms by aten op and the cache's float32 cast
+    timed apart.  An encoder-decoder's requests carry audio-stub frames
+    (frontend_len, D) from the seed.  Returns the model."""
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch.steps import make_serve_step
     from repro_torch.models import model as M
@@ -2914,14 +2956,15 @@ def serve_load(smi, label, cfg, load, seed=0):
     log(f"  profiler, 10 ticks: device {busy:.3f} ms per tick{'' if ok else ' (incomplete)'} in "
         f"{tick_ms:.3f} ms of tick: busy {100 * busy / tick_ms:.1f}%; {len(dev) / 10:.0f} device "
         f"ops per tick; top kernels (ms per tick): {top}")
-    log(f"  device ms per tick by aten op (self): {device_by_op(tick, 10)}")
-    # What the float32 attention costs in reads alone: every layer's cached
-    # k and v (or c_kv and k_rope) cast to float32 once; _gqa_scores and
-    # _gqa_out cast k and v each tick, MLA's decode c_kv.
-    cast_ms = cuda_ms(lambda: [t.float() for c in slots.caches for n, t in c.items()
-                               if n != "pos_k"])
-    log(f"  casting the cache's float tensors to float32 once: {cast_ms:.3f} ms per tick "
-        f"({100 * cast_ms / busy:.1f}% of the tick's device time)")
+    if breakdown:
+        log(f"  device ms per tick by aten op (self): {device_by_op(tick, 10)}")
+        # What the float32 attention costs in reads alone: every layer's cached
+        # k and v (or c_kv and k_rope) cast to float32 once; _gqa_scores and
+        # _gqa_out cast k and v each tick, MLA's decode c_kv.
+        cast_ms = cuda_ms(lambda: [t.float() for c in slots.caches for n, t in c.items()
+                                   if n != "pos_k"])
+        log(f"  casting the cache's float tensors to float32 once: {cast_ms:.3f} ms per tick "
+            f"({100 * cast_ms / busy:.1f}% of the tick's device time)")
     if cfg.n_experts:
         moe_serve_drops(label, cfg, model, queue, kw, outputs)
     return model
@@ -4188,7 +4231,7 @@ def phase21c_host(smi):
     from repro_torch.optim import OptConfig
     log(f"phase 21c: the dry run's {SHARDED['host_shape']} records of "
         f"{', '.join(SHARDED['host_archs'])} on the (16, 16) mesh (fake world of 256, fake tensors "
-        f"on the host's fake device); {smi}")
+        f"on the host's fake device), the compute cut over 'model' (tensor parallelism); {smi}")
     card = torch.cuda.get_device_properties(0).total_memory
     recs = {}
     with tempfile.TemporaryDirectory() as out, dryrun.fake_world(False) as mesh:
@@ -4204,7 +4247,8 @@ def phase21c_host(smi):
                   f"phase 21c: {arch} state {bpd['state']} against {bpd['state_under_specs']}")
             log(f"  {arch}: state {fmt_mem(bpd['state'])} per rank ({leaves} leaves), under the "
                 f"reference's specs {fmt_mem(bpd['state_under_specs'])}; peak {fmt_mem(bpd['peak'])} "
-                f"(activations {fmt_mem(bpd['activations_peak'])}), "
+                f"(activations {fmt_mem(bpd['activations_peak'])}; with the compute replicated "
+                f"over 'model': {SHARDED['replicated_peak_mib'][arch]:.1f} MiB), "
                 f"{'fits' if bpd['peak'] <= 80 * 2**30 else 'does not fit'} 80 GiB "
                 f"({'fits' if bpd['peak'] <= card else 'does not fit'} this card's "
                 f"{fmt_mem(card)}); collectives {rec['collectives']}; {rec['optimizer']['kind']}; "
@@ -4232,6 +4276,221 @@ def phase21_sharded_state(smi, p19a):
     log(f"  B1, B2 and B3 launches in phase 21: {n}; phase wall "
         f"{time.perf_counter() - t_phase:.1f} s")
     return n
+
+
+# ------------------------------------------------------------- slice 15
+def tp_serve_run(cfg, prefill, tick, params, caches, toks, max_new):
+    """A prefill of ``toks`` (B, prompt + 1, the training layout) and
+    ``max_new - 1`` decode ticks through the given steps.  Returns (the
+    tokens (B, max_new) on the host, each tick's ms by CUDA events)."""
+    B, P = toks.shape[0], toks.shape[1] - 1
+    nxt, caches = prefill(params, {"tokens": toks}, caches)
+    out, times = [nxt], []
+    pos = torch.full((B,), P, dtype=torch.int32, device=DEV)
+    for _ in range(max_new - 1):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        nxt, caches = tick(params, caches, nxt, pos)
+        t1.record()
+        out.append(nxt)
+        pos = pos + 1
+        sync()
+        times.append(t0.elapsed_time(t1))
+    return torch.cat(out, 1).cpu(), times
+
+
+def phase22a_tp_serving(smi):
+    """The sharded prefill and decode steps (a mesh and specs over a
+    world-of-one NCCL group) against the unsharded steps: the same
+    tokens, tick ms beside tick ms (TP_SERVE's pairs of runs, in turns)."""
+    from repro_torch.distributed import sharded
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    T = TP_SERVE
+    cfg = llm_cfg(T["arch"], "bfloat16")
+    log(f"phase 22a: {T['arch']} bf16 at full width and depth through make_prefill_step and "
+        f"make_serve_step with a mesh and specs (a (1, 1) mesh over a world-of-one NCCL group: "
+        f"every 'model' group of one) against the unsharded steps; {T['requests']} prompts of "
+        f"{T['prompt']} tokens, {T['max_new']} tokens each, s_max {T['s_max']}; {smi}")
+    model = M.Model(cfg, device=DEV, seed=5)
+    params = model.params()
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        1, cfg.vocab_size, (T["requests"], T["prompt"] + 1)), device=DEV)
+    dtype = torch.bfloat16
+    whole_steps = (steps_mod.make_prefill_step(cfg), steps_mod.make_serve_step(cfg))
+    t_whole, t_tp, got = [], [], []
+    with world_of_one():
+        mesh = make_mesh((1, 1), ("data", "model"), device=DEV)
+        pspecs = steps_mod.param_specs(params, cfg, mesh)
+        blocks = sharded.shard_state(params, pspecs, mesh)
+        tp_steps = (steps_mod.make_prefill_step(cfg, mesh, pspecs),
+                    steps_mod.make_serve_step(cfg, mesh, pspecs))
+        read = counted_launches()
+        # three pairs in turns (unsharded first, then sharded first, ...):
+        # the host's drift falls on both
+        for pair in range(T["pairs"]):
+            for sharded_run in (False, True) if pair % 2 == 0 else (True, False):
+                if sharded_run:
+                    toks_out, t = tp_serve_run(cfg, *tp_steps, blocks, steps_mod.cache_blocks(
+                        cfg, mesh, T["requests"], T["s_max"], dtype, DEV), toks, T["max_new"])
+                    got.append(toks_out)
+                    t_tp.append(statistics.median(t))
+                else:
+                    want, t = tp_serve_run(cfg, *whole_steps, params, M.init_cache(
+                        cfg, T["requests"], T["s_max"], dtype, DEV), toks, T["max_new"])
+                    t_whole.append(statistics.median(t))
+        n = read()
+        nbytes = sharded.block_bytes(blocks)
+        under = steps_mod.bytes_under_specs(params, pspecs, mesh)
+    check(all(torch.equal(g, want) for g in got), f"phase 22a: sharded tokens "
+          f"{[g.tolist() for g in got]} != unsharded {want.tolist()}")
+    check(n == {"b1": 0, "b2": 0, "b3": 0}, f"phase 22a: launched {n} of B1-B3")
+    check(nbytes == under, f"phase 22a: the rank's parameters {nbytes} != {under} under the specs")
+    ratios = [100 * (a / b - 1) for a, b in zip(t_tp, t_whole)]
+    log(f"  tokens equal ({T['requests']} x {T['max_new']}, each run); decode tick (median of "
+        f"{T['max_new'] - 1}, CUDA events) sharded {', '.join(f'{x:.3f}' for x in t_tp)} ms "
+        f"against unsharded {', '.join(f'{x:.3f}' for x in t_whole)} ms in {T['pairs']} pairs "
+        f"in turns: {', '.join(f'{x:+.2f}' for x in ratios)}% (median "
+        f"{statistics.median(ratios):+.2f}%); the rank's parameters {fmt_mem(nbytes)} = "
+        f"bytes_under_specs; B1-B3 launches {n}")
+    del model, params, blocks
+    torch.cuda.empty_cache()
+
+
+def phase22b_host(smi):
+    """The dry run's serving records on the single-pod mesh, on this
+    host: each rank's parameters against bytes_under_specs, the peak, the
+    tensor-parallel all-reduces."""
+    import tempfile
+    from repro_torch._tree import flatten
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps as steps_mod
+    T = TP_SERVE
+    log(f"phase 22b: the dry run's {', '.join(T['serve_shapes'])} records of "
+        f"{', '.join(T['serve_archs'])} on the (16, 16) mesh (fake world of 256, fake tensors on "
+        f"the host's fake device), the parameters as the rank's blocks; {smi}")
+    with tempfile.TemporaryDirectory() as out, dryrun.fake_world(False) as mesh:
+        for arch in T["serve_archs"]:
+            cfg = steps_mod._dryrun_model_cfg(get_arch(arch), T["serve_shapes"][0], mesh)
+            leaves = len(flatten(steps_mod.state_shapes(cfg)))
+            for shape in T["serve_shapes"]:
+                rec = dryrun.run_cell(arch, shape, multi_pod=False, out_dir=Path(out), mesh=mesh)
+                bpd = rec["bytes_per_device"]
+                slack = 511 * leaves if rec["layout"]["device"] == "cuda" else 0
+                check(bpd["state_under_specs"] <= bpd["params"] <= bpd["state_under_specs"] + slack,
+                      f"phase 22b: {arch} {shape} parameters {bpd['params']} against "
+                      f"{bpd['state_under_specs']}")
+                check(rec["calls"].get("all-reduce", 0) > 0,
+                      f"phase 22b: {arch} {shape} runs no tensor-parallel all-reduce")
+                log(f"  {arch} {shape}: parameters {fmt_mem(bpd['params'])} per rank, under the "
+                    f"reference's specs {fmt_mem(bpd['state_under_specs'])}; cache "
+                    f"{fmt_mem(bpd['cache'])}; peak {fmt_mem(bpd['peak'])}; all-reduces "
+                    f"{rec['calls']['all-reduce']} ({rec['collectives']['all-reduce'] / 2**20:.1f} "
+                    f"MiB on the wire); collectives {rec['collectives']}; bottleneck "
+                    f"{rec['bottleneck']}; build {rec['build_s']:.1f} s, measure "
+                    f"{rec['measure_s']:.1f} s")
+
+
+def phase22c_dense_rest(smi):
+    """granite-20b, internlm2-20b and internvl2-2b served at full width
+    and depth in bf16 with 16a's metrics (not its by-op breakdown and
+    cast, to keep the script's time): every request its tokens, all
+    logits finite."""
+    L = LLM_DENSE_REST
+    for arch in L["archs"]:
+        log(f"phase 22c: {arch} served at full width and depth, bf16, TF32 off (one request, "
+            f"prompt {L['prompt']}, {L['max_new'] - 1} decode ticks); {smi}")
+        model = serve_load(smi, f"22c {arch}", llm_cfg(arch, "bfloat16"), L, breakdown=False)
+        del model
+        torch.cuda.empty_cache()
+
+
+def phase22_tensor_parallel(smi):
+    """The compute cut over 'model': 22a, 22b and 22c, TF32 off.  Returns
+    B1's, B2's and B3's launches in the phase (none)."""
+    t_phase = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    read = counted_launches()
+    try:
+        for part in (phase22a_tp_serving, phase22b_host, phase22c_dense_rest):
+            t0 = time.perf_counter()
+            part(smi)
+            log(f"  {part.__name__}: {time.perf_counter() - t0:.1f} s")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    n = read()
+    check(n == {"b1": 0, "b2": 0, "b3": 0}, f"phase 22: launched {n} of B1-B3")
+    log(f"  B1, B2 and B3 launches in phase 22: {n}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return n
+
+
+def four_cards() -> int:
+    """The four-card record (FOUR_CARDS), run on its own:
+    ``python -c "import chip_smoke as cs; raise SystemExit(cs.four_cards())"``.
+    For each --model-parallel, ``torchrun --standalone`` of
+    launch/train.py over the four cards, each rank's record
+    (``--record``) read back: its losses against the --model-parallel 1
+    run's at ORDER_TOL, the step (median of every rank's host step times
+    from `timed_from`), tokens/s and the largest peak per rank.  Returns
+    0 when every check held."""
+    import json
+    import tempfile
+    F = FOUR_CARDS
+    if torch.cuda.device_count() < 4:
+        print(f"four_cards: {torch.cuda.device_count()} CUDA devices, not 4", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    smi = "; ".join(smi.splitlines())
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = {}
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            for mp in F["model_parallel"]:
+                log(f"four cards: {F['arch']} float32, AdamW, {F['batch']} x {F['seq']} tokens, "
+                    f"{F['steps']} steps, --model-parallel {mp} (mesh ({4 // mp}, {mp})); {smi}")
+                t0 = time.perf_counter()
+                proc = subprocess.run(
+                    [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                     "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
+                     "--arch", F["arch"], "--seq", str(F["seq"]), "--batch", str(F["batch"]),
+                     "--steps", str(F["steps"]), "--log-every", str(F["steps"]),
+                     "--model-parallel", str(mp), "--record", f"{out}/mp{mp}_{{rank}}.json"],
+                    env=env, capture_output=True, text=True, timeout=600)
+                log(proc.stdout[-3000:])
+                check(proc.returncode == 0, f"four cards: --model-parallel {mp} exited "
+                      f"{proc.returncode}: {proc.stderr[-3000:]}")
+                recs = [json.loads(Path(out, f"mp{mp}_{r}.json").read_text()) for r in range(4)]
+                check(all(r["losses"] == recs[0]["losses"] for r in recs),
+                      f"four cards: --model-parallel {mp}: the ranks' losses differ")
+                steps = [t for r in recs for t in r["step_ms"][F["timed_from"]:]]
+                step = statistics.median(steps)
+                runs[mp] = dict(losses=recs[0]["losses"], step=step,
+                                peak=max(r["peak_mib"] or 0.0 for r in recs), mesh=recs[0]["mesh"])
+                log(f"  mesh {recs[0]['mesh']}: losses "
+                    f"{', '.join(f'{x:.6f}' for x in recs[0]['losses'])}; step {step:.3f} ms "
+                    f"(median of {len(steps)}: steps {F['timed_from']}-{F['steps'] - 1} of 4 ranks, "
+                    f"host clock; min {min(steps):.3f}, max {max(steps):.3f}), "
+                    f"{F['batch'] * F['seq'] / step * 1e3:.1f} tokens/s; peak per rank "
+                    f"{runs[mp]['peak']:.1f} MiB; wall {time.perf_counter() - t0:.1f} s")
+        base = np.asarray(runs[1]["losses"])
+        for mp in F["model_parallel"][1:]:
+            got = np.asarray(runs[mp]["losses"])
+            rel = np.abs(got - base) / np.abs(base)
+            log(f"  --model-parallel {mp} against 1: largest relative loss difference "
+                f"{rel.max():.3e} (step {int(rel.argmax())}), by step "
+                f"{', '.join(f'{x:.1e}' for x in rel)}")
+            check(np.allclose(got, base, **ORDER_TOL), f"four cards: --model-parallel {mp} "
+                  f"losses {got.tolist()} against {base.tolist()} beyond {ORDER_TOL}")
+    except SmokeFailure as e:
+        log(f"FAILED: {e}")
+        return 1
+    log(smi)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -4277,6 +4536,7 @@ def main(argv=None) -> int:
     p19 = phase19_train(smi)
     p20 = phase20_dryrun(smi)
     p21 = phase21_sharded_state(smi, p19["p19a"])
+    p22 = phase22_tensor_parallel(smi)
     b1 = dict(route="cuda", source="src/repro_torch/kernels/csrc/metropolis_sweep.cu",
               replaces="src/repro/kernels/metropolis_sweep.py:81", library_ms=None)
     kernels = [
@@ -4288,7 +4548,7 @@ def main(argv=None) -> int:
                               "phase 15": p15["b1_delta"], "phase 16": p16["b1"],
                               "phase 17": p17["b1"], "phase 18": p18["b1"],
                               "phase 19": p19["b1"], "phase 20": p20["b1"],
-                              "phase 21": p21["b1"]},
+                              "phase 21": p21["b1"], "phase 22": p22["b1"]},
          "max_abs_err": max(b1_err["delta"], temper["max_abs_err"]),
          "ms": t["delta"][0], "wrapper_ms": t["delta"][1], "plain_ms": t["delta"][2],
          "bound_ms": t["delta"][3], "bound_by": t["delta"][4]},
@@ -4298,7 +4558,7 @@ def main(argv=None) -> int:
                               "phase 12": table7["b1"], "phase 15": p15["b1_full"],
                               "phase 16": p16["b1"], "phase 17": p17["b1"],
                               "phase 18": p18["b1"], "phase 19": p19["b1"],
-                              "phase 20": p20["b1"], "phase 21": p21["b1"]},
+                              "phase 20": p20["b1"], "phase 21": p21["b1"], "phase 22": p22["b1"]},
          "max_abs_err": max(b1_err["full"], suite["max_abs_err"], table7["max_abs_err"]),
          "ms": t["full"][0], "wrapper_ms": t["full"][1], "plain_ms": t["full"][2],
          "bound_ms": t["full"][3], "bound_by": t["full"][4]},
@@ -4311,7 +4571,7 @@ def main(argv=None) -> int:
                               "phase 15": p15["b2"], "phase 16": p16["b2"],
                               "phase 17": p17["b2"], "phase 18": p18["b2"],
                               "phase 19": p19["b2"], "phase 20": p20["b2"],
-                              "phase 21": p21["b2"]},
+                              "phase 21": p21["b2"], "phase 22": p22["b2"]},
          "max_abs_err": b2_err,
          "ms": t["b2"][0], "wrapper_ms": t["b2"][1], "plain_ms": t["b2"][2],
          "bound_ms": t["b2"][3], "bound_by": "bytes", "library_ms": t["b2"][4]},
@@ -4323,7 +4583,8 @@ def main(argv=None) -> int:
                               "phase 13": temper["b3"], "phase 14a": tel_launches["b3"],
                               "phase 16": p16["b3"], "phase 17": p17["b3"],
                               "phase 18": p18["b3"], "phase 19": p19["b3"],
-                              "phase 20": p20["b3"], "phase 21": p21["b3"]},
+                              "phase 20": p20["b3"], "phase 21": p21["b3"],
+                              "phase 22": p22["b3"]},
          "max_abs_err": b3_err,
          "ms": b3[0], "wrapper_ms": b3[1], "plain_ms": b3[2], "bound_ms": b3[3],
          "bound_by": b3[4], "library_ms": None},

@@ -15,14 +15,20 @@ every rank is a process and every collective is explicit:
   first named axis major (JAX's order for an entry such as ``("pod",
   "data")``).  :func:`shard_state` and :func:`gather_state` apply it, and
   its inverse :func:`gather_leaf`, to whole trees.
-* :func:`gather` is the all-gather with a gradient.  Its backward
-  reduce-scatters (sums) the gradient over the data axes the spec names
-  and divides by their size, the mean over the batch's shards; over
-  ``model``, where every rank of a group computes the same thing on the
-  same tokens, it keeps the rank's own slice and sums nothing.  Axes in
-  ``keep`` are not gathered: the expert-parallel MoE keeps its E/ep
-  slice of the experts over ``model``.  Where no named axis has more
-  than one rank the block is the whole leaf and comes back as it is.
+* :func:`gather` is the all-gather with a gradient, with a choice per
+  leaf (``models.model.sharding``, by ``tensor_parallel.gather_mode``).
+  Its backward reduce-scatters (sums) the gradient over the data axes
+  the spec names and divides by their size, the mean over the batch's
+  shards.  Over ``model`` it takes one
+  of three forms: axes in ``keep`` are not gathered at all (a leaf the
+  rank computes with as its block: tensor parallelism, and the E/ep
+  slice of the expert-parallel MoE); axes in ``summed`` are gathered and
+  the gradient reduce-scattered (summed) back, for a leaf whose ranks
+  each fill a part of the whole gradient (Mamba's ``in_proj``, whose x
+  and z columns lie in two blocks); otherwise, where every rank of a
+  group computes the same thing on the same tokens, it keeps the rank's
+  own slice and sums nothing.  Where no named axis has more than one
+  rank the block is the whole leaf and comes back as it is.
 * :func:`regather_on_unpack` keeps autograd from holding the gathered
   leaves through the backward: what a gathered leaf's users save for the
   backward is the block, gathered again when the backward unpacks it.
@@ -134,18 +140,21 @@ def gather_leaf(block: torch.Tensor, spec, mesh, keep=()) -> torch.Tensor:
     return out
 
 
-def reduce_leaf(grad: torch.Tensor, spec, mesh, keep=()) -> torch.Tensor:
+def reduce_leaf(grad: torch.Tensor, spec, mesh, keep=(), summed=()) -> torch.Tensor:
     """The transpose of :func:`gather_leaf` for a loss averaged over the
     data axes: the whole gradient summed over the data axes the spec
     names (a reduce-scatter each, the first named axis first) and
-    divided by their size; over ``model`` the rank's own slice."""
+    divided by their size; over ``model`` the rank's own slice, or where
+    ``summed`` names it the sum's (a reduce-scatter, not divided)."""
     out, scale = grad, 1
     n = mesh_axes(mesh)
     for d, axes in enumerate(cut_axes(spec, mesh)):
         for a in axes:
             if a in keep:
                 continue
-            if a == "model":
+            if a in summed:
+                out = _scatter_dim(out, d, a, mesh)
+            elif a == "model":
                 out = _own_slice(out, d, a, mesh)
             else:
                 out = _scatter_dim(out, d, a, mesh)
@@ -169,21 +178,22 @@ class _Gather(torch.autograd.Function):
     """:func:`gather_leaf` forward, :func:`reduce_leaf` backward."""
 
     @staticmethod
-    def forward(ctx, block, spec, mesh, keep):
-        ctx.spec, ctx.mesh, ctx.keep = spec, mesh, keep
+    def forward(ctx, block, spec, mesh, keep, summed):
+        ctx.spec, ctx.mesh, ctx.keep, ctx.summed = spec, mesh, keep, summed
         return gather_leaf(block, spec, mesh, keep)
 
     @staticmethod
     def backward(ctx, grad):
-        return reduce_leaf(grad, ctx.spec, ctx.mesh, ctx.keep), None, None, None
+        return reduce_leaf(grad, ctx.spec, ctx.mesh, ctx.keep, ctx.summed), None, None, None, None
 
 
-def gather(block: torch.Tensor, spec, mesh, keep=()) -> torch.Tensor:
-    """The leaf whole from every rank's block, differentiable (see the
-    module's docstring); ``block`` itself where nothing is gathered."""
+def gather(block: torch.Tensor, spec, mesh, keep=(), summed=()) -> torch.Tensor:
+    """The leaf from every rank's block, gathered over each axis but
+    those in ``keep``, differentiable (see the module's docstring);
+    ``block`` itself where nothing is gathered."""
     if all(a in keep for axes in cut_axes(spec, mesh) for a in axes):
         return block
-    whole = _Gather.apply(block, spec, mesh, tuple(keep))
+    whole = _Gather.apply(block, spec, mesh, tuple(keep), tuple(summed))
     if whole.requires_grad:
         _GATHERED[whole] = (block, spec, mesh, tuple(keep))
     return whole

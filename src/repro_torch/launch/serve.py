@@ -12,7 +12,8 @@ decode loop over a request queue, the counterpart of
   and row caches hold ``enc_len = frontend_len`` keys, as the
   reference's ``build_cell`` builds them (its serving loop passes no
   frames and builds caches of ``enc_len`` 0, so it cannot serve one);
-* one decode tick advances every slot by one token (``make_serve_step``);
+* one decode tick advances every slot by one token (``make_serve_step``,
+  without a mesh: the reference's serving loop runs at ``model`` = 1);
 * a finished slot (``max_new`` tokens, the first from the prefill) is
   refilled from the queue at the next tick; ``max_new == 1`` finishes at
   the prefill, and every request of the queue is served.

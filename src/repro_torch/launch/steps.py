@@ -18,11 +18,14 @@ The training state takes the specs' layout: under ``make_train_step``'s
 ``specs`` each rank stores its block of every parameter, gradient and
 optimizer moment (``distributed.sharded``), the experts of the
 expert-parallel MoE as its E/ep slice, and its share of the batch.  The
-compute over ``model`` stays replicated (the experts aside): no heads,
-d_ff or vocabulary split over it.  Serving keeps whole parameters on
-every rank, and the layout knobs ``seq_shard_kv``,
-``serve_params_tp_only`` and ``seq_parallel`` change the specs only
-(ROADMAP.md section A, items 6 and 7).
+compute over ``model`` follows the same specs (tensor parallelism,
+``distributed.tensor_parallel``): q heads, ``d_ff``, ``d_inner`` and the
+vocabulary are cut where the specs cut them, in the train step and in
+the prefill and decode steps under a mesh with ``specs``, whose caches
+hold the rank's heads and channels (:func:`cache_blocks`).  The
+sequence layouts (``seq_shard_kv``, ``seq_parallel``, the batch-1
+caches) change the specs only: the port keeps those sequences whole
+(ROADMAP.md section A, item 7).
 ``repro.launch.shardctx`` has no counterpart: its ``constrain`` pins a
 traced activation to a layout, where each of the port's ranks holds
 local tensors, so :func:`activation_policy` gives the layout as DTensor
@@ -306,6 +309,57 @@ def activation_policy(cfg: M.ModelConfig, mesh, batch: int) -> dict:
     return {k: placements(v, mesh) for k, v in pol.items()}
 
 
+def partial_grad_paths(pspecs, mesh) -> list:
+    """The parameters whose gradient each rank of a ``model`` group
+    holds a part of, to be summed over the group: leaves the specs leave
+    whole inside a layer whose heads they cut
+    (``tensor_parallel.partial_grad``: MLA's ``w_dkv``/``w_kr``, GQA's
+    ``wk``/``wv`` where the KV heads do not divide).  Empty where the
+    compute is not cut over ``model``."""
+    from repro_torch.distributed import tensor_parallel as TP
+    if TP.model_group(mesh, pspecs) is None:
+        return []
+    return [path for path, spec in sharded.spec_paths(pspecs).items()
+            if TP.partial_grad(path, spec, pspecs, mesh)]
+
+
+def make_loss_and_grads(cfg: M.ModelConfig, mesh=None, specs=None):
+    """``loss_and_grads(params, batch_data) -> (loss, {path: gradient})``
+    of :func:`make_train_step`, every reduction over the mesh made: the
+    parts of :func:`partial_grad_paths` summed over ``model``, then each
+    gradient all-reduced over the data axes its leaf is not cut over and
+    divided by their size, and the loss averaged over them.  ``specs``
+    are the parameters' (``param_specs``)."""
+    axes = dp_axes(mesh) if mesh is not None else ()
+    fs = sharded.spec_paths(specs) if specs is not None else {}
+    partial = set(partial_grad_paths(specs, mesh))
+    plan = M.sharding(cfg, mesh, specs) if specs is not None else None
+
+    def mean_over(t, over):     # a group of one leaves t as it is
+        over = [a for a in over if mesh_axes(mesh)[a] > 1]
+        sharded.all_reduce_over(t, over, mesh)
+        for a in over:
+            t /= mesh_axes(mesh)[a]
+        return t
+
+    def loss_and_grads(params, batch_data):
+        flat = flatten(params)
+        loss = M.lm_loss(params, cfg, batch_data, mesh, plan)
+        grads = torch.autograd.grad(loss, list(flat.values()), materialize_grads=True)
+        loss = loss.detach()
+        for path, g in zip(flat, grads):
+            if path in partial:
+                sharded.all_reduce_over(g, ("model",), mesh)
+        if axes:
+            for path, g in zip(flat, grads):
+                cut = [a for d in (sharded.cut_axes(fs[path], mesh) if fs else ()) for a in d]
+                mean_over(g, [a for a in axes if a not in cut])
+            mean_over(loss, axes)
+        return loss, dict(zip(flat, grads))
+
+    return loss_and_grads
+
+
 def make_train_step(cfg: M.ModelConfig, ocfg: OptConfig, mesh=None, batch=None, specs=None):
     """``train_step(state, batch_data) -> (state, loss)``: ``lm_loss``,
     its gradients by ``torch.autograd``, then the optimizer's update
@@ -319,37 +373,26 @@ def make_train_step(cfg: M.ModelConfig, ocfg: OptConfig, mesh=None, batch=None, 
     ``model`` where ``cfg.moe_ep`` asks (``models.model._moe``).  With
     ``specs`` (:func:`train_specs`, the state's ``state_specs``) the
     state is each rank's blocks (``build_state(..., mesh=)``): every leaf
-    is gathered where its layer runs, its gradient comes back as the
-    block, reduce-scattered over the data axes its spec names
-    (``distributed.sharded.gather``), and the optimizer updates the
-    blocks.  Without ``specs`` every rank holds the whole state.  Either
-    way a gradient is then all-reduced over the data axes its leaf is not
-    cut over, and divided by their size.  ``batch`` is the reference's,
-    which sizes its activation layout; the port has none and does not
-    read it."""
-    axes = dp_axes(mesh) if mesh is not None else ()
+    is gathered where its layer runs, a leaf cut over ``model`` over the
+    data axes only, as the rank computes with its block (tensor
+    parallelism); its gradient comes back as the block, reduce-scattered
+    over the data axes its spec names (``distributed.sharded.gather``),
+    and the optimizer updates the blocks.  The gradient of a leaf whole
+    on every rank but read by the rank's heads only is a part, summed
+    over ``model`` (:func:`partial_grad_paths`); a leaf of the
+    replicated stream has the same gradient on every rank of the group
+    and is not summed.  Without ``specs`` every rank holds the whole
+    state and computes replicated over ``model``.  Either way a gradient
+    is then all-reduced over the data axes its leaf is not cut over, and
+    divided by their size (:func:`make_loss_and_grads`).  ``batch`` is
+    the reference's, which sizes its activation layout; the port has
+    none and does not read it."""
     pspecs = specs["params"] if specs is not None else None
-
-    def mean_over(t, over):     # a group of one leaves t as it is
-        over = [a for a in over if mesh_axes(mesh)[a] > 1]
-        sharded.all_reduce_over(t, over, mesh)
-        for a in over:
-            t /= mesh_axes(mesh)[a]
-        return t
+    loss_and_grads = make_loss_and_grads(cfg, mesh, pspecs)
 
     def train_step(state, batch_data):
         params = state["params"]
-        flat = flatten(params)
-        loss = M.lm_loss(params, cfg, batch_data, mesh, specs=pspecs)
-        grads = torch.autograd.grad(loss, list(flat.values()), materialize_grads=True)
-        loss = loss.detach()
-        if axes:
-            fs = sharded.spec_paths(pspecs) if pspecs is not None else {}
-            for path, g in zip(flat, grads):
-                cut = [a for d in (sharded.cut_axes(fs[path], mesh) if fs else ()) for a in d]
-                mean_over(g, [a for a in axes if a not in cut])
-            mean_over(loss, axes)
-        by_path = dict(zip(flat, grads))
+        loss, by_path = loss_and_grads(params, batch_data)
         opt_step(map_tree(lambda path, _: by_path[path], params), params, state["opt"], ocfg, cfg,
                  pspecs, mesh)
         return state, loss
@@ -378,12 +421,28 @@ def train_specs(cfg: M.ModelConfig, ocfg: OptConfig, mesh) -> dict:
     return state_specs(whole, param_specs(whole["params"], cfg, mesh), cfg)
 
 
-def make_prefill_step(cfg: M.ModelConfig):
+def _next_token(logits, plan):
+    """The greedy next token of each row of ``logits`` (..., V, or the
+    rank's V/tp columns where ``plan`` cuts the head), int32: the first
+    index of the largest."""
+    if plan is not None and plan.head_tp is not None:
+        from repro_torch.distributed import tensor_parallel as TP
+        return TP.vocab_parallel_argmax(logits, plan.head_tp).to(torch.int32)
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def make_prefill_step(cfg: M.ModelConfig, mesh=None, specs=None):
     """``prefill_step(params, batch_data, caches) -> (next_tok (B, 1)
     int32, caches)`` over ``batch_data["tokens"][:, :-1]`` (the training
     layout of S + 1 tokens), the vision stub's ``patch_embeds`` before
     them where the config has one, and the encoder-decoder's
-    ``audio_frames`` (B, frontend_len, D) as the encoder's input."""
+    ``audio_frames`` (B, frontend_len, D) as the encoder's input.  Under
+    ``mesh`` with ``specs`` (``param_specs``, or :func:`tp_only` of them)
+    ``params`` are the rank's blocks and the compute is cut over
+    ``model`` as in training; the caches are the rank's
+    (:func:`cache_blocks`) and the batch its share along the data axes."""
+    plan = M.sharding(cfg, mesh, specs) if specs is not None else None
+
     def prefill_step(params, batch_data, caches):
         kw = {}
         if cfg.frontend == "vision_stub":
@@ -391,23 +450,47 @@ def make_prefill_step(cfg: M.ModelConfig):
         if cfg.kind == "encdec":
             kw["enc_frames"] = batch_data["audio_frames"]
         logits, caches = M.forward(params, cfg, batch_data["tokens"][:, :-1],
-                                   caches=caches, mode="prefill", **kw)
-        return torch.argmax(logits[:, -1:], dim=-1).to(torch.int32), caches
+                                   caches=caches, mode="prefill", mesh=mesh, plan=plan, **kw)
+        return _next_token(logits[:, -1:], plan), caches
 
     return prefill_step
 
 
-def make_serve_step(cfg: M.ModelConfig):
+def make_serve_step(cfg: M.ModelConfig, mesh=None, specs=None):
     """``serve_step(params, caches, tokens (B, 1), pos (B,)) -> (next_tok
     (B, 1) int32, caches)``: one decode tick for the whole batch, the
-    caches written in place."""
+    caches written in place; ``mesh`` and ``specs`` as in
+    :func:`make_prefill_step`."""
+    plan = M.sharding(cfg, mesh, specs) if specs is not None else None
+
     def serve_step(params, caches, tokens, pos):
         positions = pos[:, None].expand(tokens.shape).to(torch.int32)
         logits, caches = M.forward(params, cfg, tokens, positions=positions,
-                                   caches=caches, mode="decode")
-        return torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32), caches
+                                   caches=caches, mode="decode", mesh=mesh, plan=plan)
+        return _next_token(logits[:, -1], plan)[:, None], caches
 
     return serve_step
+
+
+def cache_blocks(cfg: M.ModelConfig, mesh, batch: int, s_max: int, dtype=torch.bfloat16,
+                 device=None, enc_len: int = 0) -> list:
+    """The rank's decode caches over ``mesh`` for a global ``batch``:
+    :func:`models.model.init_cache`'s for the rows, KV heads,
+    cross-attention heads and Mamba channels that :func:`cache_specs`'
+    batch and ``model`` entries give the rank; a sequence entry is left
+    whole on the rank (the port keeps the sequence whole)."""
+    sizes = mesh_axes(mesh)
+    entries = {k: e for layer in cache_specs(cfg, mesh, batch) for k, e in layer.items()}
+
+    def local(n, entry):
+        return n // math.prod(sizes[a] for a in sharded.entry_axes(entry))
+
+    return M.init_cache(
+        cfg, local(batch, next(iter(entries.values()))[0]), s_max,     # dim 0: the batch
+        dtype=dtype, device=device, enc_len=enc_len,
+        n_kv_heads=local(cfg.n_kv_heads, entries["k"][2]) if "k" in entries else None,
+        n_heads=local(cfg.n_heads, entries["ck"][2]) if "ck" in entries else None,
+        d_inner=local(cfg.d_inner, entries["h"][1]) if "h" in entries else None)
 
 
 # ------------------------------------------------------------ cell assembly
@@ -466,10 +549,14 @@ def build_cell(spec: ArchSpec, shape_name: str, mesh, ocfg: Optional[OptConfig] 
     """The port's step and fake arguments for one cell over ``mesh`` (a
     ``DeviceMesh``, over a fake world for the dry run), in the port's
     layout: a train cell's state as the rank's blocks by
-    :func:`state_specs` and the sharded step; a serving cell's whole
-    parameters; the batch split over the data axes by :func:`_fit`, the
-    caches the same way, and where ``_fit`` gives None (batch 1) the
-    whole cache, as the port has no sequence parallelism.  The fake
+    :func:`state_specs` and the sharded step; a serving cell's
+    parameters as the rank's blocks by :func:`param_specs` (or
+    :func:`tp_only` of them under ``serve_params_tp_only``) and the
+    sharded prefill or decode step; both compute over ``model`` as the
+    specs cut it.  The batch is split over the data axes by :func:`_fit`,
+    the caches by :func:`cache_blocks` (the batch, and ``model`` where
+    :func:`cache_specs` cuts it; a sequence entry, as the batch-1
+    caches', whole: the port has no sequence parallelism).  The fake
     tensors lie on :func:`fake_device`; ``shape``: ``(seq, batch, kind)``
     in place of ``SHAPES[shape_name]``.  Allocates nothing."""
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -487,10 +574,17 @@ def build_cell(spec: ArchSpec, shape_name: str, mesh, ocfg: Optional[OptConfig] 
     layout = {"device": dev.type, "batch_local": local, "batch_split_over": dp,
               "params": ("the rank's block of every leaf of the state by state_specs (the data "
                          "axes and 'model' where a dim divides; the experts' E/ep slice under "
-                         "moe_ep), gathered where each layer runs" if kind == "train" else
-                         "whole on every rank (serving keeps whole parameters)"),
+                         "moe_ep), gathered over the data axes where each layer runs, the "
+                         "compute cut over 'model' as the specs cut the leaves"
+                         if kind == "train" else
+                         "the rank's block of every parameter by "
+                         f"{'tp_only(param_specs)' if cfg.serve_params_tp_only else 'param_specs'}"
+                         ", gathered over the data axes where each layer runs, the compute cut "
+                         "over 'model' as the specs cut the leaves"),
               "cache": None if kind == "train" else
-              ("split like the batch" if dp else "whole on the rank (no sequence parallelism)")}
+              ("the rank's rows, KV heads and channels by cache_specs" if dp else
+               "the rank's KV heads and channels by cache_specs, the sequence whole on the "
+               "rank (no sequence parallelism)")}
     mode = FakeTensorMode(allow_non_fake_inputs=True)
     with mode:
         whole = map_tree(lambda _, t: torch.empty(t.shape, dtype=t.dtype, device=dev),
@@ -512,17 +606,18 @@ def build_cell(spec: ArchSpec, shape_name: str, mesh, ocfg: Optional[OptConfig] 
             args = (state, bdata)
             parts = {"state": state, "batch": bdata}
         else:
+            params = sharded.shard_state(params, pspecs, mesh)
             enc_len = cfg.frontend_len if cfg.kind == "encdec" else 0
-            caches = M.init_cache(cfg, local, seq, dtype=M._dtype(cfg.compute_dtype),
+            caches = cache_blocks(cfg, mesh, batch, seq, dtype=M._dtype(cfg.compute_dtype),
                                   device=dev, enc_len=enc_len)
             if kind == "prefill":
                 bdata = {k: fake(v, local) for k, v in batch_struct(cfg, seq, batch).items()}
-                fn = make_prefill_step(cfg)
+                fn = make_prefill_step(cfg, mesh, pspecs)
                 args = (params, bdata, caches)
             else:  # decode
                 bdata = {"tokens": torch.zeros((local, 1), dtype=torch.int32, device=dev),
                          "pos": torch.zeros((local,), dtype=torch.int32, device=dev)}
-                fn = make_serve_step(cfg)
+                fn = make_serve_step(cfg, mesh, pspecs)
                 args = (params, caches, bdata["tokens"], bdata["pos"])
             parts = {"params": params, "batch": bdata, "cache": caches}
             specs = pspecs

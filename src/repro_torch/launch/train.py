@@ -7,8 +7,9 @@ caller's, or under ``torchrun`` the one its environment describes, which
 ``main`` starts and ends) it trains over a ``(data, model)`` mesh of every rank
 (``--model-parallel`` sizes ``model``), each data coordinate reading its
 own share of every batch, and each rank storing its block of the state
-by the reference's specs (``launch.steps.train_specs``); checkpoints
-hold whole leaves whatever the world size.
+by the reference's specs (``launch.steps.train_specs``) and computing
+with its blocks over ``model`` (tensor parallelism); checkpoints hold
+whole leaves whatever the world size.
 
 Fault-tolerance behaviour (held by tests/test_torch_train.py):
 * resume: ``--resume`` restores the latest checkpoint (params + opt + data
@@ -30,9 +31,11 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import signal
 import time
+from pathlib import Path
 
 import torch
 import torch.distributed as dist
@@ -115,6 +118,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None, help="torch device (default: the card)")
+    ap.add_argument("--record", default=None,
+                    help="write this rank's losses, step times and peak card memory as JSON "
+                         "to this path ('{rank}' in it becomes the rank)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -182,7 +188,7 @@ def main(argv=None):
     old_int = signal.signal(signal.SIGINT, _sig)
 
     timer = StepTimer()
-    losses = []
+    losses, step_s = [], []
     t_start = time.time()
     try:
         for step, host_tokens in make_batches(ds, start_step, args.steps):
@@ -192,6 +198,7 @@ def main(argv=None):
             loss = float(loss)
             losses.append(loss)
             dt = timer.stop()
+            step_s.append(dt)
             if step % args.log_every == 0 or step == args.steps - 1:
                 tps = batch * seq / max(dt, 1e-9)
                 print(f"[train] step={step:5d} loss={loss:8.4f} "
@@ -220,6 +227,14 @@ def main(argv=None):
                 if dev.type == "cuda" else "")
         print(f"[train] done: {len(losses)} steps in {wall:.1f}s "
               f"loss {losses[0]:.4f} -> {losses[-1]:.4f}{peak}")
+    if args.record:
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20 if dev.type == "cuda" else None
+        path = Path(args.record.format(rank=rank))
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps({"rank": rank, "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))
+                                    if mesh is not None else None, "losses": losses,
+                                    "step_ms": [1e3 * t for t in step_s], "peak_mib": peak_mib}))
     if started:
         dist.destroy_process_group()
     return losses

@@ -157,9 +157,21 @@ def _prefill_cache(cache, k, v, positions, window):
             "pos_k": pc.to(torch.int32)}
 
 
+def kv_for_heads(k, n_rep: int, h0: int, n_heads: int):
+    """The KV heads that q heads ``[h0, h0 + n_heads)`` read (q head h
+    reads KV head ``h // n_rep``) out of ``k`` (B, T, Hkv, hd), every KV
+    head, and the repeat the grouped product then takes: the one KV head
+    they all read, or one per q head."""
+    first, last = h0 // n_rep, (h0 + n_heads - 1) // n_rep
+    if first == last:
+        return k.narrow(2, first, 1), n_heads
+    idx = torch.arange(h0, h0 + n_heads, device=k.device) // n_rep
+    return k.index_select(2, idx), 1
+
+
 def attention(params, x, positions, *, n_rep: int, window: Optional[int],
               rope_theta: float = 10000.0, use_rope: bool = True, cache=None,
-              decode: bool = False):
+              decode: bool = False, q_head0: Optional[int] = None):
     """GQA attention with an optional sliding window and KV cache; q and
     k are rotated by RoPE unless ``use_rope`` is False (learned positions).
 
@@ -171,6 +183,12 @@ def attention(params, x, positions, *, n_rep: int, window: Optional[int],
     ``pos % C`` of ``cache``'s tensors in place, and the same dict is
     returned.  Slots never written hold position int32 max, which the
     mask excludes.
+
+    ``q_head0`` (tensor parallelism where the q heads are cut and the KV
+    heads are not): ``wq`` and ``wo`` hold the q heads from ``q_head0``
+    on, ``wk`` and ``wv`` every KV head; k and v (and the cache) keep
+    every KV head, and the scores read those the rank's q heads read
+    (:func:`kv_for_heads`).
     """
     B, S, _ = x.shape
     q, k, v = (_heads(x, params[w]) for w in ("wq", "wk", "wv"))
@@ -178,11 +196,18 @@ def attention(params, x, positions, *, n_rep: int, window: Optional[int],
         q = rope(q, positions, theta=rope_theta)
         k = rope(k, positions, theta=rope_theta)
 
+    def read(k, v):     # the KV heads the rank's q heads read, and their repeat
+        if q_head0 is None:
+            return k, v, n_rep
+        ku, rep = kv_for_heads(k, n_rep, q_head0, q.shape[2])
+        return ku, kv_for_heads(v, n_rep, q_head0, q.shape[2])[0], rep
+
     if not decode:
         mask = positions[:, None, :] <= positions[:, :, None]
         if window is not None:
             mask = mask & (positions[:, None, :] > positions[:, :, None] - window)
-        out = _gqa_out(_softmax(_gqa_scores(q, k, n_rep), mask[:, None, :, None, :]), v, n_rep)
+        ku, vu, rep = read(k, v)
+        out = _gqa_out(_softmax(_gqa_scores(q, ku, rep), mask[:, None, :, None, :]), vu, rep)
         new_cache = None if cache is None else _prefill_cache(cache, k, v, positions, window)
     else:
         C = cache["k"].shape[1]
@@ -196,8 +221,9 @@ def attention(params, x, positions, *, n_rep: int, window: Optional[int],
         valid = pc <= pos[:, None]
         if window is not None:
             valid = valid & (pc > pos[:, None] - window)
-        scores = _gqa_scores(q, cache["k"], n_rep)  # (B,Hkv,1,n_rep,C)
-        out = _gqa_out(_softmax(scores, valid[:, None, None, None, :]), cache["v"], n_rep)
+        ku, vu, rep = read(cache["k"], cache["v"])
+        scores = _gqa_scores(q, ku, rep)  # (B,Hkv,1,n_rep,C)
+        out = _gqa_out(_softmax(scores, valid[:, None, None, None, :]), vu, rep)
         new_cache = cache
 
     H, hd, D = params["wo"].shape
@@ -506,7 +532,8 @@ def _ssm_step_scan(dA, dBx, h0):
     return torch.stack(hs, 1), h
 
 
-def mamba_apply(params, x, *, d_state: int, d_conv: int, cache=None, decode: bool = False):
+def mamba_apply(params, x, *, d_state: int, d_conv: int, cache=None, decode: bool = False,
+                proj_sum=None):
     """Mamba-1 selective SSM.  x: (B, S, D) -> (out, new_cache).
 
     Prefill/train: a causal depthwise conv over zero padding (``d_conv``
@@ -525,6 +552,10 @@ def mamba_apply(params, x, *, d_state: int, d_conv: int, cache=None, decode: boo
     products, then float32; the recurrence, y = hs·C and y + conv·D and
     y·silu(z) in float32; y cast to ``x``'s dtype before ``out_proj``.
     ``init_cache`` holds h in float32.
+
+    With the channels cut (tensor parallelism), ``params`` hold the
+    rank's channels, ``in_proj`` its x columns then its z columns, and
+    ``proj_sum`` sums ``x_proj``'s partial product over the group.
     """
     B, S, _ = x.shape
     Di = params["in_proj"].shape[-1] // 2
@@ -544,6 +575,8 @@ def mamba_apply(params, x, *, d_state: int, d_conv: int, cache=None, decode: boo
     conv = _silu(conv + params["conv_b"])
 
     proj = conv @ params["x_proj"]
+    if proj_sum is not None:
+        proj = proj_sum(proj)
     dt_r, Bm, Cm = proj[..., :R], proj[..., R:R + d_state], proj[..., R + d_state:]
     dt = dt_r @ params["dt_proj"] + params["dt_bias"]
     dt = torch.logaddexp(dt, dt.new_zeros(()))                     # (B, S, Di)

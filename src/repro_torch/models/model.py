@@ -26,16 +26,23 @@ pattern in train mode, as the reference checkpoints its scan body
 (:func:`_rematted`): the same values, with less held for the backward.
 :func:`lm_loss` is the training objective; under a mesh with a ``model``
 axis and ``moe_ep`` the MoE takes its expert-parallel form (:func:`_moe`).
-With ``specs`` (``launch.steps.param_specs``) the parameters are each
-rank's blocks (``distributed.sharded``): each leaf is gathered where its
-layer runs, inside the layer's remat region, and what the backward needs
-of it is gathered again (:func:`_gathering`).
+With a plan (:func:`sharding` of ``launch.steps.param_specs``) the
+parameters are each rank's blocks (``distributed.sharded``): each leaf
+is gathered where its layer runs, inside the layer's remat region, and
+what the backward needs of it is gathered again (:func:`_gathering`).  Under a mesh whose
+``model`` axis has more than one rank the compute is then cut over it
+as the specs cut the leaves (``distributed.tensor_parallel``): a layer
+whose q heads, ``d_ff`` or ``d_inner`` arrive as the rank's block
+computes the rank's heads or channels between ``copy_to_model`` and
+``reduce_from_model``, and the vocabulary's lookup, head and loss work
+on the rank's rows of it; a layer whose leaves arrive whole computes
+replicated.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -321,7 +328,8 @@ class Model(nn.Module):
 
 # ------------------------------------------------------------------ cache
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16,
-               device=None, enc_len: int = 0) -> list:
+               device=None, enc_len: int = 0, *, n_kv_heads: Optional[int] = None,
+               n_heads: Optional[int] = None, d_inner: Optional[int] = None) -> list:
     """Decode caches, one dict per layer in the order of
     :func:`layer_specs`: on a GQA layer ``k`` and ``v`` (batch, C,
     n_kv_heads, head_dim) with ``C = min(s_max, window)`` on window layers
@@ -330,17 +338,23 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16,
     both ``pos_k`` (batch, C) int32 at int32 max.  A Mamba layer holds
     ``conv`` (batch, d_conv - 1, d_inner) in ``dtype`` and ``h`` (batch,
     d_inner, d_state) in float32 whatever ``dtype``; a cross-attention
-    layer adds ``ck`` and ``cv`` (batch, enc_len, n_heads, head_dim)."""
+    layer adds ``ck`` and ``cv`` (batch, enc_len, n_heads, head_dim).
+    ``n_kv_heads``, ``n_heads`` and ``d_inner`` are the config's unless
+    given: a rank of a ``model`` group holds its share of those that are
+    cut (``launch.steps.cache_blocks``)."""
     check_supported(cfg)
     dev = resolve_device(device)
+    n_kv_heads = n_kv_heads or cfg.n_kv_heads
+    n_heads = n_heads or cfg.n_heads
+    d_inner = d_inner or cfg.d_inner
 
     def zeros(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=dev)
 
     def layer_cache(spec):
         if spec.kind == "mamba":
-            c = {"conv": zeros(batch, cfg.d_conv - 1, cfg.d_inner),
-                 "h": zeros(batch, cfg.d_inner, cfg.d_state, dt=torch.float32)}
+            c = {"conv": zeros(batch, cfg.d_conv - 1, d_inner),
+                 "h": zeros(batch, d_inner, cfg.d_state, dt=torch.float32)}
         elif spec.kind == "mla":
             c = {"c_kv": zeros(batch, s_max, cfg.kv_lora),
                  "k_rope": zeros(batch, s_max, cfg.d_rope),
@@ -348,12 +362,12 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16,
                                      device=dev)}
         else:
             C = min(s_max, spec.window) if spec.window else s_max
-            c = {"k": zeros(batch, C, cfg.n_kv_heads, cfg.head_dim),
-                 "v": zeros(batch, C, cfg.n_kv_heads, cfg.head_dim),
+            c = {"k": zeros(batch, C, n_kv_heads, cfg.head_dim),
+                 "v": zeros(batch, C, n_kv_heads, cfg.head_dim),
                  "pos_k": torch.full((batch, C), L.INT32_MAX, dtype=torch.int32, device=dev)}
         if spec.cross_attn:
-            c["ck"] = zeros(batch, enc_len, cfg.n_heads, cfg.head_dim)
-            c["cv"] = zeros(batch, enc_len, cfg.n_heads, cfg.head_dim)
+            c["ck"] = zeros(batch, enc_len, n_heads, cfg.head_dim)
+            c["cv"] = zeros(batch, enc_len, n_heads, cfg.head_dim)
         return c
 
     return [layer_cache(spec) for spec in layer_specs(cfg)]
@@ -372,59 +386,77 @@ def _cross_attention(p, h, ck, cv, head_dim):
     return o.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, D)
 
 
+def _own_channels(in_proj, d_inner: int, n: int, tp):
+    """The rank's x columns then its z columns of a whole ``in_proj``
+    (D, 2·d_inner), for its ``n`` channels."""
+    lo = tp.rank * n
+    return torch.cat([in_proj[:, lo:lo + n], in_proj[:, d_inner + lo:d_inner + lo + n]], 1)
+
+
 def _apply_layer(lp, spec: LayerSpec, cfg: ModelConfig, x, positions, cache, decode,
-                 enc_out=None, mesh=None):
+                 enc_out=None, mesh=None, tp=None):
+    """One layer.  ``tp`` (this rank's ``model`` group under tensor
+    parallelism, else None): a mixer, cross-attention or dense MLP whose
+    leaves arrive as the rank's blocks of heads, channels or ``d_ff``
+    computes its part between ``copy_to_model`` and ``reduce_from_model``;
+    one whose leaves arrive whole computes replicated."""
+    from repro_torch.distributed import tensor_parallel as TP
     h = L.rms_norm(x, lp["norm1"])
+    a = lp["attn"]
     if spec.kind == "mamba":
-        out, new_c = L.mamba_apply(lp["attn"], h, d_state=cfg.d_state, d_conv=cfg.d_conv,
-                                   cache=cache, decode=decode)
-    elif spec.kind == "mla":
-        out, new_c = L.mla_attention(lp["attn"], h, positions, d_nope=cfg.d_nope,
-                                     d_rope=cfg.d_rope, rope_theta=cfg.rope_theta,
-                                     cache=cache, decode=decode)
+        n = a["conv_w"].shape[1]
+        cut = tp if tp is not None and n < cfg.d_inner else None
+        if cut is not None:
+            a = dict(a, in_proj=_own_channels(a["in_proj"], cfg.d_inner, n, tp))
+        out, new_c = L.mamba_apply(a, TP.copy_to_model(h, cut), d_state=cfg.d_state,
+                                   d_conv=cfg.d_conv, cache=cache, decode=decode,
+                                   proj_sum=None if cut is None else
+                                   lambda t: TP.sum_both_ways(t, cut))
     else:
-        out, new_c = L.attention(lp["attn"], h, positions,
-                                 n_rep=cfg.n_heads // cfg.n_kv_heads, window=spec.window,
-                                 rope_theta=cfg.rope_theta, use_rope=cfg.use_rope,
-                                 cache=cache, decode=decode)
-    x = x + out
+        n = a["wq"].shape[1]
+        cut = tp if tp is not None and n < cfg.n_heads else None
+        if spec.kind == "mla":
+            out, new_c = L.mla_attention(a, TP.copy_to_model(h, cut), positions,
+                                         d_nope=cfg.d_nope, d_rope=cfg.d_rope,
+                                         rope_theta=cfg.rope_theta, cache=cache, decode=decode)
+        else:
+            kv_whole = cut is not None and a["wk"].shape[1] == cfg.n_kv_heads
+            out, new_c = L.attention(a, TP.copy_to_model(h, cut), positions,
+                                     n_rep=cfg.n_heads // cfg.n_kv_heads, window=spec.window,
+                                     rope_theta=cfg.rope_theta, use_rope=cfg.use_rope,
+                                     cache=cache, decode=decode,
+                                     q_head0=tp.rank * n if kv_whole else None)
+    x = x + TP.reduce_from_model(out, cut)
     if spec.cross_attn:
         # Decode reads the encoder's keys and values from the cache (the
         # dict attention wrote in place, so new_c holds them); prefill
         # computes them from enc_out and stores them in x's dtype.
-        h = L.rms_norm(x, lp["normc"])
+        c = lp["cross"]
+        cut = tp if tp is not None and c["wq"].shape[1] < cfg.n_heads else None
+        h = TP.copy_to_model(L.rms_norm(x, lp["normc"]), cut)
         if decode:
             ck, cv = cache["ck"], cache["cv"]
         else:
-            ck, cv = L._heads(enc_out, lp["cross"]["wk"]), L._heads(enc_out, lp["cross"]["wv"])
+            e = TP.copy_to_model(enc_out, cut)
+            ck, cv = L._heads(e, c["wk"]), L._heads(e, c["wv"])
             if new_c is not None:
                 new_c.update(ck=ck.to(x.dtype), cv=cv.to(x.dtype))
-        x = x + _cross_attention(lp["cross"], h, ck, cv, cfg.head_dim)
+        x = x + TP.reduce_from_model(_cross_attention(c, h, ck, cv, cfg.head_dim), cut)
     if spec.mlp == "none":
         return x, new_c
     h = L.rms_norm(x, lp["norm2"])
+
+    def dense(mp, width):
+        cut = tp if tp is not None and mp["w_gate"].shape[1] < width else None
+        return TP.reduce_from_model(L.mlp_apply(mp, TP.copy_to_model(h, cut)), cut)
+
     if spec.mlp == "moe":
         out = _moe(lp["mlp"], h, cfg, mesh)
         if "shared" in lp["mlp"]:
-            out = out + L.mlp_apply(lp["mlp"]["shared"], h)
+            out = out + dense(lp["mlp"]["shared"], cfg.n_shared * cfg.d_ff_expert)
     else:
-        out = L.mlp_apply(lp["mlp"], h)
+        out = dense(lp["mlp"], cfg.d_ff)
     return x + out, new_c
-
-
-class _SumGrad(torch.autograd.Function):
-    """The identity, whose backward sums the gradient over ``group``."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x
-
-    @staticmethod
-    def backward(ctx, grad):
-        grad = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
 
 
 class _ScaleGrad(torch.autograd.Function):
@@ -461,51 +493,90 @@ def _moe(mp, h, cfg: ModelConfig, mesh=None):
     inputs (the tokens and the router) are summed over the group.  The
     shared experts stay outside, on every rank.
 
-    A sharded state (:func:`forward`'s ``specs``) stores each expert
+    A sharded state (:func:`forward`'s ``plan``) stores each expert
     stack as the rank's E/ep slice, as the reference's ``P("model")``
     does, and the slice's gradient is the rank's own: no whole (E, D, F)
     stack is held or all-reduced.  A whole state (every rank the same
     parameters) holds every stack whole; the rank takes its slice, and
     the stack's gradient, of which each rank filled its slice, is summed
     over the group."""
+    from repro_torch.distributed.tensor_parallel import ModelGroup, copy_to_model
     routed = {k: mp[k] for k in ("router", *EXPERT_STACKS)}
     if not _ep(cfg, mesh):
         return L.moe_apply(routed, h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
     group = mesh.get_group("model")
     ep, i = dist.get_world_size(group), mesh.get_local_rank("model")
+    tp = ModelGroup(group, ep, i)
     n = cfg.n_experts // ep
-    h = _SumGrad.apply(h, group)
-    local = {"router": _SumGrad.apply(routed["router"], group)}
+    h = copy_to_model(h, tp)
+    local = {"router": copy_to_model(routed["router"], tp)}
     for k in EXPERT_STACKS:
         w = routed[k]
-        local[k] = w if w.shape[0] == n else _SumGrad.apply(w, group)[i * n:(i + 1) * n]
+        local[k] = w if w.shape[0] == n else copy_to_model(w, tp)[i * n:(i + 1) * n]
     y = L.moe_apply(local, h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
                     ep_group=group, ep_size=ep)
     return _ScaleGrad.apply(y, 1.0 / ep)
 
 
-def _gathering(params, cfg: ModelConfig, mesh, specs):
+class Sharding(NamedTuple):
+    """How the sharded path reads this rank's blocks over a mesh, worked
+    out once from the specs (:func:`sharding`)."""
+    gathers: dict       # {path: (spec, mesh, keep, summed)}: the leaves with a gather to make
+    holding: frozenset  # the paths of the subtrees that hold such a leaf
+    tp: Any             # the rank's ``model`` group where the compute is cut over it, else None
+    embed_tp: Any       # ``tp`` where the embedding's rows (the vocabulary) are cut, else None
+    head_tp: Any        # ``tp`` where the head's columns are cut (the logits the rank's)
+
+
+def sharding(cfg: ModelConfig, mesh, specs) -> Sharding:
+    """The :class:`Sharding` of ``specs`` (``launch.steps.param_specs``,
+    or ``tp_only`` of them) over ``mesh``.  Each leaf is gathered by
+    ``tensor_parallel.gather_mode``: over the data axes only where the
+    rank computes with its block over ``model`` (an expert stack of the
+    expert-parallel MoE, its E/ep slice, among them), else whole; a leaf
+    with nothing left to gather (no other axis of more than one rank
+    cuts it) is used as its block and has no entry."""
+    from repro_torch.distributed import sharded
+    from repro_torch.distributed import tensor_parallel as TP
+    ep = _ep(cfg, mesh)
+    gathers = {}
+    for path, spec in sharded.spec_paths(specs).items():
+        mode = TP.gather_mode(path, spec, specs, mesh, ep)
+        keep = ("model",) if mode == "keep" else ()
+        if any(a not in keep for axes in sharded.cut_axes(spec, mesh) for a in axes):
+            gathers[path] = (spec, mesh, keep, ("model",) if mode == "sum" else ())
+    tp = TP.model_group(mesh, specs)
+
+    def vocab(name):
+        return tp if tp is not None and TP.cut_over_model(specs[name], mesh) else None
+
+    holding = frozenset(p[:i] for p in gathers for i, c in enumerate(p) if c == "/")
+    return Sharding(gathers, holding, tp, vocab("embed"),
+                    vocab("embed" if cfg.tie_embeddings else "lm_head"))
+
+
+def _gathering(params, plan: Optional[Sharding]):
     """``whole(path)``: the parameter (a leaf or a layer's dict) at
-    ``path``, whole.  Without ``specs`` it is ``params``' own; with them
-    ``params`` holds this rank's blocks and each leaf is gathered
-    (``distributed.sharded.gather``), an expert stack of the
-    expert-parallel MoE to the rank's E/ep slice."""
-    if specs is None:
+    ``path`` as the layer computes with it.  Without a ``plan`` it is
+    ``params``' own; with one ``params`` holds this rank's blocks and
+    each leaf of ``plan.gathers`` is gathered
+    (``distributed.sharded.gather``) as it says."""
+    if plan is None:
         return lambda path: at(params, path)
     from repro_torch.distributed import sharded
-    keep = ("model",) if _ep(cfg, mesh) else ()
+    gathers = plan.gathers
+
+    def leaf(path, block):
+        how = gathers.get(path)
+        return block if how is None else sharded.gather(block, *how)
 
     def whole(path):
-        tree, spec = at(params, path), at(specs, path)
+        tree = at(params, path)
         if not isinstance(tree, dict):
-            return sharded.gather(tree, spec, mesh)
-        moe = "router" in tree.get("mlp", {})
-
-        def one(sub, block):
-            stack = moe and sub in tuple(f"mlp/{k}" for k in EXPERT_STACKS)
-            return sharded.gather(block, at(spec, sub), mesh,
-                                  keep if stack else ())
-        return map_tree(one, tree)
+            return leaf(path, tree)
+        if path not in plan.holding:
+            return tree
+        return map_tree(lambda sub, block: leaf(f"{path}/{sub}", block), tree)
 
     return whole
 
@@ -545,24 +616,26 @@ def _rematted(fn, remat: str):
     raise ValueError(f"remat must be none, full or dots, not {remat!r}")
 
 
-def _encode(whole, cfg: ModelConfig, frames, cdt, remat="none"):
+def _encode(whole, cfg: ModelConfig, frames, cdt, remat="none", tp=None):
     """The encoder over ``frames`` (B, Te, D): learned positions 0..Te-1,
     dense attention layers run as causal attention with every position 0
     (so the mask passes everywhere: the reference's bidirectional
     encoder), then its final norm.  Each layer is one ``remat`` region.
-    ``whole`` gives the parameters (:func:`_gathering`)."""
+    ``whole`` gives the parameters (:func:`_gathering`), ``tp`` as in
+    :func:`_apply_layer`."""
     B, Te, _ = frames.shape
     pos = torch.arange(Te, device=frames.device)
     e = frames.to(cdt) + _rows(whole("enc/pos_embed"), pos).to(cdt)
     zeros = torch.zeros((B, Te), dtype=torch.int32, device=frames.device)
     for j in range(cfg.n_enc_layers):
         e = _rematted(lambda h, j=j: _apply_layer(whole(f"enc/layers/{j}"), ENC_SPEC, cfg, h,
-                                                  zeros, None, False)[0], remat)(e)
+                                                  zeros, None, False, tp=tp)[0], remat)(e)
     return L.rms_norm(e, whole("enc/final_norm"))
 
 
 def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None, positions=None,
-            caches=None, mode: str = "train", enc_frames=None, mesh=None, specs=None):
+            caches=None, mode: str = "train", enc_frames=None, mesh=None,
+            plan: Optional[Sharding] = None):
     """Forward pass.
 
     mode='train'   : full-sequence causal logits.
@@ -577,24 +650,30 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None, positions=Non
     D) in train and prefill mode (decode reads the cross-attention
     caches).  Embeddings, the layers and the head run in
     ``cfg.compute_dtype``; the tied head is ``x @ embed.T`` in it.
-    ``mesh`` (a ``DeviceMesh``) is read by the MoE (:func:`_moe`) and,
-    with ``specs`` (``launch.steps.param_specs`` of the whole
-    parameters), by the gathers of ``params``, then this rank's blocks
-    (:func:`_gathering`).
+    ``mesh`` (a ``DeviceMesh``) is read by the MoE (:func:`_moe`).  With
+    ``plan`` (:func:`sharding` of ``launch.steps.param_specs`` over
+    ``mesh``) ``params`` are this rank's blocks, gathered where each
+    layer runs (:func:`_gathering`).  Under a ``model`` axis of more
+    than one rank the compute is then cut over it (the module's
+    docstring), the caches hold the rank's heads and channels where
+    ``launch.steps.cache_specs`` cuts them, and where the vocabulary is
+    cut the logits are the rank's columns (B, S, V/tp), never gathered.
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, not {mode!r}")
     check_supported(cfg)
-    if specs is None:
-        return _forward(_gathering(params, cfg, mesh, None), cfg, tokens, embeds, positions,
-                        caches, mode, enc_frames, mesh)
+    if plan is None:
+        return _forward(_gathering(params, None), cfg, tokens, embeds, positions, caches, mode,
+                        enc_frames, mesh, None)
     from repro_torch.distributed import sharded
     with sharded.regather_on_unpack():
-        return _forward(_gathering(params, cfg, mesh, specs), cfg, tokens, embeds, positions,
-                        caches, mode, enc_frames, mesh)
+        return _forward(_gathering(params, plan), cfg, tokens, embeds, positions, caches, mode,
+                        enc_frames, mesh, plan)
 
 
-def _forward(whole, cfg, tokens, embeds, positions, caches, mode, enc_frames, mesh):
+def _forward(whole, cfg, tokens, embeds, positions, caches, mode, enc_frames, mesh, plan):
+    from repro_torch.distributed import tensor_parallel as TP
+    tp = plan.tp if plan is not None else None
     cdt = _dtype(cfg.compute_dtype)
     decode = mode == "decode"
 
@@ -606,7 +685,9 @@ def _forward(whole, cfg, tokens, embeds, positions, caches, mode, enc_frames, me
     if embeds is not None:
         parts.append(embeds.to(cdt))
     if tokens is not None:
-        parts.append(_rows(embed, tokens).to(cdt))
+        rows = (_rows(embed, tokens) if plan is None or plan.embed_tp is None
+                else TP.vocab_lookup(embed, tokens, plan.embed_tp))
+        parts.append(rows.to(cdt))
     x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     B, S, _ = x.shape
     if positions is None:
@@ -616,7 +697,7 @@ def _forward(whole, cfg, tokens, embeds, positions, caches, mode, enc_frames, me
     remat = cfg.remat if mode == "train" else "none"
     enc_out = None
     if cfg.kind == "encdec" and not decode:
-        enc_out = _encode(whole, cfg, enc_frames, cdt, remat)
+        enc_out = _encode(whole, cfg, enc_frames, cdt, remat, tp)
 
     specs = layer_specs(cfg)
     caches = caches if caches is not None else [None] * len(specs)
@@ -625,7 +706,7 @@ def _forward(whole, cfg, tokens, embeds, positions, caches, mode, enc_frames, me
     def instance(h, span):
         for j in span:
             h, new_caches[j] = _apply_layer(whole(f"layers/{j}"), specs[j], cfg, h, positions,
-                                            caches[j], decode, enc_out, mesh)
+                                            caches[j], decode, enc_out, mesh, tp)
         return h
 
     # One remat region per instance of a block pattern: the reference's
@@ -639,21 +720,24 @@ def _forward(whole, cfg, tokens, embeds, positions, caches, mode, enc_frames, me
 
     x = L.rms_norm(x, whole("final_norm"))
     head = embed.T if cfg.tie_embeddings else whole("lm_head")
+    if plan is not None:
+        x = TP.copy_to_model(x, plan.head_tp)     # the rank's columns of the logits
     logits = x @ head.to(cdt)
     if mode == "train":
         return logits
     return logits, new_caches
 
 
-def lm_loss(params, cfg: ModelConfig, batch, mesh=None, specs=None):
+def lm_loss(params, cfg: ModelConfig, batch, mesh=None, plan: Optional[Sharding] = None):
     """Next-token cross entropy, the reference's ``lm_loss``:
     ``batch["tokens"]`` (B, S + 1) integer, the first S the inputs and
     the last S the targets; float32 logits, ``logsumexp`` less the
     target's logit, averaged over the targets >= 0 (a negative target is
     masked out).  The vision stub's ``patch_embeds`` go before the
     tokens, and only the text positions' logits are scored; an
-    encoder-decoder encodes ``audio_frames``.  ``mesh`` and ``specs`` as
-    in :func:`forward`."""
+    encoder-decoder encodes ``audio_frames``.  ``mesh`` and ``plan`` as
+    in :func:`forward`; where the logits are the rank's columns of the
+    vocabulary, the loss is ``tensor_parallel.vocab_parallel_cross_entropy``."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:].long()
     kw = {}
@@ -661,11 +745,15 @@ def lm_loss(params, cfg: ModelConfig, batch, mesh=None, specs=None):
         kw["embeds"] = batch["patch_embeds"]
     if cfg.kind == "encdec":
         kw["enc_frames"] = batch["audio_frames"]
-    logits = forward(params, cfg, inputs, mesh=mesh, specs=specs, **kw)
+    logits = forward(params, cfg, inputs, mesh=mesh, plan=plan, **kw)
     if cfg.frontend == "vision_stub":
         logits = logits[:, -targets.shape[1]:]
     logits = logits.float()
-    lse = torch.logsumexp(logits, -1)
-    ll = logits.gather(-1, targets.clamp_min(0)[..., None])[..., 0]
     mask = (targets >= 0).float()
-    return ((lse - ll) * mask).sum() / mask.sum().clamp_min(1.0)
+    if plan is not None and plan.head_tp is not None:
+        from repro_torch.distributed import tensor_parallel as TP
+        nll = TP.vocab_parallel_cross_entropy(logits, targets.clamp_min(0), plan.head_tp)
+    else:
+        lse = torch.logsumexp(logits, -1)
+        nll = lse - logits.gather(-1, targets.clamp_min(0)[..., None])[..., 0]
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)

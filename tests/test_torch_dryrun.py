@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 from functools import partial
 
 import jax
@@ -332,10 +333,9 @@ def test_build_and_run_cell(arch, shape, fake_world, tmp_path):
     part = "state" if kind == "train" else "params"
     assert bpd["peak"] >= bpd[part] + bpd["batch"] + bpd["cache"] > 0
     assert bpd["peak"] == bpd[part] + bpd["batch"] + bpd["cache"] + bpd["activations_peak"]
-    if kind == "train":     # the state is the rank's blocks: exactly what the specs give
-        assert 0 < bpd["state_under_specs"] == bpd[part]
-    else:                   # serving keeps whole parameters
-        assert 0 < bpd["state_under_specs"] < bpd[part]
+    # the state (train) or the parameters (serving) are the rank's blocks:
+    # exactly what the specs give
+    assert 0 < bpd["state_under_specs"] == bpd[part]
     assert rec["flops"] > 0 and rec["bytes"] == pytest.approx(sum(rec["by_op"].values()))
     assert rec["bottleneck"] in ("compute", "memory", "collective")
     if kind == "train":
@@ -345,9 +345,75 @@ def test_build_and_run_cell(arch, shape, fake_world, tmp_path):
                                            "all-to-all"}
         assert rec["optimizer"]["kind"] == "adamw"
     else:
-        assert rec["collectives"] == {}
+        # the leaves' all-gathers over data, the tensor-parallel all-reduces
+        # over model, the next token's all-gather over model
+        assert {"all-gather", "all-reduce"} <= set(rec["collectives"])
         caches = cell.parts["cache"]
         assert all(t.shape[0] == batch // 2 for c in caches for t in c.values())
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_serving_cell_holds_blocks_and_counts_tp_all_reduces(kind, fake_world):
+    """A shrink(stablelm) serving cell over a 2 x 2 fake world holds the
+    rank's blocks of the parameters, exactly ``bytes_under_specs``, and
+    the rank's KV heads in its caches; its census counts the tensor-parallel
+    all-reduces: one after the vocab-parallel lookup and one after each
+    layer's attention and MLP, each of the rank's (B, S, D) hidden states
+    (ring model over a group of 2: the tensor's bytes on the wire), and
+    the next token's all-gather over ``model``."""
+    fake_world(4)
+    mesh = TM.make_mesh((2, 2), ("data", "model"), device="cpu")
+    seq, batch = 64, 4
+    cell = TS.build_cell(small("stablelm-1.6b"), f"{kind}_32k", mesh, shape=(seq, batch, kind))
+    cfg = cell.model_cfg
+    with cell.mode:
+        held = OC.Census().hold(cell.parts["params"])
+        assert held == TS.bytes_under_specs(cell.whole, cell.specs, mesh) > 0
+        assert held < OC.Census().hold(cell.whole) // 2
+        with OC.op_census(*cell.args) as c:
+            cell.fn(*cell.args)
+    k = cell.parts["cache"][0]["k"]
+    assert tuple(k.shape) == (batch // 2, seq, cfg.n_kv_heads // 2, cfg.head_dim)
+    res = c.result()
+    tokens = batch // 2 * (seq if kind == "prefill" else 1)
+    hidden = tokens * cfg.d_model * 2                                 # bf16
+    assert res["calls"]["all-reduce"] == 2 * cfg.n_layers + 1
+    assert res["wire"]["all-reduce"] == (2 * cfg.n_layers + 1) * hidden
+    assert res["calls"]["all-gather"] >= 1
+
+
+class ReduceScatters(torch.utils._python_dispatch.TorchDispatchMode):
+    """The input shape and group size of every reduce-scatter."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if OC.COLLECTIVES.get(func._schema.name, ("",))[0] == "reduce-scatter":
+            self.seen.append((tuple(args[1].shape) if isinstance(args[1], torch.Tensor)
+                              else tuple(args[1][0].shape), OC._group_size(args)))
+        return func(*args, **(kwargs or {}))
+
+
+def test_census_counts_in_proj_reduce_scatter_over_model(fake_world):
+    """A shrink(jamba) train cell over a 2 x 2 fake world: each Mamba
+    layer's ``in_proj`` gradient, gathered over ``model`` where its layer
+    runs, is reduce-scattered (summed) back over it, (2·d_inner, D/2)
+    after the one over ``data``, and the census's reduce-scatter wire
+    bytes hold those sums' ring cost."""
+    fake_world(4)
+    mesh = TM.make_mesh((2, 2), ("data", "model"), device="cpu")
+    cell = TS.build_cell(small("jamba-v0.1-52b"), "train_4k", mesh, shape=(16, 8, "train"))
+    cfg = cell.model_cfg
+    n_mamba = sum(s.kind == "mamba" for p, r in cfg.blocks for s in p for _ in range(r))
+    with cell.mode:
+        with OC.op_census(*cell.args) as c, ReduceScatters() as rs:
+            cell.fn(*cell.args)
+    in_proj = (2 * cfg.d_inner, cfg.d_model // 2)
+    assert rs.seen.count((in_proj, 2)) == n_mamba > 0
+    ring = n_mamba * math.prod(in_proj) * 2 * (2 - 1) / 2      # bf16, a group of 2
+    assert c.result()["wire"]["reduce-scatter"] >= ring
 
 
 @pytest.mark.parametrize("multi_pod", [False, True])

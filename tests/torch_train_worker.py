@@ -19,14 +19,21 @@ With ``sharded`` it runs the training state held as each rank's blocks
 of ``DATA_PKL`` (numpy only: the reference's initial states, batches,
 whole leaves to cut and a checkpoint's path): :func:`sharded_cases`,
 written to ``OUT_DIR/sharded{RANK}.pkl``.
+
+With ``tp`` it runs tensor parallelism over ``model``
+(``distributed.tensor_parallel``; ``test_torch_tensor_parallel.py``) on
+the reference's initial states and batches of ``DATA_PKL``:
+:func:`tp_cases`, written to ``OUT_DIR/tp{RANK}.pkl``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import json
 import pickle
 import sys
+from collections import defaultdict
 from pathlib import Path
 
 import numpy as np
@@ -40,11 +47,14 @@ from repro_torch.configs import get_arch, shrink
 from repro_torch.distributed.compression import (compress_grads_tree, compressed_psum,
                                                  init_residuals, quantize_int8)
 from repro_torch.distributed.pipeline import bubble_fraction, make_pipelined_fn
+from repro_torch.distributed import sharded
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.sharded import (block_bytes, gather_state, shard_leaf,
                                              shard_state)
 from repro_torch.launch import steps as TST
 from repro_torch.launch import train as TT
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.serve import serve
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.optim import OptConfig, global_norm, init_opt_state, opt_update
@@ -255,10 +265,11 @@ CKPT_ARCH, CKPT_MESH = "stablelm-1.6b", {2: (2, 1), 4: (2, 2)}
 REMAT_ARCH = "deepseek-v2-lite-16b"
 
 
-def family_cfg(arch):
-    """shrink() of ``arch``; an MoE with ``moe_ep`` at capacity factor
-    E/k, where no pick drops, so the data split moves no token."""
-    cfg = shrink(get_arch(arch).model)
+def family_cfg(arch, **over):
+    """shrink() of ``arch`` (``over`` applied); an MoE with ``moe_ep`` at
+    capacity factor E/k, where no pick drops, so the data split moves no
+    token."""
+    cfg = shrink(get_arch(arch).model, **over)
     if cfg.n_experts:
         cfg = dataclasses.replace(cfg, moe_ep=True, capacity_factor=cfg.n_experts / cfg.top_k)
     return cfg
@@ -280,6 +291,15 @@ def same(a, b) -> bool:
     fa, fb = flatten(a), flatten(b)
     return fa.keys() == fb.keys() and all(torch.equal(fa[k].detach(), fb[k].detach())
                                           for k in fa)
+
+
+def spread(a, b):
+    """{path: (the largest |a - b| of the leaf's elements, the largest
+    |b|)} of two trees of tensors."""
+    fa, fb = flatten(a), flatten(b)
+    assert fa.keys() == fb.keys()
+    return {k: (float((fa[k].detach().double() - fb[k].detach().double()).abs().max()),
+                float(fb[k].detach().double().abs().max())) for k in fb if fb[k].numel()}
 
 
 def run_steps(cfg, ocfg, mesh, state, data, specs=None, steps=range(STEPS)):
@@ -338,7 +358,9 @@ def sharded_family(arch, mesh, data):
     out = {"init_equal": same(blocks, shard_state(whole, specs, mesh)),
            "exact": {"blocks": run_steps(cfg, ocfg, mesh, blocks, data, specs),
                      "whole": run_steps(cfg, ocfg, mesh, whole, data)}}
-    out["exact"]["state_equal"] = same(gather_state(blocks, specs, mesh), whole)
+    gathered = gather_state(blocks, specs, mesh)
+    out["exact"]["state_equal"] = same(gathered, whole)
+    out["exact"]["state_spread"] = spread(gathered, whole)
     if arch == REMAT_ARCH:  # remat regions that hold the gathers and the EP exchange
         for remat in ("full", "dots"):
             rcfg = dataclasses.replace(cfg, remat=remat)
@@ -373,8 +395,9 @@ def block_order(world, data):
 def checkpoints(world, data, out_dir):
     """The world-1 checkpoint at ``data["ckpt"]`` (step 1) restored as
     blocks, against the whole leaves cut; saved again at this world size
-    (step 1); two steps, then an async save of the blocks (step 3) and a
-    save of the whole form after the same two steps (``whole/``)."""
+    (step 1); two steps, then an async save of the blocks (step 3), a
+    save of the blocks gathered (``gathered/``) and one of the whole form
+    after the same two steps (``whole/``)."""
     cfg, ocfg = family_cfg(CKPT_ARCH), opt_cfg("adamw", clip=0.0)
     mesh = make_mesh(CKPT_MESH[world], ("data", "model"), device="cpu")
     specs = TST.train_specs(cfg, ocfg, mesh)
@@ -391,8 +414,10 @@ def checkpoints(world, data, out_dir):
               "whole": run_steps(cfg, ocfg, mesh, whole, data["families"][CKPT_ARCH], None, steps)}
     mine.save_async(3, st, {"data_step": 3})
     mine.wait()
+    gathered = gather_state(st, specs, mesh)
     if dist.get_rank() == 0:
         save_state(Path(out_dir) / f"ckpt{world}" / "whole", 3, whole, {"data_step": 3})
+        save_state(Path(out_dir) / f"ckpt{world}" / "gathered", 3, gathered, {"data_step": 3})
     return {"cut_equal": cut_equal, "losses": losses}
 
 
@@ -419,6 +444,179 @@ def sharded_cases(rank, world, data, out_dir):
     return out
 
 
+# ---------------------------------------------------------- tensor parallelism
+#: The (data, model) meshes of the tensor-parallel cases, by world size.
+TP_MESHES = {2: ((1, 2),), 4: ((2, 2), (1, 4))}
+#: name -> (architecture, overrides of its shrink()): the sharded-state
+#: families, granite's single KV head (whole at any tp), and q heads, KV
+#: heads and a vocabulary that do not divide 4 (6 q heads read 3 KV
+#: heads: at tp 2 a rank's three q heads read two KV heads).
+TP_CASES = {**{a: (a, {}) for a in FAMILIES}, "granite-20b": ("granite-20b", {}),
+            "h6-kv3-v250": ("stablelm-1.6b", dict(n_heads=6, n_kv_heads=3, vocab_size=250))}
+#: The serving cases over (1, 2): two prompts, a prefill and four ticks.
+SERVE_ARCHS, SERVE_PROMPT, SERVE_TICKS, SERVE_SMAX = ("stablelm-1.6b", "falcon-mamba-7b"), 12, 4, 32
+
+
+def tp_cfg(name):
+    arch, over = TP_CASES[name]
+    return family_cfg(arch, **over)
+
+
+@contextlib.contextmanager
+def gathered_axes(params):
+    """{path: the mesh axes the leaf was gathered over} of the parameter
+    blocks ``params`` while inside: ``sharded.gather_leaf`` (the
+    forward's gathers and the backward's regathers) and its
+    ``_gather_dim`` wrapped."""
+    paths = {id(t): p for p, t in flatten(params).items()}
+    axes, current = defaultdict(set), [None]
+    leaf, dim = sharded.gather_leaf, sharded._gather_dim
+
+    def gather_leaf(block, *a, **k):
+        current[0] = paths.get(id(block))
+        return leaf(block, *a, **k)
+
+    def gather_dim(t, d, axis, mesh):
+        axes[current[0]].add(axis)
+        return dim(t, d, axis, mesh)
+
+    sharded.gather_leaf, sharded._gather_dim = gather_leaf, gather_dim
+    try:
+        yield axes
+    finally:
+        sharded.gather_leaf, sharded._gather_dim = leaf, dim
+
+
+def tp_gradients(cfg, mesh, specs, blocks, whole, batch):
+    """One step's gradients of the blocks (the compute cut over
+    ``model``) against the whole form's, cut, each as (max |difference|,
+    max |whole|); the leaves whose parts are summed over ``model`` and
+    their gradients without that sum (max |difference| / max |whole|);
+    the axes every leaf was gathered over."""
+    pspecs = specs["params"]
+    _, gw = TST.make_loss_and_grads(cfg, mesh)(whole["params"], batch)
+    gw = shard_state(gw, pspecs, mesh)
+    with gathered_axes(blocks["params"]) as axes:
+        _, gb = TST.make_loss_and_grads(cfg, mesh, pspecs)(blocks["params"], batch)
+    real = TST.partial_grad_paths
+    TST.partial_grad_paths = lambda *a: []
+    try:
+        _, gu = TST.make_loss_and_grads(cfg, mesh, pspecs)(blocks["params"], batch)
+    finally:
+        TST.partial_grad_paths = real
+    fs = sharded.spec_paths(pspecs)
+    partial = real(pspecs, mesh)
+    return {"diff": {p: (float((gb[p] - gw[p]).abs().max()), float(gw[p].abs().max()))
+                     for p in gb},
+            "partial": partial,
+            "unsummed": {p: rel(gu[p], gw[p]) for p in partial},
+            "cut_over_model": [p for p in fs if any("model" in a for a in
+                                                   sharded.cut_axes(fs[p], mesh))],
+            "gathered": {p: sorted(a) for p, a in axes.items()}}
+
+
+def tp_family(name, mesh, data):
+    """One case over one mesh, AdamW at lr 1e-3 from the reference's
+    initial state: the state's bytes against ``bytes_under_specs``, the
+    first step's gradients (:func:`tp_gradients`), three steps' losses
+    of the blocks and of the whole form, and the state after them, the
+    blocks gathered against the whole form's (:func:`spread`)."""
+    cfg, ocfg = tp_cfg(name), opt_cfg("adamw")
+    specs = TST.train_specs(cfg, ocfg, mesh)
+    blocks = interop.train_state_from_jax(data["state"], cfg, device="cpu", mesh=mesh)
+    whole = interop.train_state_from_jax(data["state"], cfg, device="cpu")
+    d = mesh.get_local_rank("data")
+    n = mesh.shape[mesh.mesh_dim_names.index("data")]
+    rows = slice(d * BATCH // n, (d + 1) * BATCH // n)
+    first = {"tokens": torch.as_tensor(data["tokens"][0][rows])}
+    if cfg.kind == "encdec":
+        first["audio_frames"] = torch.as_tensor(data["frames"][0][rows])
+    out = {"bytes": block_bytes(blocks),
+           "under_specs": TST.bytes_under_specs(TST.state_shapes(cfg, ocfg), specs, mesh),
+           "grads": tp_gradients(cfg, mesh, specs, blocks, whole, first),
+           "blocks": run_steps(cfg, ocfg, mesh, blocks, data, specs),
+           "whole": run_steps(cfg, ocfg, mesh, whole, data)}
+    out["state_spread"] = spread(gather_state(blocks, specs, mesh), whole)
+    return out
+
+
+def vocab_ops(mesh):
+    """The vocab-parallel loss (and its gradient), argmax and lookup over
+    the mesh's ``model`` group against ``torch.logsumexp``,
+    ``torch.argmax`` and the whole table's rows, on logits whose rows 0
+    and 1 tie across two ranks' blocks and row 2 within one rank's."""
+    tp = TP.model_group(mesh, specs={})
+    n, rank = 12, tp.rank
+    V = n * tp.size
+    rng = np.random.default_rng(20)
+    logits = torch.as_tensor(rng.standard_normal((6, V)), dtype=torch.float32)
+    logits[0, [1, n + 1]] = 9.0              # ranks 0 and 1: the lower index wins
+    logits[1, [n + 2, V - 1]] = 9.0          # rank 1 and the last rank
+    logits[2, [n + 3, n + 5]] = 9.0          # inside rank 1's block
+    targets = torch.as_tensor(rng.integers(0, V, 6))
+    whole = logits.clone().requires_grad_(True)
+    want = torch.logsumexp(whole, -1) - whole.gather(-1, targets[:, None])[:, 0]
+    (gw,) = torch.autograd.grad((want * torch.arange(1.0, 7.0)).sum(), whole)
+    cols = slice(rank * n, (rank + 1) * n)
+    block = logits[:, cols].clone().requires_grad_(True)
+    got = TP.vocab_parallel_cross_entropy(block, targets, tp)
+    (gb,) = torch.autograd.grad((got * torch.arange(1.0, 7.0)).sum(), block)
+    table = torch.as_tensor(rng.standard_normal((V, 8)), dtype=torch.float32)
+    ids = torch.as_tensor(rng.integers(-V, V, (3, 5)))
+    rows = TP.vocab_lookup(table[cols], ids, tp)
+    return {"loss": rel(got.detach(), want.detach()), "grad": rel(gb, gw[:, cols]),
+            "argmax": TP.vocab_parallel_argmax(logits[:, cols], tp).tolist(),
+            "argmax_bf16": TP.vocab_parallel_argmax(logits[:, cols].bfloat16(), tp).tolist(),
+            "want_argmax": torch.argmax(logits, -1).tolist(), "tie_cols": [1, n + 2, n + 3],
+            "lookup_equal": bool(torch.equal(rows, M._rows(table, ids)))}
+
+
+def tp_serving():
+    """Two prompts through the prefill step and SERVE_TICKS decode ticks
+    over a (1, 2) mesh (the parameters as the rank's blocks, the caches
+    as :func:`launch.steps.cache_blocks` gives them) against
+    ``launch.serve.serve`` unsharded, for each of SERVE_ARCHS."""
+    mesh = make_mesh((1, 2), ("data", "model"), device="cpu")
+    out = {}
+    for arch in SERVE_ARCHS:
+        cfg = shrink(get_arch(arch).model)
+        model = M.Model(cfg, device="cpu", seed=3)
+        rng = np.random.default_rng(7)
+        queue = [rng.integers(1, cfg.vocab_size, SERVE_PROMPT).astype(np.int32) for _ in range(2)]
+        want, _ = serve(cfg, model, queue, batch=2, max_new=SERVE_TICKS + 1, s_max=SERVE_SMAX,
+                        device="cpu")
+        params = model.params()
+        pspecs = TST.param_specs(params, cfg, mesh)
+        blocks = shard_state(params, pspecs, mesh)
+        caches = TST.cache_blocks(cfg, mesh, 2, SERVE_SMAX, dtype=torch.float32, device="cpu")
+        toks = torch.as_tensor(np.stack(queue), dtype=torch.long)
+        batch = {"tokens": torch.cat([toks, torch.zeros((2, 1), dtype=torch.long)], 1)}
+        nxt, caches = TST.make_prefill_step(cfg, mesh, pspecs)(blocks, batch, caches)
+        got, pos = [nxt], torch.full((2,), SERVE_PROMPT, dtype=torch.int32)
+        tick = TST.make_serve_step(cfg, mesh, pspecs)
+        for _ in range(SERVE_TICKS):
+            nxt, caches = tick(blocks, caches, nxt, pos)
+            got.append(nxt)
+            pos = pos + 1
+        out[arch] = {"want": want, "got": torch.cat(got, 1).tolist(),
+                     "cache": [{k: tuple(t.shape) for k, t in c.items()} for c in caches],
+                     "param_bytes": block_bytes(blocks),
+                     "under_specs": TST.bytes_under_specs(params, pspecs, mesh)}
+    return out
+
+
+def tp_cases(rank, world, data):
+    out = {"families": {}, "vocab": {}}
+    for shape in TP_MESHES[world]:
+        mesh = make_mesh(shape, ("data", "model"), device="cpu")
+        out["vocab"][shape] = vocab_ops(mesh)
+        for name in TP_CASES:
+            out["families"][(name, shape)] = tp_family(name, mesh, data[name])
+    if world == 2:
+        out["serving"] = tp_serving()
+    return out
+
+
 def main(rank: int, world: int, init_file: str, out_dir: str, mode=None, data=None) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
@@ -428,6 +626,10 @@ def main(rank: int, world: int, init_file: str, out_dir: str, mode=None, data=No
             data = pickle.loads(Path(data).read_bytes())
             out = sharded_cases(rank, world, data, out_dir)
             Path(out_dir, f"sharded{rank}.pkl").write_bytes(pickle.dumps(out))
+            return
+        if mode == "tp":
+            out = tp_cases(rank, world, pickle.loads(Path(data).read_bytes()))
+            Path(out_dir, f"tp{rank}.pkl").write_bytes(pickle.dumps(out))
             return
         out = {"compression": compression(rank, world), "pipeline": pipeline(world),
                "ep_moe_apply": ep_moe_apply(rank, world), "ep_mesh_moe": ep_mesh_moe(world),
