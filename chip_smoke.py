@@ -101,7 +101,7 @@ and runs, in order, failing on the first phase that fails:
     route (plain sweep + B2) checked by launch counts, and one
     architecture again over the mesh;
 16. the dense LLM scaffold at full width and depth, random weights, TF32
-    off: (a) stablelm-1.6b in bf16 served by launch/serve.py's loop (32
+    off: (a) stablelm-1.6b in bf16 served by launch/serve.py's loop (16
     requests, prompt 256, 64 new tokens, 8 slots, s_max 512): prefill ms
     per request and decode ms per tick (medians, CUDA events), tokens/s,
     ticks, weight, cache and peak card memory, the decode tick's byte
@@ -116,7 +116,7 @@ and runs, in order, failing on the first phase that fails:
     prefill against train mode.  It launches none of B1-B3 (counters);
 17. MLA and the local MoE at full width, random weights, TF32 off: (a)
     deepseek-v2-lite-16b in bf16 at full depth (27 layers, 64 routed
-    experts top-6 + 2 shared) served by launch/serve.py's loop (16
+    experts top-6 + 2 shared) served by launch/serve.py's loop (8
     requests, prompt 256, 32 new tokens, 8 slots, s_max 512) with 16a's
     metrics, and the dropped picks per prefill and per decode tick; (b)
     in float32 at its width, depth cut: teacher-forced decode of positions
@@ -130,7 +130,7 @@ and runs, in order, failing on the first phase that fails:
     256) with 16a's metrics.  It launches none of B1-B3 (counters);
 18. Mamba and the encoder-decoder at full width, random weights, TF32
     off: (a) falcon-mamba-7b in bf16 at full depth (64 Mamba layers,
-    d_inner 8192, N 16) served by launch/serve.py's loop (32 requests,
+    d_inner 8192, N 16) served by launch/serve.py's loop (16 requests,
     prompt 256 through the chunked scan, 64 new tokens, 8 slots, s_max
     512) with 16a's metrics, then one prefill of 256 and one of 200 (the
     per-step scan) timed apart; (b) in float32 at its width, depth cut:
@@ -144,7 +144,7 @@ and runs, in order, failing on the first phase that fails:
     dispatch against the CPU's at layers 4-5 of its period (attention,
     then Mamba with the MoE) at capacity factor E/k; (d) whisper-base in bf16 at full width and depth
     (6 + 6 layers, learned positions), 1500 audio-stub frames per request
-    (32 requests, prompt 32, 64 new tokens, 8 slots, s_max 448) with
+    (16 requests, prompt 32, 64 new tokens, 8 slots, s_max 448) with
     16a's metrics and the ck/cv cache bytes, and in float32 at full depth
     teacher-forced decode against train mode and the card against the
     CPU.  It launches none of B1-B3 (counters);
@@ -158,7 +158,7 @@ and runs, in order, failing on the first phase that fails:
     algorithms: the same losses bit for bit, and one save and one restore
     of its state timed; (c) jamba-v0.1-52b's layers 4-5 (attention, then
     Mamba with the MoE) in float32 at capacity factor E/k, batch 1 at 256
-    and 200 tokens (both scan paths): the loss and every parameter's
+    and 72 tokens (both scan paths): the loss and every parameter's
     gradient, card against CPU.  It launches none of B1-B3 (counters);
 20. the dry run held against the card, TF32 off: (a) the op census of
     19a's cell (stablelm-1.6b float32, AdamW, 4 x 512, a world of one)
@@ -166,7 +166,7 @@ and runs, in order, failing on the first phase that fails:
     (with_flops) of one real step within 1% and its peak against
     max_memory_allocated within 10%; (b) remat at the reference's
     sequence of 4096: for "full" and "dots" the largest batch whose
-    census peak stays under 75 GB, three steps at it (predicted against
+    census peak stays under 75 GB, two steps at it (predicted against
     measured peak, step ms against the step's bound), and at 4 x 512 the
     gradients with each mode bit-equal to those without under
     deterministic algorithms; (c) the dry run's records of stablelm-1.6b
@@ -194,7 +194,23 @@ and runs, in order, failing on the first phase that fails:
     per rank against bytes_under_specs, the tensor-parallel all-reduces;
     (c) granite-20b, internlm2-20b and internvl2-2b in bf16 at full width
     and depth served by launch/serve.py's loop (one request, prompt 32, 8
-    ticks) with 16a's metrics.  It launches none of B1-B3.
+    ticks) with 16a's metrics.  It launches none of B1-B3;
+23. the caches cut on their sequence (distributed/sequence.py), TF32 off:
+    (a) gemma3-4b in bf16 at full width and depth, batch 1 at the
+    long_500k cell's cache of 524288 positions, through the sharded
+    prefill and decode steps over a world-of-one NCCL group (every
+    sequence group of one, no collective) against the unsharded steps: a
+    prompt of 64 and 8 ticks, the same tokens bit for bit, the tick
+    beside its byte bound, the busy share, the cache bytes, the peak and
+    the float32 casts of the cache timed apart; (b) the merge of 16 slot
+    blocks' partial softmaxes, no collective, against the whole
+    softmax·v of one gemma3-4b global layer's decode and of one
+    deepseek-v2-lite-16b MLA layer's (kv_lora 512) at 524288 slots;
+    (c) the dry run's long_500k records of gemma3-4b, jamba-v0.1-52b and
+    falcon-mamba-7b and the decode_32k records of gemma3-4b, granite-20b,
+    internlm2-20b and deepseek-v2-lite-16b with seq_shard_kv on the
+    host: each peak beside PR 25's, the cache bytes per rank against
+    cache_under_specs.  It launches none of B1-B3.
 
 The card's name and power limit, then a JSON object with one entry per
 kernel, are the two lines before the last; the last line is
@@ -321,7 +337,7 @@ AUTOTUNE_MESH_ARCH = "deepseek-v2-lite-16b"  # the example's default
 # longer than its 1024-token window, so prefill takes the cache's roll.
 # Prompt plus max_new stays within s_max: a global layer's buffer would
 # wrap past it.
-LLM_SERVE = dict(arch="stablelm-1.6b", requests=32, prompt=256, max_new=64, batch=8, s_max=512)
+LLM_SERVE = dict(arch="stablelm-1.6b", requests=16, prompt=256, max_new=64, batch=8, s_max=512)
 LLM_WINDOW = dict(arch="gemma3-4b", requests=4, prompt=1536, max_new=32, batch=4, s_max=2048)
 # 16b, float32 at stablelm's width: teacher-forced decode of positions
 # 64-95 after a 64-token prefill (tests/test_archs_smoke.py:83-111 at full
@@ -336,7 +352,7 @@ LLM_RTOL = LLM_ATOL = 2e-4
 # weights from a seed.  17a: deepseek-v2-lite-16b at full width and depth
 # (27 layers: 1 dense + 26 MoE, 64 routed experts top-6 + 2 shared).
 # Prompt plus max_new stays within s_max: the MLA cache wraps past it.
-LLM_MOE = dict(arch="deepseek-v2-lite-16b", requests=16, prompt=256, max_new=32, batch=8,
+LLM_MOE = dict(arch="deepseek-v2-lite-16b", requests=8, prompt=256, max_new=32, batch=8,
                s_max=512)
 # 17b, float32 at deepseek's width, depth cut: (1) 4 layers (1 dense + 3
 # MoE) at capacity factor E/k, so C >= T and no pick drops, teacher-forced
@@ -358,7 +374,7 @@ LLM_KIMI = dict(arch="kimi-k2-1t-a32b", layers=2, requests=8, prompt=128, max_ne
 # Mamba layers, d_inner 8192, N 16, dt_rank 256); a prompt of 256 takes
 # the chunked scan (chunk 256), and one extra prefill of LLM_STEP_PROMPT
 # the per-step scan.
-LLM_MAMBA = dict(arch="falcon-mamba-7b", requests=32, prompt=256, max_new=64, batch=8,
+LLM_MAMBA = dict(arch="falcon-mamba-7b", requests=16, prompt=256, max_new=64, batch=8,
                  s_max=512)
 LLM_STEP_PROMPT = 200
 # 18b, float32 at falcon-mamba's width, depth cut: 4 layers, teacher-forced
@@ -381,7 +397,7 @@ LLM_JAMBA_CPU = dict(layers=(4, 6), prompt=64)
 # 18d: whisper-base at full width and depth (6 encoder + 6 decoder layers,
 # learned positions), 1500 audio-stub frames per request, s_max 448 (its
 # natural decoder context); float32 checks at full depth.
-LLM_WHISPER = dict(arch="whisper-base", requests=32, prompt=32, max_new=64, batch=8, s_max=448)
+LLM_WHISPER = dict(arch="whisper-base", requests=16, prompt=32, max_new=64, batch=8, s_max=448)
 LLM_WHISPER_TF = dict(prompt=32, decode=32, s_max=96)
 # Slice 12.  Phase 19 trains, TF32 off.  19a: stablelm-1.6b at full width
 # and depth through launch/train.py's main in the registry's float32 with
@@ -398,9 +414,9 @@ TRAIN_MAIN = dict(arch="stablelm-1.6b", seq=512, batch=4, steps=12, warmup=2,
 TRAIN_RESUME = dict(preset="100m", steps=12, every=5)
 # 19c: gradients, card against CPU, float32 at jamba's width: layers 4-5 of
 # its period (18c.2's cut) at capacity factor E/k, batch 1 at 256 tokens
-# (the chunked scan) and 200 (the per-step scan); the loss at rtol 2e-4,
+# (the chunked scan) and 72 (the per-step scan); the loss at rtol 2e-4,
 # each gradient within 1e-4 of its largest |value|.
-TRAIN_GRAD = dict(arch="jamba-v0.1-52b", layers=(4, 6), seqs=(256, 200))
+TRAIN_GRAD = dict(arch="jamba-v0.1-52b", layers=(4, 6), seqs=(256, 72))
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 2e-4, 1e-4
 
 # Slice 13 (phase 20): the dry run (launch.dryrun, launch.opcensus) held
@@ -414,7 +430,7 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 2e-4, 1e-4
 # dry run's records of stablelm-1.6b train_4k and the SA cell on the
 # single-pod mesh, on this host.
 DRYRUN_CELL = dict(arch="stablelm-1.6b", seq=512, batch=4)
-DRYRUN_REMAT = dict(arch="stablelm-1.6b", seq=4096, peak_limit=75e9, steps=3)
+DRYRUN_REMAT = dict(arch="stablelm-1.6b", seq=4096, peak_limit=75e9, steps=2)
 DRYRUN_FLOPS_RTOL, DRYRUN_PEAK_RTOL = 0.01, 0.10
 DRYRUN_HOST = dict(arch="stablelm-1.6b", shape="train_4k")
 
@@ -427,14 +443,15 @@ DRYRUN_HOST = dict(arch="stablelm-1.6b", shape="train_4k")
 # `ckpt_preset` state after one step, saved by the sharded path (async)
 # and restored by the unsharded one, and saved by the unsharded path and
 # restored by the sharded one, bit for bit.  21c: the dry run's train
-# records of `host_archs` on the single-pod mesh, on this host.
+# records of `host_archs` on the single-pod mesh, on this host, kimi-k2's
+# depth cut 61 -> `host_depth` (1 dense + 3 MoE layers: every leaf kind;
+# the whole depth took 76 s of the host's time).
 SHARDED = dict(det_steps=4, ckpt_preset="100m",
                host_archs=("stablelm-1.6b", "deepseek-v2-lite-16b", "kimi-k2-1t-a32b"),
-               host_shape="train_4k",
+               host_shape="train_4k", host_depth={"kimi-k2-1t-a32b": 4},
                # 21c's peaks per rank in MiB with the compute replicated over
                # 'model' (PERF.md section 6), printed beside this run's
-               replicated_peak_mib={"stablelm-1.6b": 202945.3, "deepseek-v2-lite-16b": 198239.4,
-                              "kimi-k2-1t-a32b": 560888.8})
+               replicated_peak_mib={"stablelm-1.6b": 202945.3, "deepseek-v2-lite-16b": 198239.4})
 
 # Slice 15 (phase 22): the compute cut over 'model' as the specs cut the
 # leaves (distributed/tensor_parallel.py).  22a: `arch` in bf16 at full
@@ -459,6 +476,45 @@ LLM_DENSE_REST = dict(archs=("granite-20b", "internlm2-20b", "internvl2-2b"), re
 # run's (the compute not cut over 'model') at ORDER_TOL.
 FOUR_CARDS = dict(arch="stablelm-1.6b", seq=512, batch=8, steps=12, timed_from=2,
                   model_parallel=(1, 2, 4))
+# Slice 16 (phase 23): the caches cut on their sequence
+# (distributed/sequence.py).  23a: `arch` in bf16 at full width and depth,
+# batch 1, a cache of `s_max` positions (the long_500k cell's), through
+# the sharded steps over a world-of-one NCCL group (every sequence group
+# of one) against the unsharded ones: a prompt of `prompt`, `ticks`
+# ticks.  23b: one global layer's decode of `arch` and one MLA layer's
+# of `mla_arch` at `s_max` slots, random bf16 inputs whose scores have a
+# standard deviation of about `score_std`, cut into `blocks` slot blocks
+# whose partials are merged with no collective, against the whole
+# softmax·v; the last `masked` slots unwritten (int32 max), so the last
+# block is partly masked.  MERGE_TOL: the largest |merged - whole| over
+# the largest |value| of the values: float32's eps is 6.0e-8; each form
+# sums 524288 products of weights that add to one through blocked
+# reductions (at most log2(524288) = 19 roundings of a partial sum no
+# larger than the largest |value|), and the merge rescales each block's
+# sums once (2 roundings), so about 21 eps = 1.3e-6 of it; 1e-5 leaves
+# 8x, where a block merged without its rescale, or missing, moves the
+# output by that block's weight.  23c: the dry run's records on the
+# host: `long` (long_500k) and `knob` (decode_32k with seq_shard_kv),
+# each peak beside PR 25's in GiB (PERF.md section 4, my CPU dry run,
+# PR 25: the default decode_32k records for the knob's).
+SEQ_CUT = dict(arch="gemma3-4b", prompt=64, ticks=8, s_max=524288, blocks=16, masked=1000,
+               mla_arch="deepseek-v2-lite-16b", score_std=4.0,
+               long=("gemma3-4b", "jamba-v0.1-52b", "falcon-mamba-7b"),
+               knob=("gemma3-4b", "granite-20b", "internlm2-20b", "deepseek-v2-lite-16b"),
+               pr25_peak_gib={("gemma3-4b", "long_500k"): 12.4,
+                              ("jamba-v0.1-52b", "long_500k"): 15.8,
+                              ("falcon-mamba-7b", "long_500k"): 0.4,
+                              ("gemma3-4b", "decode_32k"): 8.1, ("granite-20b", "decode_32k"): 7.0,
+                              ("internlm2-20b", "decode_32k"): 48.5,
+                              ("deepseek-v2-lite-16b", "decode_32k"): 8.3})
+MERGE_TOL = 1e-5
+# The four-card record's sequence-cut decodes (four_cards): shrink(gemma3-4b)
+# float32, batch 1, a prompt of `prompt` and `ticks` ticks in caches of
+# `s_max`, over (4, 1) (the cache cut over 'data') and over (1, 4) with
+# seq_shard_kv and `kv_heads` KV heads (4 would divide 'model' and leave
+# the cache whole), each rank's tokens against its unsharded steps'.
+FOUR_CARDS_SEQ = dict(arch="gemma3-4b", prompt=12, ticks=9, s_max=24, kv_heads=2,
+                      runs=(((4, 1), False), ((1, 4), True)))
 ORDER_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -4236,19 +4292,24 @@ def phase21c_host(smi):
     recs = {}
     with tempfile.TemporaryDirectory() as out, dryrun.fake_world(False) as mesh:
         for arch in SHARDED["host_archs"]:
+            spec, depth = get_arch(arch), SHARDED["host_depth"].get(arch)
+            if depth:
+                spec = dataclasses.replace(spec, model=cut_depth(spec.model, depth))
             rec = dryrun.run_cell(arch, SHARDED["host_shape"], multi_pod=False, out_dir=Path(out),
-                                  mesh=mesh)
-            cfg = steps_mod._dryrun_model_cfg(get_arch(arch), SHARDED["host_shape"], mesh)
+                                  mesh=mesh, spec=spec)
+            cfg = steps_mod._dryrun_model_cfg(spec, SHARDED["host_shape"], mesh)
             leaves = len(flatten(steps_mod.state_shapes(cfg, OptConfig(**rec["optimizer"]))))
             bpd = rec["bytes_per_device"]
             # each storage is rounded up to the allocator's 512-byte blocks on a cuda fake device
             slack = 511 * leaves if rec["layout"]["device"] == "cuda" else 0
             check(bpd["state_under_specs"] <= bpd["state"] <= bpd["state_under_specs"] + slack,
                   f"phase 21c: {arch} state {bpd['state']} against {bpd['state_under_specs']}")
+            beside = (f"depth cut to {depth} layers" if depth else
+                      f"with the compute replicated over 'model': "
+                      f"{SHARDED['replicated_peak_mib'][arch]:.1f} MiB")
             log(f"  {arch}: state {fmt_mem(bpd['state'])} per rank ({leaves} leaves), under the "
                 f"reference's specs {fmt_mem(bpd['state_under_specs'])}; peak {fmt_mem(bpd['peak'])} "
-                f"(activations {fmt_mem(bpd['activations_peak'])}; with the compute replicated "
-                f"over 'model': {SHARDED['replicated_peak_mib'][arch]:.1f} MiB), "
+                f"(activations {fmt_mem(bpd['activations_peak'])}; {beside}), "
                 f"{'fits' if bpd['peak'] <= 80 * 2**30 else 'does not fit'} 80 GiB "
                 f"({'fits' if bpd['peak'] <= card else 'does not fit'} this card's "
                 f"{fmt_mem(card)}); collectives {rec['collectives']}; {rec['optimizer']['kind']}; "
@@ -4324,8 +4385,9 @@ def phase22a_tp_serving(smi):
         mesh = make_mesh((1, 1), ("data", "model"), device=DEV)
         pspecs = steps_mod.param_specs(params, cfg, mesh)
         blocks = sharded.shard_state(params, pspecs, mesh)
-        tp_steps = (steps_mod.make_prefill_step(cfg, mesh, pspecs),
-                    steps_mod.make_serve_step(cfg, mesh, pspecs))
+        kw = dict(batch=T["requests"], s_max=T["s_max"])
+        tp_steps = (steps_mod.make_prefill_step(cfg, mesh, pspecs, **kw),
+                    steps_mod.make_serve_step(cfg, mesh, pspecs, **kw))
         read = counted_launches()
         # three pairs in turns (unsharded first, then sharded first, ...):
         # the host's drift falls on both
@@ -4428,6 +4490,278 @@ def phase22_tensor_parallel(smi):
     return n
 
 
+# ------------------------------------------------------------- slice 16
+def phase23a_long_decode(smi):
+    """gemma3-4b batch 1 at 524288 positions: the sharded steps over a
+    world-of-one NCCL group against the unsharded steps."""
+    from repro_torch.distributed import sharded
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    T = SEQ_CUT
+    cfg = llm_cfg(T["arch"], "bfloat16")
+    S, dtype = T["s_max"], torch.bfloat16
+    log(f"phase 23a: {T['arch']} bf16 at full width and depth, batch 1, a cache of {S} "
+        f"positions (long_500k's), through make_prefill_step and make_serve_step with a mesh "
+        f"and specs over a world-of-one NCCL group (every sequence group of one: no collective) "
+        f"against the unsharded steps; prompt {T['prompt']}, {T['ticks']} ticks; {smi}")
+    model = M.Model(cfg, device=DEV, seed=11)
+    params = model.params()
+    toks = torch.as_tensor(np.random.default_rng(11).integers(
+        1, cfg.vocab_size, (1, T["prompt"] + 1)), device=DEV)
+    whole_steps = (steps_mod.make_prefill_step(cfg), steps_mod.make_serve_step(cfg))
+    with world_of_one():
+        mesh = make_mesh((1, 1), ("data", "model"), device=DEV)
+        pspecs = steps_mod.param_specs(params, cfg, mesh)
+        blocks = sharded.shard_state(params, pspecs, mesh)
+        kw = dict(batch=1, s_max=S)
+        plan, _ = steps_mod._serving_plan(cfg, mesh, pspecs, **kw)
+        check(len(plan.seq) == cfg.n_layers and not any(plan.seq),
+              f"phase 23a: a sequence group of more than one rank over (1, 1): {plan.seq}")
+        tp_steps = (steps_mod.make_prefill_step(cfg, mesh, pspecs, **kw),
+                    steps_mod.make_serve_step(cfg, mesh, pspecs, **kw))
+        read = counted_launches()
+        caches = M.init_cache(cfg, 1, S, dtype, DEV)
+        cache_bytes = tensor_bytes(caches)
+        torch.cuda.reset_peak_memory_stats()
+        want, t_whole = tp_serve_run(cfg, *whole_steps, params, caches, toks, T["ticks"] + 1)
+        peak_whole = torch.cuda.max_memory_allocated()
+        del caches
+        torch.cuda.empty_cache()
+        caches = steps_mod.cache_blocks(cfg, mesh, 1, S, dtype, DEV)
+        check(tensor_bytes(caches) == cache_bytes, "phase 23a: the rank's cache is not whole")
+        torch.cuda.reset_peak_memory_stats()
+        got, t_cut = tp_serve_run(cfg, *tp_steps, blocks, caches, toks, T["ticks"] + 1)
+        peak_cut = torch.cuda.max_memory_allocated()
+        check(torch.equal(got, want), f"phase 23a: sharded tokens {got.tolist()} != unsharded "
+              f"{want.tolist()}")
+        # The prefill's caches were replaced: a profiler trace of 5 ticks
+        # over fresh ones at the last position (each rewrites its slot).
+        caches = steps_mod.cache_blocks(cfg, mesh, 1, S, dtype, DEV)
+        _, caches = tp_steps[0](blocks, {"tokens": toks}, caches)
+        tok = got[:, -1:].to(DEV)
+        pos = torch.full((1,), T["prompt"] + T["ticks"] - 1, dtype=torch.int32, device=DEV)
+        def tick():
+            return tp_steps[1](blocks, caches, tok, pos)[0].cpu()
+        dev, busy, ok = profile_calls(tick, 5)
+        by_op = device_by_op(tick, 5)
+
+        def casts():
+            for c in caches:
+                for name, t in c.items():
+                    if name != "pos_k":
+                        t.float()
+        cast_ms = cuda_ms(casts, n=5, warmup=1)
+        n = read()
+    check(n == {"b1": 0, "b2": 0, "b3": 0}, f"phase 23a: launched {n} of B1-B3")
+    weights = weight_read_bytes(cfg, params, 1, True)
+    bound = llm_bound(cfg, 1, S, weights + cache_bytes, decode=True)
+    tick, tick_whole = statistics.median(t_cut), statistics.median(t_whole)
+    log(f"  tokens equal bit for bit (1 x {T['ticks'] + 1}); decode tick {tick:.3f} ms sharded "
+        f"(median of {len(t_cut)}, CUDA events; min {min(t_cut):.3f}, max {max(t_cut):.3f}) "
+        f"against {tick_whole:.3f} ms unsharded; bound {bound[0]:.3f} ms by {bound[1]} ((weights "
+        f"read {fmt_mem(weights)} + cache {fmt_mem(cache_bytes)}) / 3.35 TB/s for bytes), the "
+        f"tick at {100 * bound[0] / tick:.1f}% of it")
+    log(f"  profiler, 5 ticks: device {busy:.3f} ms per tick{'' if ok else ' (incomplete)'}, "
+        f"busy {100 * busy / tick:.1f}%; {len(dev) / 5:.0f} device ops per tick; the cache's "
+        f"float tensors cast to float32 once: {cast_ms:.3f} ms ({100 * cast_ms / busy:.1f}% of "
+        f"the tick's device time)")
+    log(f"  device ms per tick by aten op (self): {by_op}")
+    log(f"  cache {fmt_mem(cache_bytes)}; peak card memory {fmt_mem(peak_cut)} sharded, "
+        f"{fmt_mem(peak_whole)} unsharded; B1-B3 launches {n}")
+    del model, params, blocks, caches
+    torch.cuda.empty_cache()
+    return {"tick_ms": tick, "bound_ms": bound[0]}
+
+
+def phase23b_merge(smi):
+    """The partials of 16 slot blocks merged with no collective against
+    the whole softmax·v: one gemma3-4b global layer's decode and one
+    deepseek-v2-lite-16b MLA layer's at 524288 slots.  Returns the worst
+    error over MERGE_TOL's scale."""
+    from repro_torch.distributed import sequence as SQ
+    from repro_torch.models import layers as L
+    T = SEQ_CUT
+    S, n, gen = T["s_max"], T["blocks"], torch.Generator(device=DEV).manual_seed(23)
+    b = SQ.block_len(S, n)
+    valid = torch.ones((1, S), dtype=torch.bool, device=DEV)
+    valid[:, S - T["masked"]:] = False
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=DEV) * scale).to(torch.bfloat16)
+
+    def held(label, got, want, values):
+        err = float((got - want).abs().max())
+        scale = float(values.abs().max())
+        log(f"    {label}: max |merged - whole| {err:.3e}, {err / scale:.3e} of max |value| "
+            f"{scale:.3f}; largest |output| {float(want.abs().max()):.3e}; tolerance "
+            f"{MERGE_TOL:g} of max |value|")
+        check(err <= MERGE_TOL * scale, f"phase 23b: {label} beyond its tolerance")
+        return err / scale
+
+    log(f"phase 23b: the merge of {n} slot blocks of {b} (no collective) against the whole "
+        f"softmax·v at {S} slots, the last {T['masked']} unwritten; {smi}")
+    cfg = llm_cfg(T["arch"], "bfloat16")
+    H, G, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = randn(1, 1, H, hd, scale=T["score_std"])
+    k, v = randn(1, S, G, hd), randn(1, S, G, hd)
+    want = L._gqa_out(L._softmax(L._gqa_scores(q, k, H // G), valid[:, None, None, None, :]),
+                      v, H // G)
+    parts = [L.gqa_partial(q, k[:, i:i + b], v[:, i:i + b], H // G, valid[:, i:i + b])
+             for i in range(0, S, b)]
+    worst = held(f"{T['arch']} global layer (q {H} heads over {G} KV heads of {hd})",
+                 L.gqa_heads(SQ.merge(parts)), want, v)
+    del k, v, want, parts
+    mcfg = llm_cfg(T["mla_arch"], "bfloat16")
+    H, c, dr = mcfg.n_heads, mcfg.kv_lora, mcfg.d_rope
+    scale = float(1.0 / np.sqrt(mcfg.d_nope + dr).astype(np.float32))
+    std = T["score_std"] / math.sqrt((c + dr) * scale * scale)
+    q_abs, q_r = randn(1, 1, H, c, scale=std), randn(1, 1, H, dr, scale=std)
+    ckv, kr = randn(1, S, c), randn(1, S, dr)
+    p = L._softmax(L._mla_scores("bshc,btc->bsht", q_abs, ckv, q_r, kr, scale),
+                   valid[:, None, None, :])
+    want = torch.einsum("bsht,btc->bshc", p, ckv.float())
+    parts = [L.mla_partial(q_abs, q_r, ckv[:, i:i + b], kr[:, i:i + b], valid[:, i:i + b], scale)
+             for i in range(0, S, b)]
+    worst = max(worst, held(f"{T['mla_arch']} MLA layer (ctx over kv_lora {c}, {H} heads)",
+                            SQ.merge(parts), want, ckv))
+    del ckv, kr, want, parts, p
+    torch.cuda.empty_cache()
+    return worst
+
+
+def cut_cache_bound(cfg, shape, n):
+    """The bytes of a cell's whole cache cut n ways: a leaf that holds a
+    sequence by whole slots of ceil(C / n) (the last block's padding), any
+    other leaf by n."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import SHAPES
+    from repro_torch.models import model as M
+    seq, batch, _ = SHAPES[shape]
+    with FakeTensorMode():
+        whole = M.init_cache(cfg, batch, seq, dtype=M._dtype(cfg.compute_dtype), device="cpu")
+    return sum(-(-t.shape[1] // n) * (t.numel() // t.shape[1]) * t.element_size()
+               if k in ("k", "v", "pos_k", "c_kv", "k_rope") else t.numel() * t.element_size() / n
+               for c in whole for k, t in c.items())
+
+
+def phase23c_host(smi):
+    """The dry run's long_500k records and seq_shard_kv's decode_32k
+    records on the single-pod mesh, on this host."""
+    import tempfile
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps as steps_mod
+    T = SEQ_CUT
+    log(f"phase 23c: the dry run's long_500k records of {', '.join(T['long'])} and decode_32k "
+        f"records with seq_shard_kv of {', '.join(T['knob'])} on the (16, 16) mesh (fake world of "
+        f"256, fake tensors on the host's fake device); {smi}")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, dryrun.fake_world(False) as mesh:
+        jobs = [(a, "long_500k", None) for a in T["long"]] + \
+               [(a, "decode_32k", {"seq_shard_kv": True}) for a in T["knob"]]
+        for arch, shape, over in jobs:
+            t0 = time.perf_counter()
+            rec = dryrun.run_cell(arch, shape, multi_pod=False, out_dir=Path(tmp), mesh=mesh,
+                                  overrides=over)
+            bpd = rec["bytes_per_device"]
+            cfg = steps_mod._dryrun_model_cfg(get_arch(arch), shape, mesh, over)
+            leaves = sum(len(c) for c in steps_mod.cache_specs(cfg, mesh, SHAPES[shape][1]))
+            # a fake CUDA storage is rounded up to the allocator's 512-byte blocks
+            slack = 511 * leaves if rec["layout"]["device"] == "cuda" else 0
+            check(bpd["cache_under_specs"] <= bpd["cache"] <= bpd["cache_under_specs"] + slack,
+                  f"phase 23c: {arch} {shape} cache {bpd['cache']} against cache_under_specs "
+                  f"{bpd['cache_under_specs']}")
+            bound = cut_cache_bound(cfg, shape, T["blocks"]) if shape == "long_500k" else None
+            check(bound is None or bpd["cache"] <= bound + slack, f"phase 23c: {arch} long_500k "
+                  f"cache {bpd['cache']} above the whole cache / {T['blocks']}, {bound}")
+            cut_line = "" if bound is None else f", whole cache / {T['blocks']} {fmt_mem(bound)}"
+            was = T["pr25_peak_gib"][(arch, shape)]
+            peak = bpd["peak"] / 2**30
+            out[(arch, shape)] = peak
+            log(f"  {arch} {shape}{' ' + rec['tag'] if rec['tag'] else ''}: peak {peak:.2f} GiB "
+                f"({fmt_mem(bpd['peak'])}) per rank (PR 25: {was} GiB"
+                f"{', default record' if over else ''}); cache "
+                f"{fmt_mem(bpd['cache'])}, cache_under_specs {fmt_mem(bpd['cache_under_specs'])}"
+                f"{cut_line}; "
+                f"parameters {fmt_mem(bpd['params'])}; all-reduces "
+                f"{rec['calls'].get('all-reduce', 0)}, all-gathers "
+                f"{rec['calls'].get('all-gather', 0)}; collectives {rec['collectives']}; "
+                f"bottleneck {rec['bottleneck']}; {time.perf_counter() - t0:.1f} s")
+    check(out[("gemma3-4b", "long_500k")] < 2, "phase 23c: gemma3-4b long_500k at or above 2 GiB")
+    check(all(peak < T["pr25_peak_gib"][k] for k, peak in out.items() if k[0] != "falcon-mamba-7b"),
+          "phase 23c: a peak that holds a cut cache did not fall below PR 25's")
+    return out
+
+
+def phase23_sequence(smi):
+    """The caches cut on their sequence: 23a, 23b and 23c, TF32 off.
+    Returns B1's, B2's and B3's launches in the phase (none)."""
+    t_phase = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    read = counted_launches()
+    try:
+        for part in (phase23a_long_decode, phase23b_merge, phase23c_host):
+            t0 = time.perf_counter()
+            part(smi)
+            log(f"  {part.__name__}: {time.perf_counter() - t0:.1f} s")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    n = read()
+    check(n == {"b1": 0, "b2": 0, "b3": 0}, f"phase 23: launched {n} of B1-B3")
+    log(f"  B1, B2 and B3 launches in phase 23: {n}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return n
+
+
+def four_cards_seq_rank(out_path):
+    """One rank of the four-card sequence-cut decodes (FOUR_CARDS_SEQ),
+    under ``torchrun`` (NCCL, one card per rank): for each run, the
+    unsharded steps, then the sharded ones over the mesh with the rank's
+    cache blocks; rank 0 writes {run: tokens of both, each layer's cut,
+    the sharded tick ms} to ``out_path``."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch, shrink
+    from repro_torch.distributed import sharded
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    F = FOUR_CARDS_SEQ
+    if DEV == "cuda":
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    dist.init_process_group("nccl" if DEV == "cuda" else "gloo")
+    try:
+        rec = {}
+        for shape, knob in F["runs"]:
+            over = dict(seq_shard_kv=True, n_kv_heads=F["kv_heads"]) if knob else {}
+            cfg = shrink(get_arch(F["arch"]).model, **over)
+            params = M.init_params(cfg, torch.Generator(device=DEV).manual_seed(0))
+            toks = torch.as_tensor(np.random.default_rng(0).integers(
+                1, cfg.vocab_size, (1, F["prompt"] + 1)), device=DEV)
+            want, _ = tp_serve_run(cfg, steps_mod.make_prefill_step(cfg),
+                                   steps_mod.make_serve_step(cfg), params,
+                                   M.init_cache(cfg, 1, F["s_max"], torch.float32, DEV), toks,
+                                   F["ticks"] + 1)
+            mesh = make_mesh(shape, ("data", "model"), device=DEV)
+            pspecs = steps_mod.param_specs(params, cfg, mesh)
+            kw = dict(batch=1, s_max=F["s_max"])
+            got, times = tp_serve_run(
+                cfg, steps_mod.make_prefill_step(cfg, mesh, pspecs, **kw),
+                steps_mod.make_serve_step(cfg, mesh, pspecs, **kw),
+                sharded.shard_state(params, pspecs, mesh),
+                steps_mod.cache_blocks(cfg, mesh, 1, F["s_max"], torch.float32, DEV), toks,
+                F["ticks"] + 1)
+            plan, _ = steps_mod._serving_plan(cfg, mesh, pspecs, **kw)
+            rec[f"{shape} seq_shard_kv={knob}"] = {
+                "want": want.tolist(), "got": got.tolist(), "tick_ms": statistics.median(times),
+                "cuts": [None if c is None else [list(c.axes), c.block] for c in plan.seq]}
+        if dist.get_rank() == 0:
+            Path(out_path).write_text(json.dumps(rec))
+    finally:
+        dist.destroy_process_group()
+
+
 def four_cards() -> int:
     """The four-card record (FOUR_CARDS), run on its own:
     ``python -c "import chip_smoke as cs; raise SystemExit(cs.four_cards())"``.
@@ -4435,8 +4769,10 @@ def four_cards() -> int:
     launch/train.py over the four cards, each rank's record
     (``--record``) read back: its losses against the --model-parallel 1
     run's at ORDER_TOL, the step (median of every rank's host step times
-    from `timed_from`), tokens/s and the largest peak per rank.  Returns
-    0 when every check held."""
+    from `timed_from`), tokens/s and the largest peak per rank.  Then
+    FOUR_CARDS_SEQ's batch-1 decodes under ``torchrun``
+    (:func:`four_cards_seq_rank`): each run's tokens against the
+    unsharded steps'.  Returns 0 when every check held."""
     import json
     import tempfile
     F = FOUR_CARDS
@@ -4486,6 +4822,27 @@ def four_cards() -> int:
                 f"{', '.join(f'{x:.1e}' for x in rel)}")
             check(np.allclose(got, base, **ORDER_TOL), f"four cards: --model-parallel {mp} "
                   f"losses {got.tolist()} against {base.tolist()} beyond {ORDER_TOL}")
+        with tempfile.TemporaryDirectory() as out:
+            S = FOUR_CARDS_SEQ
+            log(f"four cards: shrink({S['arch']}) float32, batch 1, prompt {S['prompt']}, "
+                f"{S['ticks']} ticks, caches of {S['s_max']}: the sequence-cut decode over "
+                f"{', '.join(f'{m} seq_shard_kv={k}' for m, k in S['runs'])} (NCCL) against "
+                f"each rank's unsharded steps; {smi}")
+            t0 = time.perf_counter()
+            seq_env = dict(env, PYTHONPATH=f"{ROOT}{os.pathsep}{ROOT / 'src'}")
+            proc = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc-per-node", "4", "--no-python", sys.executable, "-c",
+                 f"import chip_smoke as cs; cs.four_cards_seq_rank({str(Path(out) / 'seq.json')!r})"],
+                env=seq_env, cwd=ROOT, capture_output=True, text=True, timeout=600)
+            check(proc.returncode == 0, f"four cards: the sequence-cut decode exited "
+                  f"{proc.returncode}: {proc.stderr[-3000:]}")
+            for run, r in json.loads(Path(out, "seq.json").read_text()).items():
+                log(f"  {run}: tokens {r['got']} against unsharded {r['want']}; tick "
+                    f"{r['tick_ms']:.3f} ms (median, CUDA events); cuts {r['cuts']}; wall "
+                    f"{time.perf_counter() - t0:.1f} s")
+                check(r["got"] == r["want"], f"four cards: {run}: tokens differ")
+                check(any(r["cuts"]), f"four cards: {run}: no layer's sequence is cut")
     except SmokeFailure as e:
         log(f"FAILED: {e}")
         return 1
@@ -4506,37 +4863,68 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
     smi = phase0_device()
+
+    def elapsed(name):
+        log(f"  [{name} done, {time.perf_counter() - t_start:.1f} s into the script]")
+
     if args:                      # --against DIR: two trees on one card
         against(Path(args[1]), gen)
         serve_against(Path(args[1]))
         log(smi)
         return 0
     b1_err = phase1_sweep(gen)
+    elapsed("phase1_sweep")
     b2_err = phase2_argmin(gen)
+    elapsed("phase2_argmin")
     launches, p3 = phase3_main_path()
+    elapsed("phase3_main_path")
     p4, _ = phase4_main_path()
+    elapsed("phase4_main_path")
     full_launches = p4["b1"]
     phase5_v0_v1()
+    elapsed("phase5_v0_v1")
     t = phase6_times(gen)
+    elapsed("phase6_times")
     b2_route_times(gen)
+    elapsed("b2_route_times")
     b3_err = phase7_qap_sweep()
+    elapsed("phase7_qap_sweep")
     b3_launches, _ = phase8_serving()
+    elapsed("phase8_serving")
     phase9_mixed()
+    elapsed("phase9_mixed")
     b3 = phase_b3_times(gen)
+    elapsed("phase_b3_times")
     elastic_b1, elastic_b3 = phase10_elastic()
+    elapsed("phase10_elastic")
     suite = phase11_suite()
+    elapsed("phase11_suite")
     table7, _ = phase12_precision(gen)
+    elapsed("phase12_precision")
     temper = phase13_tempering()
+    elapsed("phase13_tempering")
     tel_launches = phase14a_telemetry()
+    elapsed("phase14a_telemetry")
     auto_b1 = phase14b_autoscaler(smi)
+    elapsed("phase14b_autoscaler")
     p15 = phase15_sharded(smi, dict(p3, launches=launches))
+    elapsed("phase15_sharded")
     p16 = phase16_llm(smi)
+    elapsed("phase16_llm")
     p17 = phase17_moe(smi)
+    elapsed("phase17_moe")
     p18 = phase18_mamba_encdec(smi)
+    elapsed("phase18_mamba_encdec")
     p19 = phase19_train(smi)
+    elapsed("phase19_train")
     p20 = phase20_dryrun(smi)
+    elapsed("phase20_dryrun")
     p21 = phase21_sharded_state(smi, p19["p19a"])
+    elapsed("phase21_sharded_state")
     p22 = phase22_tensor_parallel(smi)
+    elapsed("phase22_tensor_parallel")
+    p23 = phase23_sequence(smi)
+    elapsed("phase23_sequence")
     b1 = dict(route="cuda", source="src/repro_torch/kernels/csrc/metropolis_sweep.cu",
               replaces="src/repro/kernels/metropolis_sweep.py:81", library_ms=None)
     kernels = [
@@ -4548,7 +4936,8 @@ def main(argv=None) -> int:
                               "phase 15": p15["b1_delta"], "phase 16": p16["b1"],
                               "phase 17": p17["b1"], "phase 18": p18["b1"],
                               "phase 19": p19["b1"], "phase 20": p20["b1"],
-                              "phase 21": p21["b1"], "phase 22": p22["b1"]},
+                              "phase 21": p21["b1"], "phase 22": p22["b1"],
+                              "phase 23": p23["b1"]},
          "max_abs_err": max(b1_err["delta"], temper["max_abs_err"]),
          "ms": t["delta"][0], "wrapper_ms": t["delta"][1], "plain_ms": t["delta"][2],
          "bound_ms": t["delta"][3], "bound_by": t["delta"][4]},
@@ -4558,7 +4947,8 @@ def main(argv=None) -> int:
                               "phase 12": table7["b1"], "phase 15": p15["b1_full"],
                               "phase 16": p16["b1"], "phase 17": p17["b1"],
                               "phase 18": p18["b1"], "phase 19": p19["b1"],
-                              "phase 20": p20["b1"], "phase 21": p21["b1"], "phase 22": p22["b1"]},
+                              "phase 20": p20["b1"], "phase 21": p21["b1"], "phase 22": p22["b1"],
+                              "phase 23": p23["b1"]},
          "max_abs_err": max(b1_err["full"], suite["max_abs_err"], table7["max_abs_err"]),
          "ms": t["full"][0], "wrapper_ms": t["full"][1], "plain_ms": t["full"][2],
          "bound_ms": t["full"][3], "bound_by": t["full"][4]},
@@ -4571,7 +4961,8 @@ def main(argv=None) -> int:
                               "phase 15": p15["b2"], "phase 16": p16["b2"],
                               "phase 17": p17["b2"], "phase 18": p18["b2"],
                               "phase 19": p19["b2"], "phase 20": p20["b2"],
-                              "phase 21": p21["b2"], "phase 22": p22["b2"]},
+                              "phase 21": p21["b2"], "phase 22": p22["b2"],
+                              "phase 23": p23["b2"]},
          "max_abs_err": b2_err,
          "ms": t["b2"][0], "wrapper_ms": t["b2"][1], "plain_ms": t["b2"][2],
          "bound_ms": t["b2"][3], "bound_by": "bytes", "library_ms": t["b2"][4]},
@@ -4584,7 +4975,7 @@ def main(argv=None) -> int:
                               "phase 16": p16["b3"], "phase 17": p17["b3"],
                               "phase 18": p18["b3"], "phase 19": p19["b3"],
                               "phase 20": p20["b3"], "phase 21": p21["b3"],
-                              "phase 22": p22["b3"]},
+                              "phase 22": p22["b3"], "phase 23": p23["b3"]},
          "max_abs_err": b3_err,
          "ms": b3[0], "wrapper_ms": b3[1], "plain_ms": b3[2], "bound_ms": b3[3],
          "bound_by": b3[4], "library_ms": None},

@@ -65,20 +65,38 @@ def _suffix(multi_pod: bool) -> str:
     return "multi" if multi_pod else "single"
 
 
+def _tag(overrides) -> str:
+    return ",".join(f"{k}={v}" for k, v in sorted((overrides or {}).items()))
+
+
+def record_path(out_dir: Path, arch_id: str, shape_name: str, multi_pod: bool,
+                overrides=None) -> Path:
+    """A cell's record: ``{arch}__{shape}__{single|multi}.json``, a knob's
+    with ``__{tag}`` before the suffix."""
+    tag = _tag(overrides)
+    return out_dir / f"{arch_id}__{shape_name}__{_suffix(multi_pod)}{'__' + tag if tag else ''}.json"
+
+
 def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool, out_dir: Path,
-             mesh=None, spec=None) -> dict:
+             mesh=None, spec=None, overrides: dict = None) -> dict:
     """One cell's step under the census; writes and returns its record.
     ``mesh`` defaults to the production mesh over the fake world the
-    caller started; ``spec`` to ``get_arch(arch_id)``."""
+    caller started; ``spec`` to ``get_arch(arch_id)``.  ``overrides``
+    (ModelConfig fields, e.g. ``{"seq_shard_kv": True}``) make a knob's
+    record: its tag names them, and its file carries the tag beside the
+    default record's name."""
     mesh = mesh if mesh is not None else make_production_mesh(multi_pod=multi_pod)
     n_chips = mesh_size(mesh)
     spec = spec if spec is not None else get_arch(arch_id)
     t0 = time.time()
-    cell = build_cell(spec, shape_name, mesh)
+    cell = build_cell(spec, shape_name, mesh, overrides=overrides)
+    tag = _tag(overrides)
     t_build = time.time() - t0
     with cell.mode:
         sizes = {k: Census().hold(v) for k, v in cell.parts.items()}
         under_specs = bytes_under_specs(cell.whole, cell.specs, mesh)
+        cache_under = (None if cell.kind == "train" else
+                       bytes_under_specs(cell.whole_cache, cell.cache_specs, mesh))
         with op_census(*cell.args) as census:
             cell.fn(*cell.args)
     t_measure = time.time() - t0 - t_build
@@ -93,11 +111,12 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool, out_dir: Path,
     flops = res["flops"]
     rec = {
         "arch": arch_id, "shape": shape_name, "mesh": list(mesh_axes(mesh).values()),
-        "multi_pod": multi_pod, "n_chips": n_chips, "kind": kind, "tag": "",
+        "multi_pod": multi_pod, "n_chips": n_chips, "kind": kind, "tag": tag,
         "params_total": tot, "params_active": act,
         "model_cfg": {"param_dtype": cell.model_cfg.param_dtype,
                       "compute_dtype": cell.model_cfg.compute_dtype,
-                      "remat": cell.model_cfg.remat, "moe_ep": cell.model_cfg.moe_ep},
+                      "remat": cell.model_cfg.remat, "moe_ep": cell.model_cfg.moe_ep,
+                      "seq_shard_kv": cell.model_cfg.seq_shard_kv},
         "optimizer": dataclasses.asdict(cell.ocfg) if cell.ocfg else None,
         "layout": cell.layout,
         "bytes_per_device": {
@@ -105,6 +124,7 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool, out_dir: Path,
             "activations_peak": res["peak"] - held,
             "peak": res["peak"],
             "state_under_specs": under_specs,
+            **({} if cache_under is None else {"cache_under_specs": cache_under}),
         },
         "flops": flops, "bytes": res["hbm_bytes"],
         "by_op": res["by_op"], "calls": res["calls"],
@@ -118,9 +138,9 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool, out_dir: Path,
     rec["bottleneck"] = _bottleneck(terms)
     out_dir.mkdir(parents=True, exist_ok=True)
     suffix = _suffix(multi_pod)
-    path = out_dir / f"{arch_id}__{shape_name}__{suffix}.json"
+    path = record_path(out_dir, arch_id, shape_name, multi_pod, overrides)
     path.write_text(json.dumps(rec, indent=1))
-    print(f"[ok] {arch_id:24s} {shape_name:12s} {suffix:12s} "
+    print(f"[ok] {arch_id:24s} {shape_name:12s} {suffix:12s}{' ' + tag if tag else ''} "
           f"compute={terms['compute_s']:.3e}s memory={terms['memory_s']:.3e}s "
           f"coll={terms['collective_s']:.3e}s dom={rec['bottleneck']} "
           f"peak={res['peak'] / 2**30:.2f}GiB state_under_specs={under_specs / 2**30:.2f}GiB "
@@ -241,8 +261,7 @@ def main(argv=None) -> list:
             for aid, shape_name, _ in [j for j in jobs if j[2] == mp]:
                 suffix = _suffix(mp)
                 if args.skip_existing and aid != "sa":
-                    p = out_dir / f"{aid}__{shape_name}__{suffix}.json"
-                    if p.exists():
+                    if record_path(out_dir, aid, shape_name, mp).exists():
                         print(f"[skip] {aid} {shape_name} {suffix}")
                         continue
                 try:

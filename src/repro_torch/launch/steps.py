@@ -22,10 +22,13 @@ compute over ``model`` follows the same specs (tensor parallelism,
 ``distributed.tensor_parallel``): q heads, ``d_ff``, ``d_inner`` and the
 vocabulary are cut where the specs cut them, in the train step and in
 the prefill and decode steps under a mesh with ``specs``, whose caches
-hold the rank's heads and channels (:func:`cache_blocks`).  The
-sequence layouts (``seq_shard_kv``, ``seq_parallel``, the batch-1
-caches) change the specs only: the port keeps those sequences whole
-(ROADMAP.md section A, item 7).
+hold the rank's rows, heads and channels (:func:`cache_blocks`).  Their
+sequences are cut where :func:`cache_specs` cuts them: at a batch no
+data axis divides, the GQA and MLA caches over the data axes, and under
+``seq_shard_kv`` the GQA caches whose KV heads do not divide ``model``
+(no window) and the MLA caches over ``model``; each rank holds its block
+of the slots and a decode tick merges the group's partial softmaxes
+(``distributed.sequence``).  ``seq_parallel`` changes the specs only.
 ``repro.launch.shardctx`` has no counterpart: its ``constrain`` pins a
 traced activation to a layout, where each of the port's ranks holds
 local tensors, so :func:`activation_policy` gives the layout as DTensor
@@ -44,7 +47,7 @@ from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch._tree import at, flatten, map_tree
 from repro_torch.configs.common import SHAPES, ArchSpec
-from repro_torch.distributed import sharded
+from repro_torch.distributed import sequence, sharded
 from repro_torch.launch.mesh import dp_axes, mesh_axes
 from repro_torch.models import model as M
 from repro_torch.optim import OptConfig, init_opt_state, opt_step
@@ -431,7 +434,38 @@ def _next_token(logits, plan):
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def make_prefill_step(cfg: M.ModelConfig, mesh=None, specs=None):
+def _serving_plan(cfg: M.ModelConfig, mesh, specs, batch, s_max):
+    """The serving steps' :class:`models.model.Sharding` (the leaves'
+    gathers, and each layer's sequence cut of the caches
+    :func:`cache_specs` lays out for the global ``batch`` of ``s_max``
+    positions) and each layer's slots in the rank's cache (None for a
+    cache with no sequence)."""
+    if specs is None:
+        return None, None
+    if batch is None or s_max is None:
+        raise ValueError("serving steps over a mesh with specs need the global batch "
+                         "and s_max: the caches' layout depends on both")
+    plan = M.sharding(cfg, mesh, specs, cache_specs(cfg, mesh, batch), s_max)
+    slots = [cut.block if cut is not None else
+             None if spec.kind == "mamba" else M.cache_length(spec, s_max)
+             for cut, spec in zip(plan.seq, M.layer_specs(cfg))]
+    return plan, slots
+
+
+def _check_slots(slots, caches) -> None:
+    """Raise unless each layer's cache holds the slots the plan gives it:
+    caches laid out for another batch or ``s_max`` would be read as the
+    whole sequence, or as another block of it."""
+    if slots is None:
+        return
+    for j, (n, c) in enumerate(zip(slots, caches)):
+        t = c.get("k", c.get("c_kv"))
+        if n is not None and t.shape[1] != n:
+            raise ValueError(f"layer {j}'s cache holds {t.shape[1]} slots where the steps' "
+                             f"batch and s_max give the rank {n} (launch.steps.cache_blocks)")
+
+
+def make_prefill_step(cfg: M.ModelConfig, mesh=None, specs=None, batch=None, s_max=None):
     """``prefill_step(params, batch_data, caches) -> (next_tok (B, 1)
     int32, caches)`` over ``batch_data["tokens"][:, :-1]`` (the training
     layout of S + 1 tokens), the vision stub's ``patch_embeds`` before
@@ -440,10 +474,14 @@ def make_prefill_step(cfg: M.ModelConfig, mesh=None, specs=None):
     ``mesh`` with ``specs`` (``param_specs``, or :func:`tp_only` of them)
     ``params`` are the rank's blocks and the compute is cut over
     ``model`` as in training; the caches are the rank's
-    (:func:`cache_blocks`) and the batch its share along the data axes."""
-    plan = M.sharding(cfg, mesh, specs) if specs is not None else None
+    (:func:`cache_blocks` of the global ``batch`` and ``s_max``: where
+    their sequence is cut, the rank keeps its block of the prefill's
+    layout) and the batch its share along the data axes; ``batch`` and
+    ``s_max`` are then required, and a cache of other slots raises."""
+    plan, slots = _serving_plan(cfg, mesh, specs, batch, s_max)
 
     def prefill_step(params, batch_data, caches):
+        _check_slots(slots, caches)
         kw = {}
         if cfg.frontend == "vision_stub":
             kw["embeds"] = batch_data["patch_embeds"]
@@ -456,14 +494,17 @@ def make_prefill_step(cfg: M.ModelConfig, mesh=None, specs=None):
     return prefill_step
 
 
-def make_serve_step(cfg: M.ModelConfig, mesh=None, specs=None):
+def make_serve_step(cfg: M.ModelConfig, mesh=None, specs=None, batch=None, s_max=None):
     """``serve_step(params, caches, tokens (B, 1), pos (B,)) -> (next_tok
     (B, 1) int32, caches)``: one decode tick for the whole batch, the
-    caches written in place; ``mesh`` and ``specs`` as in
-    :func:`make_prefill_step`."""
-    plan = M.sharding(cfg, mesh, specs) if specs is not None else None
+    caches written in place; ``mesh``, ``specs``, ``batch`` and ``s_max``
+    as in :func:`make_prefill_step`.  Where a layer's cache is cut on
+    its sequence, the slot's owner writes the token and the group's
+    partial softmaxes are merged (``distributed.sequence``)."""
+    plan, slots = _serving_plan(cfg, mesh, specs, batch, s_max)
 
     def serve_step(params, caches, tokens, pos):
+        _check_slots(slots, caches)
         positions = pos[:, None].expand(tokens.shape).to(torch.int32)
         logits, caches = M.forward(params, cfg, tokens, positions=positions,
                                    caches=caches, mode="decode", mesh=mesh, plan=plan)
@@ -477,20 +518,29 @@ def cache_blocks(cfg: M.ModelConfig, mesh, batch: int, s_max: int, dtype=torch.b
     """The rank's decode caches over ``mesh`` for a global ``batch``:
     :func:`models.model.init_cache`'s for the rows, KV heads,
     cross-attention heads and Mamba channels that :func:`cache_specs`'
-    batch and ``model`` entries give the rank; a sequence entry is left
-    whole on the rank (the port keeps the sequence whole)."""
+    batch and ``model`` entries give the rank, and for its block of each
+    layer's slots where the sequence entry cuts them
+    (``sequence.block_len``: the last blocks padded, their pad slots at
+    position int32 max)."""
     sizes = mesh_axes(mesh)
-    entries = {k: e for layer in cache_specs(cfg, mesh, batch) for k, e in layer.items()}
+    layers = cache_specs(cfg, mesh, batch)
+    entries = {k: e for layer in layers for k, e in layer.items()}
+
+    def parts(entry):
+        return math.prod(sizes[a] for a in sharded.entry_axes(entry))
 
     def local(n, entry):
-        return n // math.prod(sizes[a] for a in sharded.entry_axes(entry))
+        return n // parts(entry)
 
+    lengths = [sequence.block_len(M.cache_length(spec, s_max), parts(sequence.seq_entry(c)))
+               for c, spec in zip(layers, M.layer_specs(cfg))]
     return M.init_cache(
         cfg, local(batch, next(iter(entries.values()))[0]), s_max,     # dim 0: the batch
         dtype=dtype, device=device, enc_len=enc_len,
         n_kv_heads=local(cfg.n_kv_heads, entries["k"][2]) if "k" in entries else None,
         n_heads=local(cfg.n_heads, entries["ck"][2]) if "ck" in entries else None,
-        d_inner=local(cfg.d_inner, entries["h"][1]) if "h" in entries else None)
+        d_inner=local(cfg.d_inner, entries["h"][1]) if "h" in entries else None,
+        lengths=lengths)
 
 
 # ------------------------------------------------------------ cell assembly
@@ -502,8 +552,9 @@ class Cell:
     trees (``state`` or ``params``, ``batch``, ``cache``); ``specs`` holds
     the reference layout's specs of the state (``param_specs`` /
     ``state_specs``) and ``whole`` the state (or parameters) whole, as
-    fake tensors no rank holds; ``layout`` says how the rank's share was
-    cut."""
+    fake tensors no rank holds (a serving cell's caches too, in
+    ``whole_cache``, with their ``cache_specs``); ``layout`` says how the
+    rank's share was cut."""
     arch_id: str
     shape_name: str
     kind: str
@@ -516,6 +567,8 @@ class Cell:
     layout: dict
     ocfg: Optional[OptConfig] = None
     whole: Any = None
+    whole_cache: Any = None
+    cache_specs: Any = None
 
 
 def _dryrun_model_cfg(spec: ArchSpec, shape_name: str, mesh,
@@ -554,9 +607,10 @@ def build_cell(spec: ArchSpec, shape_name: str, mesh, ocfg: Optional[OptConfig] 
     :func:`tp_only` of them under ``serve_params_tp_only``) and the
     sharded prefill or decode step; both compute over ``model`` as the
     specs cut it.  The batch is split over the data axes by :func:`_fit`,
-    the caches by :func:`cache_blocks` (the batch, and ``model`` where
-    :func:`cache_specs` cuts it; a sequence entry, as the batch-1
-    caches', whole: the port has no sequence parallelism).  The fake
+    the caches by :func:`cache_blocks` (the batch, ``model`` and the
+    sequence where :func:`cache_specs` cuts them: a batch-1 cell's
+    sequence over the data axes, and over ``model`` under
+    ``seq_shard_kv``).  The fake
     tensors lie on :func:`fake_device`; ``shape``: ``(seq, batch, kind)``
     in place of ``SHAPES[shape_name]``.  Allocates nothing."""
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -582,9 +636,13 @@ def build_cell(spec: ArchSpec, shape_name: str, mesh, ocfg: Optional[OptConfig] 
                          ", gathered over the data axes where each layer runs, the compute cut "
                          "over 'model' as the specs cut the leaves"),
               "cache": None if kind == "train" else
-              ("the rank's rows, KV heads and channels by cache_specs" if dp else
-               "the rank's KV heads and channels by cache_specs, the sequence whole on the "
-               "rank (no sequence parallelism)")}
+              ("the rank's KV heads and channels by cache_specs, and its block of the GQA "
+               "and MLA caches' sequence over the data axes (batch 1)" if dp is None else
+               "the rank's rows, KV heads and channels by cache_specs"
+               + (", and its block of the MLA caches' sequence and that of the GQA caches "
+                  "of a global layer whose KV heads do not divide 'model' over 'model' "
+                  "(seq_shard_kv)"
+                  if cfg.seq_shard_kv else ""))}
     mode = FakeTensorMode(allow_non_fake_inputs=True)
     with mode:
         whole = map_tree(lambda _, t: torch.empty(t.shape, dtype=t.dtype, device=dev),
@@ -608,28 +666,32 @@ def build_cell(spec: ArchSpec, shape_name: str, mesh, ocfg: Optional[OptConfig] 
         else:
             params = sharded.shard_state(params, pspecs, mesh)
             enc_len = cfg.frontend_len if cfg.kind == "encdec" else 0
-            caches = cache_blocks(cfg, mesh, batch, seq, dtype=M._dtype(cfg.compute_dtype),
-                                  device=dev, enc_len=enc_len)
+            cdt = M._dtype(cfg.compute_dtype)
+            caches = cache_blocks(cfg, mesh, batch, seq, dtype=cdt, device=dev, enc_len=enc_len)
+            whole_cache = M.init_cache(cfg, batch, seq, dtype=cdt, device=dev, enc_len=enc_len)
             if kind == "prefill":
                 bdata = {k: fake(v, local) for k, v in batch_struct(cfg, seq, batch).items()}
-                fn = make_prefill_step(cfg, mesh, pspecs)
+                fn = make_prefill_step(cfg, mesh, pspecs, batch=batch, s_max=seq)
                 args = (params, bdata, caches)
             else:  # decode
                 bdata = {"tokens": torch.zeros((local, 1), dtype=torch.int32, device=dev),
                          "pos": torch.zeros((local,), dtype=torch.int32, device=dev)}
-                fn = make_serve_step(cfg, mesh, pspecs)
+                fn = make_serve_step(cfg, mesh, pspecs, batch=batch, s_max=seq)
                 args = (params, caches, bdata["tokens"], bdata["pos"])
             parts = {"params": params, "batch": bdata, "cache": caches}
             specs = pspecs
     return Cell(arch_id=spec.arch_id, shape_name=shape_name, kind=kind, fn=fn, args=args,
                 model_cfg=cfg, mode=mode, parts=parts, specs=specs, layout=layout, ocfg=ocfg,
-                whole=whole)
+                whole=whole, whole_cache=None if kind == "train" else whole_cache,
+                cache_specs=None if kind == "train" else cache_specs(cfg, mesh, batch))
 
 
 def bytes_under_specs(tree, specs, mesh) -> int:
     """The bytes per device of ``tree`` laid out by ``specs`` (a spec
-    tree of the same structure) over ``mesh``: each leaf's bytes over
-    the product of the axes its spec names."""
+    tree of the same structure) over ``mesh``: each leaf's block, every
+    dim cut into the product of the axes its entry names, rounded up
+    where that does not divide it (the partitioner pads the last blocks:
+    a cache's sequence)."""
     sizes = mesh_axes(mesh)
 
     def per_device(t, spec):
@@ -637,8 +699,10 @@ def bytes_under_specs(tree, specs, mesh) -> int:
             return sum(per_device(t[k], spec[k]) for k in t)
         if isinstance(t, list):
             return sum(per_device(a, b) for a, b in zip(t, spec))
-        shards = math.prod(sizes[a] for e in spec for a in (e if isinstance(e, tuple) else (e,))
-                           if a is not None)
-        return t.numel() * t.element_size() // shards
+        block = t.numel()
+        for n, e in zip(t.shape, spec):
+            if block:
+                block = block // n * -(-n // math.prod(sizes[a] for a in sharded.entry_axes(e)))
+        return block * t.element_size()
 
     return per_device(tree, specs)

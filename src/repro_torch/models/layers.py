@@ -132,29 +132,71 @@ def _softmax(scores, mask):
     return torch.where(mask, scores.float(), -1e30).softmax(-1)
 
 
-def _prefill_cache(cache, k, v, positions, window):
-    """The cache a prefill leaves: the prompt's k, v and positions padded
-    to the buffer's length C with positions at int32 max, or, on a window
-    layer whose buffer is shorter than the prompt, its last C positions
-    placed at slot ``pos % C``."""
+def _prefill_cache(cache, values: dict, positions, window, seq=None):
+    """The cache a prefill leaves for ``values`` ({name: (B, S, ...)}) and
+    the positions: the prompt's entries at slots 0..S-1 of the buffer's
+    C, the rest zeros with position int32 max; or, on a window layer
+    whose C slots are fewer than the prompt's, its last C entries placed
+    at slot ``pos % C``.  Under a sequence cut ``seq`` (a
+    ``distributed.sequence.SeqCut`` of ``seq.length`` slots) only the
+    rank's block of that layout, built as the block alone: zeros and
+    int32 max, and the entries whose global slot falls in it."""
     B, S = positions.shape
-    C = cache["k"].shape[1]
+    C = seq.length if seq is not None else cache["pos_k"].shape[1]
+    lo, block = (seq.lo, seq.block) if seq is not None else (0, C)
+    dev = positions.device
+    out = {name: torch.zeros((B, block) + t.shape[2:], dtype=cache[name].dtype, device=dev)
+           for name, t in values.items()}
+    out["pos_k"] = torch.full((B, block), INT32_MAX, dtype=torch.int32, device=dev)
+    values = {**values, "pos_k": positions}
     if window is not None and C < S:
-        # torch.roll of each row by positions[b, S - C] % C, as a gather.
+        # torch.roll of each row by positions[b, S - C] % C, as a gather of
+        # the block's slots.
+        n = max(0, min(lo + block, C) - lo)
         roll = positions[:, S - C].long() % C
-        src = (torch.arange(C, device=k.device) - roll[:, None]) % C + (S - C)
-        rows = torch.arange(B, device=k.device)[:, None]
-        kc, vc, pc = k[rows, src], v[rows, src], positions[rows, src]
+        src = (torch.arange(lo, lo + n, device=dev) - roll[:, None]) % C + (S - C)
+        rows = torch.arange(B, device=dev)[:, None]
+        for name, t in values.items():
+            out[name][:, :n] = t[rows, src]
     else:
         if C < S:
-            raise ValueError(f"a prompt of {S} positions does not fit a global "
-                             f"layer's cache of {C}")
-        kc = k.new_zeros((B, C) + k.shape[2:])
-        vc = v.new_zeros((B, C) + v.shape[2:])
-        pc = positions.new_full((B, C), INT32_MAX)
-        kc[:, :S], vc[:, :S], pc[:, :S] = k, v, positions
-    return {"k": kc.to(cache["k"].dtype), "v": vc.to(cache["v"].dtype),
-            "pos_k": pc.to(torch.int32)}
+            raise ValueError(f"a prompt of {S} positions does not fit a cache of {C}")
+        n = max(0, min(lo + block, S) - lo)
+        for name, t in values.items():
+            out[name][:, :n] = t[:, lo:lo + n]
+    return out
+
+
+def _write_token(cache, pos, values: dict, seq) -> None:
+    """Each row's ``values`` (name -> (B, ...)) written in place at slot
+    ``pos % C`` of ``cache``'s buffers: C slots of its own, or, under a
+    sequence cut ``seq``, this rank's block of ``seq.length`` slots, where
+    only the slot's owner writes (``distributed.sequence.write_owned``)."""
+    if seq is not None:
+        from repro_torch.distributed import sequence as SQ
+        SQ.write_owned(cache, pos.long() % seq.length, values, seq)
+        return
+    C = cache[next(iter(values))].shape[1]
+    slot = pos.long() % C
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    for name, val in values.items():
+        cache[name][rows, slot] = val.to(cache[name].dtype)
+
+
+def gqa_partial(q, k, v, n_rep: int, valid):
+    """The partial softmax of ``q`` (B, S, H, hd) over the slots of ``k``
+    and ``v`` (B, T, Hkv, hd) that ``valid`` (B, T) leaves:
+    ``distributed.sequence.partial`` of the grouped float32 scores, its
+    output (B, Hkv, S, n_rep, hd) (:func:`gqa_heads` gives (B, S, H, hd))."""
+    from repro_torch.distributed import sequence as SQ
+    return SQ.partial(_gqa_scores(q, k, n_rep), valid[:, None, None, None, :], v,
+                      "bgsrt,btgk->bgsrk")
+
+
+def gqa_heads(o):
+    """A (B, Hkv, S, n_rep, hd) output as (B, S, H, hd)."""
+    B, G, S, R, hd = o.shape
+    return o.permute(0, 2, 1, 3, 4).reshape(B, S, G * R, hd)
 
 
 def kv_for_heads(k, n_rep: int, h0: int, n_heads: int):
@@ -171,7 +213,8 @@ def kv_for_heads(k, n_rep: int, h0: int, n_heads: int):
 
 def attention(params, x, positions, *, n_rep: int, window: Optional[int],
               rope_theta: float = 10000.0, use_rope: bool = True, cache=None,
-              decode: bool = False, q_head0: Optional[int] = None):
+              decode: bool = False, q_head0: Optional[int] = None, seq=None,
+              q_group=None):
     """GQA attention with an optional sliding window and KV cache; q and
     k are rotated by RoPE unless ``use_rope`` is False (learned positions).
 
@@ -189,6 +232,17 @@ def attention(params, x, positions, *, n_rep: int, window: Optional[int],
     on, ``wk`` and ``wv`` every KV head; k and v (and the cache) keep
     every KV head, and the scores read those the rank's q heads read
     (:func:`kv_for_heads`).
+
+    ``seq`` (a ``distributed.sequence.SeqCut``: the cache's sequence cut
+    over a group): the cache is this rank's block of ``seq.length``
+    slots.  A prefill keeps only the block of its layout
+    (:func:`_prefill_cache`); a decode tick writes the token where the
+    rank owns its slot, takes the partial softmax over the block
+    (:func:`gqa_partial`) and merges it over the group
+    (``sequence.merge_over``).  ``q_group`` (the ``model`` group, where
+    the sequence is cut over it and the q heads are too): the rank's q
+    heads are gathered first, every head reads every KV head on the
+    rank's slots, and the rank keeps its own heads of the merged output.
     """
     B, S, _ = x.shape
     q, k, v = (_heads(x, params[w]) for w in ("wq", "wk", "wv"))
@@ -208,22 +262,30 @@ def attention(params, x, positions, *, n_rep: int, window: Optional[int],
             mask = mask & (positions[:, None, :] > positions[:, :, None] - window)
         ku, vu, rep = read(k, v)
         out = _gqa_out(_softmax(_gqa_scores(q, ku, rep), mask[:, None, :, None, :]), vu, rep)
-        new_cache = None if cache is None else _prefill_cache(cache, k, v, positions, window)
+        new_cache = None
+        if cache is not None:
+            new_cache = _prefill_cache(cache, {"k": k, "v": v}, positions, window, seq)
     else:
-        C = cache["k"].shape[1]
         pos = positions[:, 0]
-        slot = pos.long() % C
-        rows = torch.arange(B, device=x.device)
-        cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
-        cache["pos_k"][rows, slot] = pos.to(torch.int32)
+        _write_token(cache, pos, {"k": k[:, 0], "v": v[:, 0], "pos_k": pos.to(torch.int32)},
+                     seq)
         pc = cache["pos_k"]
         valid = pc <= pos[:, None]
         if window is not None:
             valid = valid & (pc > pos[:, None] - window)
-        ku, vu, rep = read(cache["k"], cache["v"])
-        scores = _gqa_scores(q, ku, rep)  # (B,Hkv,1,n_rep,C)
-        out = _gqa_out(_softmax(scores, valid[:, None, None, None, :]), vu, rep)
+        if seq is None:
+            ku, vu, rep = read(cache["k"], cache["v"])
+            scores = _gqa_scores(q, ku, rep)  # (B,Hkv,1,n_rep,C)
+            out = _gqa_out(_softmax(scores, valid[:, None, None, None, :]), vu, rep)
+        else:
+            from repro_torch.distributed import sequence as SQ
+            if q_group is None:
+                qa, (ku, vu, rep) = q, read(cache["k"], cache["v"])
+            else:
+                (qa,), ku, vu, rep = SQ.gather_heads([q], q_group), cache["k"], cache["v"], n_rep
+            out = gqa_heads(SQ.merge_over(*gqa_partial(qa, ku, vu, rep, valid), seq))
+            if q_group is not None:
+                out = SQ.own_heads(out, q_group, q.shape[2])
         new_cache = cache
 
     H, hd, D = params["wo"].shape
@@ -260,8 +322,19 @@ def _mla_scores(spec, q, keys, q_r, k_r, scale):
     return (s + torch.einsum("bshr,btr->bsht", *_same_dtype(q_r, k_r))).float() * scale
 
 
+def mla_partial(q_abs, q_r, ckv, k_rope, valid, scale: float):
+    """The absorbed decode's partial softmax over the latent slots that
+    ``valid`` (B, T) leaves: ``distributed.sequence.partial`` of the
+    scores of :func:`mla_attention`, its output ``ctx`` (B, S, H,
+    kv_lora) unnormalised."""
+    from repro_torch.distributed import sequence as SQ
+    return SQ.partial(_mla_scores("bshc,btc->bsht", q_abs, ckv, q_r, k_rope, scale),
+                      valid[:, None, None, :], ckv, "bsht,btc->bshc")
+
+
 def mla_attention(params, x, positions, *, d_nope: int, d_rope: int,
-                  rope_theta: float = 10000.0, cache=None, decode: bool = False):
+                  rope_theta: float = 10000.0, cache=None, decode: bool = False, seq=None,
+                  q_group=None):
     """DeepSeek-V2 multi-head latent attention.
 
     The cache holds the compressed per-token state: ``c_kv`` (B, C,
@@ -274,6 +347,12 @@ def mla_attention(params, x, positions, *, d_nope: int, d_rope: int,
     and ``W_uv`` into the output, and the scores are rank-``kv_lora``
     products against the cache.  ``p`` is float32, so ``p·v``, ``p·c_kv``
     and ``ctx·W_uv`` are float32 products, cast to ``x``'s dtype after.
+
+    ``seq`` and ``q_group`` as in :func:`attention`: the latent cache is
+    this rank's slot block, a decode merges ``ctx = p·c_kv`` (B, 1, H,
+    kv_lora) over the group (:func:`mla_partial`) and applies ``W_uv``
+    after; under ``q_group`` ``q_abs`` and ``q_r`` are gathered over
+    ``model`` first and the rank keeps its heads of ``ctx``.
     """
     B, S, _ = x.shape
     # A float32 scalar, as the reference's numpy float32 scale.
@@ -293,29 +372,25 @@ def mla_attention(params, x, positions, *, d_nope: int, d_rope: int,
         out = torch.einsum("bsht,bthk->bshk", p, v.float()).to(x.dtype)
         new_cache = None
         if cache is not None:
-            C = cache["c_kv"].shape[1]
-            if C < S:
-                raise ValueError(f"a prompt of {S} positions does not fit an MLA "
-                                 f"layer's cache of {C}")
-            ckv = cache["c_kv"].new_zeros(cache["c_kv"].shape)
-            krc = cache["k_rope"].new_zeros(cache["k_rope"].shape)
-            pc = positions.new_full((B, C), INT32_MAX).to(torch.int32)
-            ckv[:, :S], krc[:, :S], pc[:, :S] = c_kv, k_r, positions
-            new_cache = {"c_kv": ckv, "k_rope": krc, "pos_k": pc}
+            new_cache = _prefill_cache(cache, {"c_kv": c_kv, "k_rope": k_r}, positions, None,
+                                       seq)
     else:
-        C = cache["c_kv"].shape[1]
         pos = positions[:, 0]
-        slot = pos.long() % C
-        rows = torch.arange(B, device=x.device)
-        cache["c_kv"][rows, slot] = c_kv[:, 0].to(cache["c_kv"].dtype)
-        cache["k_rope"][rows, slot] = k_r[:, 0].to(cache["k_rope"].dtype)
-        cache["pos_k"][rows, slot] = pos.to(torch.int32)
+        _write_token(cache, pos, {"c_kv": c_kv[:, 0], "k_rope": k_r[:, 0],
+                                  "pos_k": pos.to(torch.int32)}, seq)
         ckv = cache["c_kv"]
         q_abs = torch.einsum("bshk,chk->bshc", q_n, params["w_uk"])
         valid = cache["pos_k"] <= pos[:, None]
-        p = _softmax(_mla_scores("bshc,btc->bsht", q_abs, ckv, q_r, cache["k_rope"], scale),
-                     valid[:, None, None, :])
-        ctx = torch.einsum("bsht,btc->bshc", p, ckv.float())
+        if seq is None:
+            p = _softmax(_mla_scores("bshc,btc->bsht", q_abs, ckv, q_r, cache["k_rope"], scale),
+                         valid[:, None, None, :])
+            ctx = torch.einsum("bsht,btc->bshc", p, ckv.float())
+        else:
+            from repro_torch.distributed import sequence as SQ
+            qa, qr = (q_abs, q_r) if q_group is None else SQ.gather_heads([q_abs, q_r], q_group)
+            ctx = SQ.merge_over(*mla_partial(qa, qr, ckv, cache["k_rope"], valid, scale), seq)
+            if q_group is not None:
+                ctx = SQ.own_heads(ctx, q_group, q_abs.shape[2])
         out = torch.einsum("bshc,chk->bshk", ctx, params["w_uv"].float()).to(x.dtype)
         new_cache = cache
 

@@ -19,8 +19,10 @@ the MoE (and its shared experts) or no MLP, and cross-attention over the
 encoder of the encoder-decoder (``kind="encdec"``).  The reference's
 ``shardctx.constrain`` calls and the knobs ``seq_parallel``,
 ``seq_shard_kv`` and ``serve_params_tp_only`` choose layouts over a
-device mesh and change no value; the port's compute leaves them out
-(``launch.steps`` gives their specs), and ``scan_unroll`` likewise.
+device mesh and change no value: ``launch.steps`` gives their specs, the
+serving steps cut the caches' sequences where ``cache_specs`` does
+(``seq_shard_kv`` among them; ``distributed.sequence``), and
+``seq_parallel`` and ``scan_unroll`` change nothing in the port.
 ``remat`` ("full" or "dots") checkpoints each instance of a block
 pattern in train mode, as the reference checkpoints its scan body
 (:func:`_rematted`): the same values, with less held for the backward.
@@ -327,9 +329,16 @@ class Model(nn.Module):
 
 
 # ------------------------------------------------------------------ cache
+def cache_length(spec: LayerSpec, s_max: int) -> int:
+    """The slots of a layer's cache: ``min(s_max, window)`` on a window
+    layer, ``s_max`` on a global or MLA one."""
+    return min(s_max, spec.window) if spec.window else s_max
+
+
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16,
                device=None, enc_len: int = 0, *, n_kv_heads: Optional[int] = None,
-               n_heads: Optional[int] = None, d_inner: Optional[int] = None) -> list:
+               n_heads: Optional[int] = None, d_inner: Optional[int] = None,
+               lengths: Optional[list] = None) -> list:
     """Decode caches, one dict per layer in the order of
     :func:`layer_specs`: on a GQA layer ``k`` and ``v`` (batch, C,
     n_kv_heads, head_dim) with ``C = min(s_max, window)`` on window layers
@@ -340,8 +349,9 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16,
     d_inner, d_state) in float32 whatever ``dtype``; a cross-attention
     layer adds ``ck`` and ``cv`` (batch, enc_len, n_heads, head_dim).
     ``n_kv_heads``, ``n_heads`` and ``d_inner`` are the config's unless
-    given: a rank of a ``model`` group holds its share of those that are
-    cut (``launch.steps.cache_blocks``)."""
+    given, and so are the slots (:func:`cache_length`) unless ``lengths``
+    gives each layer's: a rank holds its share of those that are cut, and
+    its block of a sequence cut over a group (``launch.steps.cache_blocks``)."""
     check_supported(cfg)
     dev = resolve_device(device)
     n_kv_heads = n_kv_heads or cfg.n_kv_heads
@@ -351,17 +361,15 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16,
     def zeros(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=dev)
 
-    def layer_cache(spec):
+    def layer_cache(spec, C):
         if spec.kind == "mamba":
             c = {"conv": zeros(batch, cfg.d_conv - 1, d_inner),
                  "h": zeros(batch, d_inner, cfg.d_state, dt=torch.float32)}
         elif spec.kind == "mla":
-            c = {"c_kv": zeros(batch, s_max, cfg.kv_lora),
-                 "k_rope": zeros(batch, s_max, cfg.d_rope),
-                 "pos_k": torch.full((batch, s_max), L.INT32_MAX, dtype=torch.int32,
-                                     device=dev)}
+            c = {"c_kv": zeros(batch, C, cfg.kv_lora),
+                 "k_rope": zeros(batch, C, cfg.d_rope),
+                 "pos_k": torch.full((batch, C), L.INT32_MAX, dtype=torch.int32, device=dev)}
         else:
-            C = min(s_max, spec.window) if spec.window else s_max
             c = {"k": zeros(batch, C, n_kv_heads, cfg.head_dim),
                  "v": zeros(batch, C, n_kv_heads, cfg.head_dim),
                  "pos_k": torch.full((batch, C), L.INT32_MAX, dtype=torch.int32, device=dev)}
@@ -370,7 +378,9 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16,
             c["cv"] = zeros(batch, enc_len, n_heads, cfg.head_dim)
         return c
 
-    return [layer_cache(spec) for spec in layer_specs(cfg)]
+    specs = layer_specs(cfg)
+    lengths = lengths or [cache_length(spec, s_max) for spec in specs]
+    return [layer_cache(spec, C) for spec, C in zip(specs, lengths)]
 
 
 # ------------------------------------------------------------------ forward
@@ -394,12 +404,15 @@ def _own_channels(in_proj, d_inner: int, n: int, tp):
 
 
 def _apply_layer(lp, spec: LayerSpec, cfg: ModelConfig, x, positions, cache, decode,
-                 enc_out=None, mesh=None, tp=None):
+                 enc_out=None, mesh=None, tp=None, seq=None):
     """One layer.  ``tp`` (this rank's ``model`` group under tensor
     parallelism, else None): a mixer, cross-attention or dense MLP whose
     leaves arrive as the rank's blocks of heads, channels or ``d_ff``
     computes its part between ``copy_to_model`` and ``reduce_from_model``;
-    one whose leaves arrive whole computes replicated."""
+    one whose leaves arrive whole computes replicated.  ``seq`` (a
+    ``distributed.sequence.SeqCut``, else None): the layer's cache holds
+    the rank's block of its sequence; where the cut is over ``model`` and
+    the q heads are too, the attention gathers the q heads over it."""
     from repro_torch.distributed import tensor_parallel as TP
     h = L.rms_norm(x, lp["norm1"])
     a = lp["attn"]
@@ -415,17 +428,20 @@ def _apply_layer(lp, spec: LayerSpec, cfg: ModelConfig, x, positions, cache, dec
     else:
         n = a["wq"].shape[1]
         cut = tp if tp is not None and n < cfg.n_heads else None
+        q_group = cut if seq is not None and "model" in seq.axes else None
         if spec.kind == "mla":
             out, new_c = L.mla_attention(a, TP.copy_to_model(h, cut), positions,
                                          d_nope=cfg.d_nope, d_rope=cfg.d_rope,
-                                         rope_theta=cfg.rope_theta, cache=cache, decode=decode)
+                                         rope_theta=cfg.rope_theta, cache=cache, decode=decode,
+                                         seq=seq, q_group=q_group)
         else:
             kv_whole = cut is not None and a["wk"].shape[1] == cfg.n_kv_heads
             out, new_c = L.attention(a, TP.copy_to_model(h, cut), positions,
                                      n_rep=cfg.n_heads // cfg.n_kv_heads, window=spec.window,
                                      rope_theta=cfg.rope_theta, use_rope=cfg.use_rope,
                                      cache=cache, decode=decode,
-                                     q_head0=tp.rank * n if kv_whole else None)
+                                     q_head0=tp.rank * n if kv_whole else None,
+                                     seq=seq, q_group=q_group)
     x = x + TP.reduce_from_model(out, cut)
     if spec.cross_attn:
         # Decode reads the encoder's keys and values from the cache (the
@@ -526,16 +542,22 @@ class Sharding(NamedTuple):
     tp: Any             # the rank's ``model`` group where the compute is cut over it, else None
     embed_tp: Any       # ``tp`` where the embedding's rows (the vocabulary) are cut, else None
     head_tp: Any        # ``tp`` where the head's columns are cut (the logits the rank's)
+    seq: tuple = ()     # per layer, its cache's ``sequence.SeqCut`` or None; () without caches
 
 
-def sharding(cfg: ModelConfig, mesh, specs) -> Sharding:
+def sharding(cfg: ModelConfig, mesh, specs, cache_specs=None, s_max=None) -> Sharding:
     """The :class:`Sharding` of ``specs`` (``launch.steps.param_specs``,
     or ``tp_only`` of them) over ``mesh``.  Each leaf is gathered by
     ``tensor_parallel.gather_mode``: over the data axes only where the
     rank computes with its block over ``model`` (an expert stack of the
     expert-parallel MoE, its E/ep slice, among them), else whole; a leaf
     with nothing left to gather (no other axis of more than one rank
-    cuts it) is used as its block and has no entry."""
+    cuts it) is used as its block and has no entry.  With the caches'
+    ``cache_specs`` (``launch.steps.cache_specs``) each layer's sequence
+    cut of a cache of ``s_max`` positions (``distributed.sequence.seq_cut``
+    of its ``k`` or ``c_kv`` sequence entry; None where the entry names
+    no axis of more than one rank)."""
+    from repro_torch.distributed import sequence as SQ
     from repro_torch.distributed import sharded
     from repro_torch.distributed import tensor_parallel as TP
     ep = _ep(cfg, mesh)
@@ -551,8 +573,12 @@ def sharding(cfg: ModelConfig, mesh, specs) -> Sharding:
         return tp if tp is not None and TP.cut_over_model(specs[name], mesh) else None
 
     holding = frozenset(p[:i] for p in gathers for i, c in enumerate(p) if c == "/")
+    seq = ()
+    if cache_specs is not None:
+        seq = tuple(SQ.seq_cut(SQ.seq_entry(c), mesh, cache_length(spec, s_max))
+                    for c, spec in zip(cache_specs, layer_specs(cfg)))
     return Sharding(gathers, holding, tp, vocab("embed"),
-                    vocab("embed" if cfg.tie_embeddings else "lm_head"))
+                    vocab("embed" if cfg.tie_embeddings else "lm_head"), seq)
 
 
 def _gathering(params, plan: Optional[Sharding]):
@@ -674,6 +700,7 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None, positions=Non
 def _forward(whole, cfg, tokens, embeds, positions, caches, mode, enc_frames, mesh, plan):
     from repro_torch.distributed import tensor_parallel as TP
     tp = plan.tp if plan is not None else None
+    seq = plan.seq if plan is not None and plan.seq else [None] * len(layer_specs(cfg))
     cdt = _dtype(cfg.compute_dtype)
     decode = mode == "decode"
 
@@ -706,7 +733,7 @@ def _forward(whole, cfg, tokens, embeds, positions, caches, mode, enc_frames, me
     def instance(h, span):
         for j in span:
             h, new_caches[j] = _apply_layer(whole(f"layers/{j}"), specs[j], cfg, h, positions,
-                                            caches[j], decode, enc_out, mesh, tp)
+                                            caches[j], decode, enc_out, mesh, tp, seq[j])
         return h
 
     # One remat region per instance of a block pattern: the reference's

@@ -34,6 +34,7 @@ from repro_torch.launch import dryrun as TD
 from repro_torch.launch import mesh as TM
 from repro_torch.launch import opcensus as OC
 from repro_torch.launch import steps as TS
+from repro_torch.models import model as M
 from repro_torch.optim import OptConfig, init_opt_state
 
 MESHES = {"single": ((16, 16), ("data", "model")),
@@ -350,6 +351,7 @@ def test_build_and_run_cell(arch, shape, fake_world, tmp_path):
         assert {"all-gather", "all-reduce"} <= set(rec["collectives"])
         caches = cell.parts["cache"]
         assert all(t.shape[0] == batch // 2 for c in caches for t in c.values())
+        assert bpd["cache_under_specs"] == bpd["cache"]
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
@@ -488,3 +490,104 @@ def test_adafactor_state_under_specs(fake_world):
         v_under = TS.bytes_under_specs(whole["opt"]["v"], cell.specs["opt"]["v"], mesh)
     assert 0 < under == nbytes(state) < nbytes(whole)
     assert 0 < v_under == nbytes(state["opt"]["v"]) < nbytes(whole["opt"]["v"])
+
+
+class AllGathers(torch.utils._python_dispatch.TorchDispatchMode):
+    """The output shape of every all-gather."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if OC.COLLECTIVES.get(func._schema.name, ("",))[0] == "all-gather":
+            self.seen.append(tuple(args[0].shape))
+        return func(*args, **(kwargs or {}))
+
+
+def serving_census(arch, seq, batch, mesh, **over):
+    """A shrink() decode cell of ``seq`` positions and global ``batch``:
+    its cell, census result, all-gathers and the bytes of its caches."""
+    cell = TS.build_cell(small(arch), "decode_32k", mesh, overrides=over,
+                         shape=(seq, batch, "decode"))
+    with cell.mode:
+        held = OC.Census().hold(cell.parts["cache"])
+        with OC.op_census(*cell.args) as c, AllGathers() as ag:
+            cell.fn(*cell.args)
+    return cell, c.result(), ag.seen, held
+
+
+@pytest.mark.parametrize("arch,cut_batch,knob", [
+    ("gemma3-4b", 1, False),            # batch 1: every layer cut over 'data'
+    ("granite-20b", 2, True),           # seq_shard_kv: one KV head, cut over 'model'
+    ("deepseek-v2-lite-16b", 2, True),  # seq_shard_kv: MLA's latent cache over 'model'
+])
+def test_seq_cut_cell_holds_cache_under_specs_and_counts_the_combine(arch, cut_batch, knob,
+                                                                     fake_world):
+    """A shrink() decode cell over a 2 x 2 fake world whose caches are cut
+    on the sequence holds its block of the cache, exactly
+    ``bytes_under_specs`` of the whole cache under ``cache_specs``; its
+    census counts, beside the same cell uncut (batch 2, no knob: the
+    rank's rows and heads alike), two more all-reduces per cut layer (the
+    combine's MAX of m and SUM of l and o), their bytes on the wire (ring
+    over 2 ranks: the operand's bytes), and under ``seq_shard_kv`` with
+    the q heads cut one all-gather of the q heads per layer."""
+    fake_world(4)
+    mesh = TM.make_mesh((2, 2), ("data", "model"), device="cpu")
+    seq = 64
+    cell, res, gathers, held = serving_census(arch, seq, cut_batch, mesh, seq_shard_kv=knob)
+    _, base, base_gathers, _ = serving_census(arch, seq, 2, mesh)
+    cfg = cell.model_cfg
+    assert held == TS.bytes_under_specs(cell.whole_cache, cell.cache_specs, mesh) > 0
+    plan, _ = TS._serving_plan(cfg, mesh, cell.specs, cut_batch, seq)
+    cuts = [c for c in plan.seq if c is not None]
+    assert cuts and all(c.axes == (("model",) if knob else ("data",)) for c in cuts)
+    gathered = knob and cfg.n_heads % 2 == 0          # the q heads cut over 'model'
+    heads = cfg.n_heads if knob else cfg.n_heads // 2
+    width = cfg.kv_lora or cfg.head_dim
+    assert res["calls"]["all-reduce"] - base["calls"]["all-reduce"] == 2 * len(cuts)
+    merge = len(cuts) * heads * (1 + 1 + width) * 4      # m, then l and o, float32
+    assert res["wire"]["all-reduce"] - base["wire"]["all-reduce"] == merge
+    extra = [g for g in gathers if g not in base_gathers or gathers.count(g) > base_gathers.count(g)]
+    if gathered:
+        q = (2, 1, cfg.n_heads // 2, (cfg.kv_lora + cfg.d_rope) or cfg.head_dim)
+        assert len(gathers) - len(base_gathers) == len(cuts) and set(extra) == {q}
+        assert res["wire"]["all-gather"] - base["wire"]["all-gather"] == \
+            len(cuts) * math.prod(q) * 2 / 2                 # bf16, half of it from the peer
+    else:
+        assert len(gathers) == len(base_gathers)
+    for layer, spec, c in zip(cell.parts["cache"], M.layer_specs(cfg), plan.seq):
+        if c is not None:
+            slots = (layer.get("k") if "k" in layer else layer["c_kv"]).shape[1]
+            assert slots == M.cache_length(spec, seq) // 2
+
+
+@pytest.mark.parametrize("arch,cut_batch,knob", [
+    ("gemma3-4b", 1, False),            # batch 1: the caches cut over 'data'
+    ("granite-20b", 2, True),           # seq_shard_kv: cut over 'model'
+])
+def test_serving_steps_refuse_caches_of_another_layout(arch, cut_batch, knob, fake_world):
+    """Over a 2 x 2 fake world the serving steps with specs need the
+    global batch and ``s_max``, and refuse caches whose slots are not the
+    ones those give the rank: the whole sequence where it is cut, a
+    block of it where it is not, or another ``s_max``'s."""
+    fake_world(4)
+    mesh = TM.make_mesh((2, 2), ("data", "model"), device="cpu")
+    seq = 64
+    cell = TS.build_cell(small(arch), "decode_32k", mesh, overrides={"seq_shard_kv": knob},
+                         shape=(seq, cut_batch, "decode"))
+    cfg = cell.model_cfg
+    with pytest.raises(ValueError, match="batch and s_max"):
+        TS.make_serve_step(cfg, mesh, cell.specs)
+    with pytest.raises(ValueError, match="batch and s_max"):
+        TS.make_prefill_step(cfg, mesh, cell.specs, batch=cut_batch)
+    uncut = dataclasses.replace(cfg, seq_shard_kv=False)      # at batch 2: no cut
+    with cell.mode:
+        cut = TS.cache_blocks(cfg, mesh, cut_batch, seq, device="cpu")
+        whole = TS.cache_blocks(uncut, mesh, 2, seq, device="cpu")
+        short = TS.cache_blocks(cfg, mesh, cut_batch, seq // 2, device="cpu")
+        steps = (TS.make_serve_step(cfg, mesh, cell.specs, batch=cut_batch, s_max=seq),
+                 TS.make_serve_step(uncut, mesh, cell.specs, batch=2, s_max=seq))
+        for step, caches in ((steps[0], whole), (steps[0], short), (steps[1], cut)):
+            with pytest.raises(ValueError, match="slots"):
+                step(None, caches, None, None)

@@ -3,6 +3,7 @@
 
     python tests/torch_train_worker.py RANK WORLD INIT_FILE OUT_DIR
     python tests/torch_train_worker.py RANK WORLD INIT_FILE OUT_DIR sharded DATA_PKL
+    python tests/torch_train_worker.py RANK WORLD INIT_FILE OUT_DIR seq
 
 Joins a gloo process group of WORLD ranks through ``file://INIT_FILE``
 and runs, on every rank, with inputs from numpy and torch seeds that
@@ -24,12 +25,18 @@ With ``tp`` it runs tensor parallelism over ``model``
 (``distributed.tensor_parallel``; ``test_torch_tensor_parallel.py``) on
 the reference's initial states and batches of ``DATA_PKL``:
 :func:`tp_cases`, written to ``OUT_DIR/tp{RANK}.pkl``.
+
+With ``seq`` it serves with the caches cut on their sequence
+(``distributed.sequence``; ``test_torch_sequence.py``) from seeded
+weights and prompts (:func:`seq_inputs`): :func:`seq_cases`, written to
+``OUT_DIR/seq{RANK}.pkl``.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import datetime
+import functools
 import json
 import pickle
 import sys
@@ -591,9 +598,10 @@ def tp_serving():
         caches = TST.cache_blocks(cfg, mesh, 2, SERVE_SMAX, dtype=torch.float32, device="cpu")
         toks = torch.as_tensor(np.stack(queue), dtype=torch.long)
         batch = {"tokens": torch.cat([toks, torch.zeros((2, 1), dtype=torch.long)], 1)}
-        nxt, caches = TST.make_prefill_step(cfg, mesh, pspecs)(blocks, batch, caches)
+        kw = dict(batch=2, s_max=SERVE_SMAX)
+        nxt, caches = TST.make_prefill_step(cfg, mesh, pspecs, **kw)(blocks, batch, caches)
         got, pos = [nxt], torch.full((2,), SERVE_PROMPT, dtype=torch.int32)
-        tick = TST.make_serve_step(cfg, mesh, pspecs)
+        tick = TST.make_serve_step(cfg, mesh, pspecs, **kw)
         for _ in range(SERVE_TICKS):
             nxt, caches = tick(blocks, caches, nxt, pos)
             got.append(nxt)
@@ -617,6 +625,133 @@ def tp_cases(rank, world, data):
     return out
 
 
+# ----------------------------------------------------------- sequence cut
+#: name -> (architecture, overrides of its shrink()): gemma3's window of
+#: 8 wraps across the ranks' blocks, MLA, attention beside Mamba, one KV
+#: head, and 6 q heads over 3 KV heads with a vocabulary of 250.
+SEQ_CASES = {"gemma3-4b": ("gemma3-4b", {}),
+             "deepseek-v2-lite-16b": ("deepseek-v2-lite-16b", {}),
+             "jamba-v0.1-52b": ("jamba-v0.1-52b", {}), "granite-20b": ("granite-20b", {}),
+             "h6-kv3-v250": TP_CASES["h6-kv3-v250"]}
+#: A prompt of 12 (past gemma3's window, so its window layers take the
+#: roll), 9 ticks (the window caches wrap), caches of 22 slots: over 4
+#: ranks blocks of 6, the last padded by 2.
+SEQ_PROMPT, SEQ_TICKS, SEQ_SMAX = 12, 9, 22
+#: By world size, (mesh, seq_shard_kv, global batch): at batch 1 every
+#: data axis of more than one rank cuts the sequence (7a); with
+#: seq_shard_kv and no such axis, 'model' does (7b); (2, 2) at batch 2
+#: cuts the batch over 'data' and the sequence over 'model' at once.
+SEQ_RUNS = {2: (((2, 1), False, 1), ((1, 2), True, 1)),
+            4: (((4, 1), False, 1), ((2, 2), False, 1), ((1, 4), True, 1), ((2, 2), True, 2))}
+
+
+def seq_cfg(name, **over):
+    arch, base = SEQ_CASES[name]
+    return family_cfg(arch, **base, **over)
+
+
+def whole_logits(logits, plan):
+    """The (B, V) logits whole: the rank's columns gathered over
+    ``model`` where the plan cuts the vocabulary."""
+    logits = logits.reshape(logits.shape[0], -1)
+    tp = plan.head_tp if plan is not None else None
+    if tp is None:
+        return logits
+    out = logits.new_empty((tp.size * logits.shape[0], logits.shape[1]))
+    sharded._ALL_GATHER(out, logits.contiguous(), group=tp.group)
+    return torch.cat(list(out.view(tp.size, *logits.shape)), -1)
+
+
+def serve_steps(cfg, params, prompts, mesh=None, specs=None, batch=None):
+    """A prefill of ``prompts`` and SEQ_TICKS decode ticks through the
+    steps (with ``mesh`` and ``specs`` the sharded ones, the caches
+    :func:`launch.steps.cache_blocks`'); returns the tokens (B,
+    SEQ_TICKS + 1), every step's whole logits (SEQ_TICKS + 1, B, V) and
+    the caches."""
+    seen, real = [], TST._next_token
+
+    def spy(logits, plan):
+        seen.append(whole_logits(logits, plan))
+        return real(logits, plan)
+
+    B = prompts.shape[0]
+    caches = (M.init_cache(cfg, B, SEQ_SMAX, dtype=torch.float32, device="cpu") if mesh is None
+              else TST.cache_blocks(cfg, mesh, batch, SEQ_SMAX, dtype=torch.float32,
+                                    device="cpu"))
+    toks = torch.cat([torch.as_tensor(prompts, dtype=torch.long),
+                      torch.zeros((B, 1), dtype=torch.long)], 1)
+    TST._next_token = spy
+    try:
+        kw = dict(batch=batch, s_max=SEQ_SMAX)
+        nxt, caches = TST.make_prefill_step(cfg, mesh, specs, **kw)(params, {"tokens": toks},
+                                                                     caches)
+        tick = TST.make_serve_step(cfg, mesh, specs, **kw)
+        out, pos = [nxt], torch.full((B,), prompts.shape[1], dtype=torch.int32)
+        for _ in range(SEQ_TICKS):
+            nxt, caches = tick(params, caches, nxt, pos)
+            out.append(nxt)
+            pos = pos + 1
+    finally:
+        TST._next_token = real
+    return torch.cat(out, 1), torch.stack(seen).numpy(), caches
+
+
+def seq_inputs(name):
+    """A case's parameters (``init_params`` from seed 0) and two prompts
+    of SEQ_PROMPT tokens (numpy, seed 5)."""
+    cfg = seq_cfg(name)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(5).integers(1, cfg.vocab_size, (2, SEQ_PROMPT))
+    return params, prompts.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def seq_unsharded(name, batch):
+    """The unsharded ``serve``'s tokens and the whole form's tokens and
+    logits (the steps without a mesh) of a case's first ``batch``
+    prompts, with its parameters and prompts."""
+    cfg = seq_cfg(name)
+    params, prompts = seq_inputs(name)
+    prompts = prompts[:batch]
+    want, _ = serve(cfg, M.Model(cfg, device="cpu", params=params), list(prompts), batch=batch,
+                    max_new=SEQ_TICKS + 1, s_max=SEQ_SMAX, device="cpu")
+    return params, prompts, want, *serve_steps(cfg, params, prompts)[:2]
+
+
+def seq_case(name, shape, knob, batch):
+    """One case over one mesh: the unsharded ``serve``'s tokens and the
+    whole form's logits for the rank's rows, and the sharded steps'
+    tokens, logits, cache bytes against ``bytes_under_specs`` of the
+    whole cache under ``cache_specs``, and each layer's cut (its axes
+    and block)."""
+    cfg = seq_cfg(name, seq_shard_kv=knob)
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    params, prompts, want, whole_toks, whole = seq_unsharded(name, batch)
+    pspecs = TST.param_specs(params, cfg, mesh)
+    rows = shard_leaf(torch.arange(batch), TST.batch_specs(cfg, mesh, batch)["tokens"][:1],
+                      mesh).tolist()
+    toks, logits, caches = serve_steps(cfg, shard_state(params, pspecs, mesh), prompts[rows],
+                                       mesh, pspecs, batch)
+    cspecs = TST.cache_specs(cfg, mesh, batch)
+    plan, _ = TST._serving_plan(cfg, mesh, pspecs, batch, SEQ_SMAX)
+    return {"rows": rows, "want": [want[r] for r in rows], "got": toks.tolist(),
+            "whole_tokens": whole_toks[rows].tolist(), "whole": whole[:, rows],
+            "logits": logits, "cache_bytes": block_bytes(caches),
+            "under_specs": TST.bytes_under_specs(
+                M.init_cache(cfg, batch, SEQ_SMAX, dtype=torch.float32, device="cpu"), cspecs,
+                mesh),
+            "cuts": [None if c is None else (c.axes, c.block, c.length) for c in plan.seq],
+            "cache": [{k: tuple(t.shape) for k, t in c.items()} for c in caches]}
+
+
+def seq_cases(world):
+    out = {}
+    for shape, knob, batch in SEQ_RUNS[world]:
+        for name in SEQ_CASES:
+            out[(name, shape, knob)] = seq_case(name, shape, knob, batch)
+    return out
+
+
 def main(rank: int, world: int, init_file: str, out_dir: str, mode=None, data=None) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
@@ -630,6 +765,10 @@ def main(rank: int, world: int, init_file: str, out_dir: str, mode=None, data=No
         if mode == "tp":
             out = tp_cases(rank, world, pickle.loads(Path(data).read_bytes()))
             Path(out_dir, f"tp{rank}.pkl").write_bytes(pickle.dumps(out))
+            return
+        if mode == "seq":
+            out = seq_cases(world)
+            Path(out_dir, f"seq{rank}.pkl").write_bytes(pickle.dumps(out))
             return
         out = {"compression": compression(rank, world), "pipeline": pipeline(world),
                "ep_moe_apply": ep_moe_apply(rank, world), "ep_mesh_moe": ep_mesh_moe(world),
