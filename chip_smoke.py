@@ -496,9 +496,12 @@ FOUR_CARDS = dict(arch="stablelm-1.6b", seq=512, batch=8, steps=12, timed_from=2
 # output by that block's weight.  23c: the dry run's records on the
 # host: `long` (long_500k) and `knob` (decode_32k with seq_shard_kv),
 # each peak beside PR 25's in GiB (PERF.md section 4, my CPU dry run,
-# PR 25: the default decode_32k records for the knob's).
+# PR 25: the default decode_32k records for the knob's); jamba's
+# long_500k peak under `jamba_limit_gib` (its expert stacks kept cut over
+# 'model' at batch 1, where moe_ep is off: 8.27 GiB when they were
+# gathered whole, PR 26).
 SEQ_CUT = dict(arch="gemma3-4b", prompt=64, ticks=8, s_max=524288, blocks=16, masked=1000,
-               mla_arch="deepseek-v2-lite-16b", score_std=4.0,
+               mla_arch="deepseek-v2-lite-16b", score_std=4.0, jamba_limit_gib=4.0,
                long=("gemma3-4b", "jamba-v0.1-52b", "falcon-mamba-7b"),
                knob=("gemma3-4b", "granite-20b", "internlm2-20b", "deepseek-v2-lite-16b"),
                pr25_peak_gib={("gemma3-4b", "long_500k"): 12.4,
@@ -514,8 +517,26 @@ MERGE_TOL = 1e-5
 # seq_shard_kv and `kv_heads` KV heads (4 would divide 'model' and leave
 # the cache whole), each rank's tokens against its unsharded steps'.
 FOUR_CARDS_SEQ = dict(arch="gemma3-4b", prompt=12, ticks=9, s_max=24, kv_heads=2,
-                      runs=(((4, 1), False), ((1, 4), True)))
+                      runs=(((4, 1), False), ((1, 4), True)),
+                      repair=("jamba-v0.1-52b", (1, 4)))
 ORDER_TOL = dict(rtol=1e-5, atol=1e-5)
+# Slice 17 (phase 24): seq_parallel (Megatron-SP: the stream between
+# layers each rank's block of the sequence over 'model') and the routed
+# experts kept cut over 'model' without expert parallelism.  A 'model'
+# group of more than one rank needs more than one card (NCCL refuses two
+# ranks on one GPU), so the phase is the dry run's knob records on the
+# card's host: train_4k of `train` and prefill_32k of `prefill` with
+# seq_parallel, each beside its default record (phases 21c and 22b of
+# this run, HOST_RECORDS, or made here when the phase runs alone): the
+# peak per rank, each train_4k peak at least `min_drop_gib` lower, and
+# the wire bytes over 'model' by collective kind; every record's state or
+# parameters equal to the specs' bytes.  The four-card record
+# (four_cards) trains FOUR_CARDS' cell with seq_parallel over (2, 2) and
+# (1, 4) against the --model-parallel 1 run's losses, and decodes
+# FOUR_CARDS_SEQ's `repair` at batch 1 (moe_ep off) over (1, 4).
+SEQ_PAR = dict(train=("stablelm-1.6b", "deepseek-v2-lite-16b"), prefill=("stablelm-1.6b",),
+               min_drop_gib=4.0, four_cards_mp=(2, 4))
+HOST_RECORDS = {}   # (arch, shape) -> the default dry-run record phases 21c and 22b wrote
 
 
 class SmokeFailure(RuntimeError):
@@ -4316,6 +4337,7 @@ def phase21c_host(smi):
                 f"bottleneck {rec['bottleneck']}; build {rec['build_s']:.1f} s, measure "
                 f"{rec['measure_s']:.1f} s")
             recs[arch] = bpd
+            HOST_RECORDS[(arch, SHARDED["host_shape"])] = rec
     return recs
 
 
@@ -4446,6 +4468,7 @@ def phase22b_host(smi):
                       f"{bpd['state_under_specs']}")
                 check(rec["calls"].get("all-reduce", 0) > 0,
                       f"phase 22b: {arch} {shape} runs no tensor-parallel all-reduce")
+                HOST_RECORDS[(arch, shape)] = rec
                 log(f"  {arch} {shape}: parameters {fmt_mem(bpd['params'])} per rank, under the "
                     f"reference's specs {fmt_mem(bpd['state_under_specs'])}; cache "
                     f"{fmt_mem(bpd['cache'])}; peak {fmt_mem(bpd['peak'])}; all-reduces "
@@ -4691,6 +4714,8 @@ def phase23c_host(smi):
     check(out[("gemma3-4b", "long_500k")] < 2, "phase 23c: gemma3-4b long_500k at or above 2 GiB")
     check(all(peak < T["pr25_peak_gib"][k] for k, peak in out.items() if k[0] != "falcon-mamba-7b"),
           "phase 23c: a peak that holds a cut cache did not fall below PR 25's")
+    check(out[("jamba-v0.1-52b", "long_500k")] < T["jamba_limit_gib"],
+          f"phase 23c: jamba-v0.1-52b long_500k at or above {T['jamba_limit_gib']} GiB")
     return out
 
 
@@ -4713,6 +4738,97 @@ def phase23_sequence(smi):
     log(f"  B1, B2 and B3 launches in phase 23: {n}; phase wall "
         f"{time.perf_counter() - t_phase:.1f} s")
     return n
+
+
+def phase24_seq_parallel(smi):
+    """The dry run's seq_parallel knob records on the single-pod mesh,
+    on this host, each against its default record.  Returns B1's, B2's
+    and B3's launches in the phase (none)."""
+    import tempfile
+    from repro_torch._tree import flatten
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.optim import OptConfig
+    t_phase = time.perf_counter()
+    read = counted_launches()
+    S = SEQ_PAR
+    jobs = [(a, "train_4k") for a in S["train"]] + [(a, "prefill_32k") for a in S["prefill"]]
+    log(f"phase 24: the dry run's seq_parallel records of "
+        f"{', '.join(f'{a} {sh}' for a, sh in jobs)} on the (16, 16) mesh (fake world of 256, "
+        f"fake tensors on the host's fake device), each beside its default record; {smi}")
+    with tempfile.TemporaryDirectory() as tmp, dryrun.fake_world(False) as mesh:
+        for arch, shape in jobs:
+            t0 = time.perf_counter()
+            base = HOST_RECORDS.get((arch, shape))
+            made = base is None
+            if made:
+                base = dryrun.run_cell(arch, shape, multi_pod=False, out_dir=Path(tmp), mesh=mesh)
+            over = {"seq_parallel": True}
+            rec = dryrun.run_cell(arch, shape, multi_pod=False, out_dir=Path(tmp), mesh=mesh,
+                                  overrides=over)
+            check("block of the sequence" in rec["layout"]["stream"] and
+                  "block of the sequence" not in base["layout"]["stream"],
+                  f"phase 24: {arch} {shape}: the records' layouts {rec['layout']['stream']!r}, "
+                  f"{base['layout']['stream']!r}")
+            cfg = steps_mod._dryrun_model_cfg(get_arch(arch), shape, mesh, over)
+            train = SHAPES[shape][2] == "train"
+            part = "state" if train else "params"
+            leaves = len(flatten(steps_mod.state_shapes(
+                cfg, OptConfig(**rec["optimizer"]) if train else None)))
+            slack = 511 * leaves if rec["layout"]["device"] == "cuda" else 0
+            bpd, was = rec["bytes_per_device"], base["bytes_per_device"]
+            check(bpd["state_under_specs"] <= bpd[part] <= bpd["state_under_specs"] + slack,
+                  f"phase 24: {arch} {shape} {part} {bpd[part]} against "
+                  f"{bpd['state_under_specs']}")
+            drop = (was["peak"] - bpd["peak"]) / 2**30
+
+            def model_wire(r):
+                by_kind = r["collectives_by_axis"].get("model", {})
+                calls = r["collective_calls_by_axis"].get("model", {})
+                return sum(by_kind.values()), ", ".join(
+                    f"{k} {v / 2**30:.3f} GiB in {calls[k]} calls"
+                    for k, v in sorted(by_kind.items()))
+
+            (w_sp, by_sp), (w_base, by_base) = model_wire(rec), model_wire(base)
+            log(f"  {arch} {shape} seq_parallel=True: peak {bpd['peak'] / 2**30:.2f} GiB "
+                f"({fmt_mem(bpd['peak'])}) per rank against the default record's "
+                f"{was['peak'] / 2**30:.2f} GiB ({fmt_mem(was['peak'])}"
+                f"{', made here' if made else ''}), {drop:.2f} GiB lower; {part} "
+                f"{fmt_mem(bpd[part])}, the specs' {fmt_mem(bpd['state_under_specs'])}; wire "
+                f"bytes over 'model' {w_sp / 2**30:.3f} GiB ({by_sp}) against "
+                f"{w_base / 2**30:.3f} GiB ({by_base}), {100 * (w_sp / w_base - 1):+.2f}%; "
+                f"bottleneck {rec['bottleneck']}; build {rec['build_s']:.1f} s, measure "
+                f"{rec['measure_s']:.1f} s; {time.perf_counter() - t0:.1f} s")
+            if train:
+                check(drop >= S["min_drop_gib"], f"phase 24: {arch} train_4k's peak fell by "
+                      f"{drop:.2f} GiB, less than {S['min_drop_gib']}")
+    n = read()
+    check(n == {"b1": 0, "b2": 0, "b3": 0}, f"phase 24: launched {n} of B1-B3")
+    log(f"  B1, B2 and B3 launches in phase 24: {n}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return n
+
+
+def four_cards_sp_rank(argv):
+    """One rank of the four-card seq_parallel training under
+    ``torchrun``: launch/train.py's main with ``argv`` and the process's
+    own arguments after them (``python -c CODE ARGS``: ``--preset smoke
+    --device cpu`` rehearses it on the CPU), its model (an ``--arch``'s or
+    a ``--preset``'s) with seq_parallel on."""
+    from repro_torch import configs
+    from repro_torch.launch import train
+    arch, preset = configs.get_arch, train.preset_config
+
+    def sp(cfg):
+        return dataclasses.replace(cfg, seq_parallel=True)
+
+    configs.get_arch = lambda a: dataclasses.replace(arch(a), model=sp(arch(a).model))
+    train.preset_config = lambda name: (sp(preset(name)[0]), *preset(name)[1:])
+    try:
+        train.main(argv + sys.argv[1:])
+    finally:
+        configs.get_arch, train.preset_config = arch, preset
 
 
 def four_cards_seq_rank(out_path):
@@ -4756,8 +4872,34 @@ def four_cards_seq_rank(out_path):
             rec[f"{shape} seq_shard_kv={knob}"] = {
                 "want": want.tolist(), "got": got.tolist(), "tick_ms": statistics.median(times),
                 "cuts": [None if c is None else [list(c.axes), c.block] for c in plan.seq]}
+        arch, shape = F["repair"]          # the MoE without expert parallelism, batch 1
+        cfg = shrink(get_arch(arch).model)
+        params = M.init_params(cfg, torch.Generator(device=DEV).manual_seed(0))
+        toks = torch.as_tensor(np.random.default_rng(0).integers(
+            1, cfg.vocab_size, (1, F["prompt"] + 1)), device=DEV)
+        want, _ = tp_serve_run(cfg, steps_mod.make_prefill_step(cfg),
+                               steps_mod.make_serve_step(cfg), params,
+                               M.init_cache(cfg, 1, F["s_max"], torch.float32, DEV), toks,
+                               F["ticks"] + 1)
+        mesh = make_mesh(shape, ("data", "model"), device=DEV)
+        pspecs = steps_mod.param_specs(params, cfg, mesh)
+        kw = dict(batch=1, s_max=F["s_max"])
+        got, times = tp_serve_run(
+            cfg, steps_mod.make_prefill_step(cfg, mesh, pspecs, **kw),
+            steps_mod.make_serve_step(cfg, mesh, pspecs, **kw),
+            sharded.shard_state(params, pspecs, mesh),
+            steps_mod.cache_blocks(cfg, mesh, 1, F["s_max"], torch.float32, DEV), toks,
+            F["ticks"] + 1)
+        plan, _ = steps_mod._serving_plan(cfg, mesh, pspecs, **kw)
+        stacks = [p for p, spec in sharded.spec_paths(pspecs).items()
+                  if p.rsplit("/", 1)[-1] in M.EXPERT_STACKS and "/shared/" not in p
+                  and "model" in spec]
+        repair = {"run": f"{shape} shrink({arch}) moe_ep={cfg.moe_ep}", "want": want.tolist(),
+                  "got": got.tolist(), "tick_ms": statistics.median(times),
+                  "stacks_kept_cut": bool(stacks) and all(
+                      plan.gathers.get(p, (0, 0, ("model",)))[2] == ("model",) for p in stacks)}
         if dist.get_rank() == 0:
-            Path(out_path).write_text(json.dumps(rec))
+            Path(out_path).write_text(json.dumps({"runs": rec, "repair": repair}))
     finally:
         dist.destroy_process_group()
 
@@ -4771,8 +4913,13 @@ def four_cards() -> int:
     run's at ORDER_TOL, the step (median of every rank's host step times
     from `timed_from`), tokens/s and the largest peak per rank.  Then
     FOUR_CARDS_SEQ's batch-1 decodes under ``torchrun``
-    (:func:`four_cards_seq_rank`): each run's tokens against the
-    unsharded steps'.  Returns 0 when every check held."""
+    (:func:`four_cards_seq_rank`): each run's tokens, and those of the MoE
+    without expert parallelism over (1, 4), against the unsharded
+    steps'.  Then FOUR_CARDS' cell with seq_parallel at each
+    ``SEQ_PAR["four_cards_mp"]`` (:func:`four_cards_sp_rank`): its losses
+    against the --model-parallel 1 run's at ORDER_TOL, its step and peak
+    beside the same mesh's run without it.  Returns 0 when every check
+    held."""
     import json
     import tempfile
     F = FOUR_CARDS
@@ -4784,6 +4931,12 @@ def four_cards() -> int:
     smi = "; ".join(smi.splitlines())
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     runs = {}
+
+    def train_argv(mp):
+        return ["--arch", F["arch"], "--seq", str(F["seq"]), "--batch", str(F["batch"]),
+                "--steps", str(F["steps"]), "--log-every", str(F["steps"]),
+                "--model-parallel", str(mp)]
+
     try:
         with tempfile.TemporaryDirectory() as out:
             for mp in F["model_parallel"]:
@@ -4792,10 +4945,8 @@ def four_cards() -> int:
                 t0 = time.perf_counter()
                 proc = subprocess.run(
                     [sys.executable, "-m", "torch.distributed.run", "--standalone",
-                     "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
-                     "--arch", F["arch"], "--seq", str(F["seq"]), "--batch", str(F["batch"]),
-                     "--steps", str(F["steps"]), "--log-every", str(F["steps"]),
-                     "--model-parallel", str(mp), "--record", f"{out}/mp{mp}_{{rank}}.json"],
+                     "--nproc-per-node", "4", "-m", "repro_torch.launch.train", *train_argv(mp),
+                     "--record", f"{out}/mp{mp}_{{rank}}.json"],
                     env=env, capture_output=True, text=True, timeout=600)
                 log(proc.stdout[-3000:])
                 check(proc.returncode == 0, f"four cards: --model-parallel {mp} exited "
@@ -4837,12 +4988,50 @@ def four_cards() -> int:
                 env=seq_env, cwd=ROOT, capture_output=True, text=True, timeout=600)
             check(proc.returncode == 0, f"four cards: the sequence-cut decode exited "
                   f"{proc.returncode}: {proc.stderr[-3000:]}")
-            for run, r in json.loads(Path(out, "seq.json").read_text()).items():
+            seq = json.loads(Path(out, "seq.json").read_text())
+            for run, r in seq["runs"].items():
                 log(f"  {run}: tokens {r['got']} against unsharded {r['want']}; tick "
                     f"{r['tick_ms']:.3f} ms (median, CUDA events); cuts {r['cuts']}; wall "
                     f"{time.perf_counter() - t0:.1f} s")
                 check(r["got"] == r["want"], f"four cards: {run}: tokens differ")
                 check(any(r["cuts"]), f"four cards: {run}: no layer's sequence is cut")
+            r = seq["repair"]
+            log(f"  {r['run']}: tokens {r['got']} against unsharded {r['want']}; tick "
+                f"{r['tick_ms']:.3f} ms (median, CUDA events); expert stacks kept cut over "
+                f"'model': {r['stacks_kept_cut']}")
+            check(r["got"] == r["want"], f"four cards: {r['run']}: tokens differ")
+            check(r["stacks_kept_cut"], f"four cards: {r['run']}: expert stacks gathered whole")
+        with tempfile.TemporaryDirectory() as out:
+            sp_env = dict(env, PYTHONPATH=f"{ROOT}{os.pathsep}{ROOT / 'src'}")
+            for mp in SEQ_PAR["four_cards_mp"]:
+                log(f"four cards: {F['arch']} float32, AdamW, {F['batch']} x {F['seq']} tokens, "
+                    f"{F['steps']} steps, seq_parallel over mesh ({4 // mp}, {mp}); {smi}")
+                t0 = time.perf_counter()
+                argv = train_argv(mp) + ["--record", f"{out}/sp{mp}_{{rank}}.json"]
+                proc = subprocess.run(
+                    [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                     "--nproc-per-node", "4", "--no-python", sys.executable, "-c",
+                     f"import chip_smoke as cs; cs.four_cards_sp_rank({argv!r})"],
+                    env=sp_env, cwd=ROOT, capture_output=True, text=True, timeout=600)
+                log(proc.stdout[-3000:])
+                check(proc.returncode == 0, f"four cards: seq_parallel at --model-parallel {mp} "
+                      f"exited {proc.returncode}: {proc.stderr[-3000:]}")
+                recs = [json.loads(Path(out, f"sp{mp}_{r}.json").read_text()) for r in range(4)]
+                check(all(r["losses"] == recs[0]["losses"] for r in recs),
+                      f"four cards: seq_parallel at --model-parallel {mp}: the ranks' losses "
+                      f"differ")
+                steps = [t for r in recs for t in r["step_ms"][F["timed_from"]:]]
+                step, peak = statistics.median(steps), max(r["peak_mib"] or 0.0 for r in recs)
+                got = np.asarray(recs[0]["losses"])
+                rel = np.abs(got - base) / np.abs(base)
+                log(f"  mesh {recs[0]['mesh']} seq_parallel: losses "
+                    f"{', '.join(f'{x:.6f}' for x in got)}; largest relative difference from "
+                    f"--model-parallel 1 {rel.max():.3e}; step {step:.3f} ms (median of "
+                    f"{len(steps)}, host clock) against {runs[mp]['step']:.3f} ms without it; "
+                    f"peak per rank {peak:.1f} MiB against {runs[mp]['peak']:.1f} MiB; wall "
+                    f"{time.perf_counter() - t0:.1f} s")
+                check(np.allclose(got, base, **ORDER_TOL), f"four cards: seq_parallel at "
+                      f"--model-parallel {mp} losses {got.tolist()} against {base.tolist()}")
     except SmokeFailure as e:
         log(f"FAILED: {e}")
         return 1
@@ -4925,6 +5114,8 @@ def main(argv=None) -> int:
     elapsed("phase22_tensor_parallel")
     p23 = phase23_sequence(smi)
     elapsed("phase23_sequence")
+    p24 = phase24_seq_parallel(smi)
+    elapsed("phase24_seq_parallel")
     b1 = dict(route="cuda", source="src/repro_torch/kernels/csrc/metropolis_sweep.cu",
               replaces="src/repro/kernels/metropolis_sweep.py:81", library_ms=None)
     kernels = [
@@ -4937,7 +5128,7 @@ def main(argv=None) -> int:
                               "phase 17": p17["b1"], "phase 18": p18["b1"],
                               "phase 19": p19["b1"], "phase 20": p20["b1"],
                               "phase 21": p21["b1"], "phase 22": p22["b1"],
-                              "phase 23": p23["b1"]},
+                              "phase 23": p23["b1"], "phase 24": p24["b1"]},
          "max_abs_err": max(b1_err["delta"], temper["max_abs_err"]),
          "ms": t["delta"][0], "wrapper_ms": t["delta"][1], "plain_ms": t["delta"][2],
          "bound_ms": t["delta"][3], "bound_by": t["delta"][4]},
@@ -4948,7 +5139,7 @@ def main(argv=None) -> int:
                               "phase 16": p16["b1"], "phase 17": p17["b1"],
                               "phase 18": p18["b1"], "phase 19": p19["b1"],
                               "phase 20": p20["b1"], "phase 21": p21["b1"], "phase 22": p22["b1"],
-                              "phase 23": p23["b1"]},
+                              "phase 23": p23["b1"], "phase 24": p24["b1"]},
          "max_abs_err": max(b1_err["full"], suite["max_abs_err"], table7["max_abs_err"]),
          "ms": t["full"][0], "wrapper_ms": t["full"][1], "plain_ms": t["full"][2],
          "bound_ms": t["full"][3], "bound_by": t["full"][4]},
@@ -4962,7 +5153,7 @@ def main(argv=None) -> int:
                               "phase 17": p17["b2"], "phase 18": p18["b2"],
                               "phase 19": p19["b2"], "phase 20": p20["b2"],
                               "phase 21": p21["b2"], "phase 22": p22["b2"],
-                              "phase 23": p23["b2"]},
+                              "phase 23": p23["b2"], "phase 24": p24["b2"]},
          "max_abs_err": b2_err,
          "ms": t["b2"][0], "wrapper_ms": t["b2"][1], "plain_ms": t["b2"][2],
          "bound_ms": t["b2"][3], "bound_by": "bytes", "library_ms": t["b2"][4]},
@@ -4975,7 +5166,7 @@ def main(argv=None) -> int:
                               "phase 16": p16["b3"], "phase 17": p17["b3"],
                               "phase 18": p18["b3"], "phase 19": p19["b3"],
                               "phase 20": p20["b3"], "phase 21": p21["b3"],
-                              "phase 22": p22["b3"], "phase 23": p23["b3"]},
+                              "phase 22": p22["b3"], "phase 23": p23["b3"], "phase 24": p24["b3"]},
          "max_abs_err": b3_err,
          "ms": b3[0], "wrapper_ms": b3[1], "plain_ms": b3[2], "bound_ms": b3[3],
          "bound_by": b3[4], "library_ms": None},

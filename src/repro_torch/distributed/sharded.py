@@ -21,8 +21,8 @@ every rank is a process and every collective is explicit:
   the spec names and divides by their size, the mean over the batch's
   shards.  Over ``model`` it takes one
   of three forms: axes in ``keep`` are not gathered at all (a leaf the
-  rank computes with as its block: tensor parallelism, and the E/ep
-  slice of the expert-parallel MoE); axes in ``summed`` are gathered and
+  rank computes with as its block: tensor parallelism, the expert
+  stacks' E/tp slices among them); axes in ``summed`` are gathered and
   the gradient reduce-scattered (summed) back, for a leaf whose ranks
   each fill a part of the whole gradient (Mamba's ``in_proj``, whose x
   and z columns lie in two blocks); otherwise, where every rank of a

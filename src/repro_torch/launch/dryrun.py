@@ -97,7 +97,8 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool, out_dir: Path,
         under_specs = bytes_under_specs(cell.whole, cell.specs, mesh)
         cache_under = (None if cell.kind == "train" else
                        bytes_under_specs(cell.whole_cache, cell.cache_specs, mesh))
-        with op_census(*cell.args) as census:
+        groups = {a: mesh.get_group(a) for a, n in mesh_axes(mesh).items() if n > 1}
+        with op_census(*cell.args, groups=groups) as census:
             cell.fn(*cell.args)
     t_measure = time.time() - t0 - t_build
     res = census.result()
@@ -116,7 +117,8 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool, out_dir: Path,
         "model_cfg": {"param_dtype": cell.model_cfg.param_dtype,
                       "compute_dtype": cell.model_cfg.compute_dtype,
                       "remat": cell.model_cfg.remat, "moe_ep": cell.model_cfg.moe_ep,
-                      "seq_shard_kv": cell.model_cfg.seq_shard_kv},
+                      "seq_shard_kv": cell.model_cfg.seq_shard_kv,
+                      "seq_parallel": cell.model_cfg.seq_parallel},
         "optimizer": dataclasses.asdict(cell.ocfg) if cell.ocfg else None,
         "layout": cell.layout,
         "bytes_per_device": {
@@ -128,7 +130,9 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool, out_dir: Path,
         },
         "flops": flops, "bytes": res["hbm_bytes"],
         "by_op": res["by_op"], "calls": res["calls"],
-        "collectives": res["wire"], "collective_operands": collective_bytes(res),
+        "collectives": res["wire"], "collectives_by_axis": res["wire_by_group"],
+        "collective_calls_by_axis": res["calls_by_group"],
+        "collective_operands": collective_bytes(res),
         "roofline": terms,
         "model_flops": model_flops,
         "model_flops_per_chip": model_flops / n_chips,

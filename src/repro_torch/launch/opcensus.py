@@ -101,19 +101,29 @@ def _nbytes(x) -> int:
                if isinstance(t, torch.Tensor))
 
 
-def _group_size(args) -> int:
+def _group(args):
     for a in args:
         if isinstance(a, torch.ScriptObject) and \
                 a._type().qualified_name().endswith("c10d.ProcessGroup"):
-            return dist.ProcessGroup.unbox(a).size()
+            return dist.ProcessGroup.unbox(a)
     raise ValueError("a collective without a process group")
 
 
-class Census(TorchDispatchMode):
-    """The census of the ops run under it (see the module's docstring)."""
+def _group_size(args) -> int:
+    return _group(args).size()
 
-    def __init__(self):
+
+class Census(TorchDispatchMode):
+    """The census of the ops run under it (see the module's docstring).
+    ``groups`` ({name: process group}, e.g. a mesh's axes) splits the wire
+    bytes and the calls by the group each collective runs over
+    (``wire_by_group``, ``calls_by_group``)."""
+
+    def __init__(self, groups=None):
         super().__init__()
+        self.groups = dict(groups or {})
+        self.wire_by_group = defaultdict(lambda: defaultdict(float))
+        self.calls_by_group = defaultdict(lambda: defaultdict(int))
         self.hbm_bytes = 0.0
         self.by_op = defaultdict(float)
         self.wire = defaultdict(float)
@@ -162,7 +172,13 @@ class Census(TorchDispatchMode):
                 kind, o, i = COLLECTIVES[name]
                 in_b = _nbytes(args[i])
                 out_b = _nbytes(args[o]) if o is not None else in_b
-                self.wire[kind] += wire_bytes(kind, in_b, out_b, _group_size(args))
+                pg = _group(args)
+                wire = wire_bytes(kind, in_b, out_b, pg.size())
+                self.wire[kind] += wire
+                name = next((k for k, g in self.groups.items() if g is pg), None)
+                if name is not None:
+                    self.wire_by_group[name][kind] += wire
+                    self.calls_by_group[name][kind] += 1
                 self.coll_operands[kind] += in_b
                 self.calls[kind] += 1
                 self.hbm_bytes += in_b + out_b
@@ -189,15 +205,17 @@ class Census(TorchDispatchMode):
     def result(self) -> dict:
         return {"flops": self.flops, "hbm_bytes": self.hbm_bytes, "by_op": dict(self.by_op),
                 "wire": dict(self.wire), "coll_operands": dict(self.coll_operands),
+                "wire_by_group": {k: dict(v) for k, v in self.wire_by_group.items()},
+                "calls_by_group": {k: dict(v) for k, v in self.calls_by_group.items()},
                 "calls": dict(self.calls), "peak": self.peak}
 
 
 @contextlib.contextmanager
-def op_census(*held):
+def op_census(*held, groups=None):
     """``with op_census(state, batch) as c: step(...)``: a :class:`Census`
-    of the ops run inside, the tensors of ``held`` live from the start;
-    its ``flops`` are filled on leaving."""
-    census = Census()
+    of the ops run inside (``groups`` as there), the tensors of ``held``
+    live from the start; its ``flops`` are filled on leaving."""
+    census = Census(groups)
     census.hold(*held)
     counter = FlopCounterMode(display=False)
     with counter, census:

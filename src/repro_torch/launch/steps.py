@@ -28,8 +28,12 @@ data axis divides, the GQA and MLA caches over the data axes, and under
 ``seq_shard_kv`` the GQA caches whose KV heads do not divide ``model``
 (no window) and the MLA caches over ``model``; each rank holds its block
 of the slots and a decode tick merges the group's partial softmaxes
-(``distributed.sequence``).  ``seq_parallel`` changes the specs only.
-``repro.launch.shardctx`` has no counterpart: its ``constrain`` pins a
+(``distributed.sequence``).  ``seq_parallel`` cuts the stream between
+layers on its sequence over ``model`` in the train and prefill steps
+(Megatron-SP, ``models.model``), whose norms, ``pos_embed`` and other
+leaves left whole over ``model`` then have partial gradients, summed
+over it (:func:`partial_grad_paths`); the decode step keeps the
+replicated stream.  ``repro.launch.shardctx`` has no counterpart: its ``constrain`` pins a
 traced activation to a layout, where each of the port's ranks holds
 local tensors, so :func:`activation_policy` gives the layout as DTensor
 placements and nothing applies it.  Next tokens are int32, by
@@ -312,18 +316,20 @@ def activation_policy(cfg: M.ModelConfig, mesh, batch: int) -> dict:
     return {k: placements(v, mesh) for k, v in pol.items()}
 
 
-def partial_grad_paths(pspecs, mesh) -> list:
+def partial_grad_paths(pspecs, mesh, seq_parallel: bool = False) -> list:
     """The parameters whose gradient each rank of a ``model`` group
-    holds a part of, to be summed over the group: leaves the specs leave
-    whole inside a layer whose heads they cut
-    (``tensor_parallel.partial_grad``: MLA's ``w_dkv``/``w_kr``, GQA's
-    ``wk``/``wv`` where the KV heads do not divide).  Empty where the
-    compute is not cut over ``model``."""
+    holds a part of, to be summed over the group
+    (``tensor_parallel.partial_grad``): leaves the specs leave whole
+    inside a layer whose heads they cut (MLA's ``w_dkv``/``w_kr``, GQA's
+    ``wk``/``wv`` where the KV heads do not divide), and under
+    ``seq_parallel`` every leaf the specs leave whole over ``model`` (the
+    rank's block of the sequence reads it).  Empty where the compute is
+    not cut over ``model``."""
     from repro_torch.distributed import tensor_parallel as TP
     if TP.model_group(mesh, pspecs) is None:
         return []
     return [path for path, spec in sharded.spec_paths(pspecs).items()
-            if TP.partial_grad(path, spec, pspecs, mesh)]
+            if TP.partial_grad(path, spec, pspecs, mesh, seq_parallel)]
 
 
 def make_loss_and_grads(cfg: M.ModelConfig, mesh=None, specs=None):
@@ -335,7 +341,7 @@ def make_loss_and_grads(cfg: M.ModelConfig, mesh=None, specs=None):
     are the parameters' (``param_specs``)."""
     axes = dp_axes(mesh) if mesh is not None else ()
     fs = sharded.spec_paths(specs) if specs is not None else {}
-    partial = set(partial_grad_paths(specs, mesh))
+    partial = set(partial_grad_paths(specs, mesh, cfg.seq_parallel))
     plan = M.sharding(cfg, mesh, specs) if specs is not None else None
 
     def mean_over(t, over):     # a group of one leaves t as it is
@@ -384,8 +390,11 @@ def make_train_step(cfg: M.ModelConfig, ocfg: OptConfig, mesh=None, batch=None, 
     on every rank but read by the rank's heads only is a part, summed
     over ``model`` (:func:`partial_grad_paths`); a leaf of the
     replicated stream has the same gradient on every rank of the group
-    and is not summed.  Without ``specs`` every rank holds the whole
-    state and computes replicated over ``model``.  Either way a gradient
+    and is not summed.  With ``cfg.seq_parallel`` the stream between
+    layers is the rank's block of the sequence, and every leaf whole over
+    ``model`` has a part of the gradient, summed.  Without ``specs``
+    every rank holds the whole state and computes replicated over
+    ``model``.  Either way a gradient
     is then all-reduced over the data axes its leaf is not cut over, and
     divided by their size (:func:`make_loss_and_grads`).  ``batch`` is
     the reference's, which sizes its activation layout; the port has
@@ -434,18 +443,19 @@ def _next_token(logits, plan):
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def _serving_plan(cfg: M.ModelConfig, mesh, specs, batch, s_max):
+def _serving_plan(cfg: M.ModelConfig, mesh, specs, batch, s_max, decode: bool = False):
     """The serving steps' :class:`models.model.Sharding` (the leaves'
-    gathers, and each layer's sequence cut of the caches
-    :func:`cache_specs` lays out for the global ``batch`` of ``s_max``
-    positions) and each layer's slots in the rank's cache (None for a
-    cache with no sequence)."""
+    gathers, each layer's sequence cut of the caches :func:`cache_specs`
+    lays out for the global ``batch`` of ``s_max`` positions, and the
+    stream's sequence cut of ``seq_parallel`` in the prefill step, not in
+    the ``decode`` step) and each layer's slots in the rank's cache (None
+    for a cache with no sequence)."""
     if specs is None:
         return None, None
     if batch is None or s_max is None:
         raise ValueError("serving steps over a mesh with specs need the global batch "
                          "and s_max: the caches' layout depends on both")
-    plan = M.sharding(cfg, mesh, specs, cache_specs(cfg, mesh, batch), s_max)
+    plan = M.sharding(cfg, mesh, specs, cache_specs(cfg, mesh, batch), s_max, decode=decode)
     slots = [cut.block if cut is not None else
              None if spec.kind == "mamba" else M.cache_length(spec, s_max)
              for cut, spec in zip(plan.seq, M.layer_specs(cfg))]
@@ -477,7 +487,9 @@ def make_prefill_step(cfg: M.ModelConfig, mesh=None, specs=None, batch=None, s_m
     (:func:`cache_blocks` of the global ``batch`` and ``s_max``: where
     their sequence is cut, the rank keeps its block of the prefill's
     layout) and the batch its share along the data axes; ``batch`` and
-    ``s_max`` are then required, and a cache of other slots raises."""
+    ``s_max`` are then required, and a cache of other slots raises.
+    With ``cfg.seq_parallel`` the stream between layers is the rank's
+    block of the prompt (``models.model``)."""
     plan, slots = _serving_plan(cfg, mesh, specs, batch, s_max)
 
     def prefill_step(params, batch_data, caches):
@@ -500,8 +512,10 @@ def make_serve_step(cfg: M.ModelConfig, mesh=None, specs=None, batch=None, s_max
     caches written in place; ``mesh``, ``specs``, ``batch`` and ``s_max``
     as in :func:`make_prefill_step`.  Where a layer's cache is cut on
     its sequence, the slot's owner writes the token and the group's
-    partial softmaxes are merged (``distributed.sequence``)."""
-    plan, slots = _serving_plan(cfg, mesh, specs, batch, s_max)
+    partial softmaxes are merged (``distributed.sequence``).  The stream
+    stays replicated under ``seq_parallel``: the reference's sequence
+    constraint on one position changes no value."""
+    plan, slots = _serving_plan(cfg, mesh, specs, batch, s_max, decode=True)
 
     def serve_step(params, caches, tokens, pos):
         _check_slots(slots, caches)
@@ -610,7 +624,8 @@ def build_cell(spec: ArchSpec, shape_name: str, mesh, ocfg: Optional[OptConfig] 
     the caches by :func:`cache_blocks` (the batch, ``model`` and the
     sequence where :func:`cache_specs` cuts them: a batch-1 cell's
     sequence over the data axes, and over ``model`` under
-    ``seq_shard_kv``).  The fake
+    ``seq_shard_kv``); a train or prefill cell's stream between layers
+    the rank's block of the sequence under ``seq_parallel``.  The fake
     tensors lie on :func:`fake_device`; ``shape``: ``(seq, batch, kind)``
     in place of ``SHAPES[shape_name]``.  Allocates nothing."""
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -625,7 +640,11 @@ def build_cell(spec: ArchSpec, shape_name: str, mesh, ocfg: Optional[OptConfig] 
     dp = _fit(batch, _dp(axes), mesh)
     split = math.prod(axes[a] for a in ((dp,) if isinstance(dp, str) else dp or ()))
     local = batch // split
+    sp = cfg.seq_parallel and kind != "decode" and axes["model"] > 1
     layout = {"device": dev.type, "batch_local": local, "batch_split_over": dp,
+              "stream": ("the rank's block of the sequence over 'model' between layers "
+                         "(seq_parallel), gathered where each block reads it" if sp else
+                         "replicated over 'model'"),
               "params": ("the rank's block of every leaf of the state by state_specs (the data "
                          "axes and 'model' where a dim divides; the experts' E/ep slice under "
                          "moe_ep), gathered over the data axes where each layer runs, the "

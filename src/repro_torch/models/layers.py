@@ -485,7 +485,7 @@ def _all_to_all(x, group):
 
 
 def moe_apply(params, x, *, top_k: int, capacity_factor: float = 1.25,
-              ep_group=None, ep_size: int = 1):
+              ep_group=None, ep_size: int = 1, expert_range=None):
     """Top-k MoE with capacity dispatch.  x (B, S, D) -> (B, S, D).
 
     The T = B·S tokens of one call share each expert's C slots, so a
@@ -505,6 +505,13 @@ def moe_apply(params, x, *, top_k: int, capacity_factor: float = 1.25,
     rank runs its experts over the ep·C rows of its peers, and the outputs
     come back by the same exchange.  Autograd carries it: on each rank
     the gradient is that of the sum of every rank's loss.
+
+    ``expert_range`` ``(lo, n)``: the stacks hold experts ``[lo, lo + n)``
+    only.  The tokens are dispatched over all E experts as the local form
+    does (the same capacity and the same drops), only the picks of those
+    experts are computed, and the result is their part of the output: a
+    pick of another expert counts as a dropped one.  The parts of ranges
+    that cover the E experts sum to the local form's output.
     """
     B, S, D = x.shape
     E = params["router"].shape[-1]
@@ -517,6 +524,9 @@ def moe_apply(params, x, *, top_k: int, capacity_factor: float = 1.25,
                              f"not {params['w_gate'].shape[0]}")
     xt = x.reshape(B * S, D)
     gate, _, dest, C = moe_dispatch(params["router"], xt, top_k, capacity_factor)
+    if expert_range is not None:        # the buffer's rows of experts [lo, lo + n)
+        lo, E = expert_range
+        dest = torch.where((dest >= lo * C) & (dest < (lo + E) * C), dest - lo * C, E * C)
     buf = x.new_zeros((E * C + 1, D))
     buf[dest] = xt.repeat_interleave(top_k, dim=0)
     buf = buf[:E * C].view(E, C, D)

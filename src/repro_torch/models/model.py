@@ -22,7 +22,8 @@ encoder of the encoder-decoder (``kind="encdec"``).  The reference's
 device mesh and change no value: ``launch.steps`` gives their specs, the
 serving steps cut the caches' sequences where ``cache_specs`` does
 (``seq_shard_kv`` among them; ``distributed.sequence``), and
-``seq_parallel`` and ``scan_unroll`` change nothing in the port.
+``seq_parallel`` cuts the stream between layers on its sequence
+(below); ``scan_unroll`` changes nothing in the port.
 ``remat`` ("full" or "dots") checkpoints each instance of a block
 pattern in train mode, as the reference checkpoints its scan body
 (:func:`_rematted`): the same values, with less held for the backward.
@@ -34,11 +35,17 @@ is gathered where its layer runs, inside the layer's remat region, and
 what the backward needs of it is gathered again (:func:`_gathering`).  Under a mesh whose
 ``model`` axis has more than one rank the compute is then cut over it
 as the specs cut the leaves (``distributed.tensor_parallel``): a layer
-whose q heads, ``d_ff`` or ``d_inner`` arrive as the rank's block
-computes the rank's heads or channels between ``copy_to_model`` and
-``reduce_from_model``, and the vocabulary's lookup, head and loss work
-on the rank's rows of it; a layer whose leaves arrive whole computes
-replicated.
+whose q heads, ``d_ff``, ``d_inner`` or routed experts arrive as the
+rank's block computes the rank's heads, channels or experts between
+``copy_to_model`` and ``reduce_from_model``, and the vocabulary's
+lookup, head and loss work on the rank's rows of it; a layer whose
+leaves arrive whole computes replicated.  With ``cfg.seq_parallel``
+(the plan's ``sp``, in train and prefill mode) the stream between
+layers is the rank's block of the sequence (Megatron-SP): the norms run
+on it, each block opens with ``gather_seq`` and closes with
+``reduce_scatter_seq`` (cut) or ``own_seq_block`` (replicated), and the
+remat regions save the block.  A decode step's single position keeps
+the replicated stream.
 """
 from __future__ import annotations
 
@@ -404,7 +411,7 @@ def _own_channels(in_proj, d_inner: int, n: int, tp):
 
 
 def _apply_layer(lp, spec: LayerSpec, cfg: ModelConfig, x, positions, cache, decode,
-                 enc_out=None, mesh=None, tp=None, seq=None):
+                 enc_out=None, mesh=None, tp=None, seq=None, sp=None):
     """One layer.  ``tp`` (this rank's ``model`` group under tensor
     parallelism, else None): a mixer, cross-attention or dense MLP whose
     leaves arrive as the rank's blocks of heads, channels or ``d_ff``
@@ -412,8 +419,23 @@ def _apply_layer(lp, spec: LayerSpec, cfg: ModelConfig, x, positions, cache, dec
     one whose leaves arrive whole computes replicated.  ``seq`` (a
     ``distributed.sequence.SeqCut``, else None): the layer's cache holds
     the rank's block of its sequence; where the cut is over ``model`` and
-    the q heads are too, the attention gathers the q heads over it."""
+    the q heads are too, the attention gathers the q heads over it.
+    ``sp`` (a ``tensor_parallel.SeqSplit``, else None): ``x`` is the
+    rank's block of the sequence; each block gathers the normed stream
+    (``gather_seq``) and gives back the rank's block of its output
+    (``reduce_scatter_seq`` of the partial sums of a cut block,
+    ``own_seq_block`` of a replicated one's), and ``enc_out`` is the
+    encoder's output gathered whole."""
     from repro_torch.distributed import tensor_parallel as TP
+
+    def enter(h, cut):
+        return TP.copy_to_model(h, cut) if sp is None else TP.gather_seq(h, sp)
+
+    def leave(out, cut):
+        if sp is None:
+            return TP.reduce_from_model(out, cut)
+        return TP.own_seq_block(out, sp) if cut is None else TP.reduce_scatter_seq(out, sp)
+
     h = L.rms_norm(x, lp["norm1"])
     a = lp["attn"]
     if spec.kind == "mamba":
@@ -421,7 +443,7 @@ def _apply_layer(lp, spec: LayerSpec, cfg: ModelConfig, x, positions, cache, dec
         cut = tp if tp is not None and n < cfg.d_inner else None
         if cut is not None:
             a = dict(a, in_proj=_own_channels(a["in_proj"], cfg.d_inner, n, tp))
-        out, new_c = L.mamba_apply(a, TP.copy_to_model(h, cut), d_state=cfg.d_state,
+        out, new_c = L.mamba_apply(a, enter(h, cut), d_state=cfg.d_state,
                                    d_conv=cfg.d_conv, cache=cache, decode=decode,
                                    proj_sum=None if cut is None else
                                    lambda t: TP.sum_both_ways(t, cut))
@@ -430,44 +452,46 @@ def _apply_layer(lp, spec: LayerSpec, cfg: ModelConfig, x, positions, cache, dec
         cut = tp if tp is not None and n < cfg.n_heads else None
         q_group = cut if seq is not None and "model" in seq.axes else None
         if spec.kind == "mla":
-            out, new_c = L.mla_attention(a, TP.copy_to_model(h, cut), positions,
+            out, new_c = L.mla_attention(a, enter(h, cut), positions,
                                          d_nope=cfg.d_nope, d_rope=cfg.d_rope,
                                          rope_theta=cfg.rope_theta, cache=cache, decode=decode,
                                          seq=seq, q_group=q_group)
         else:
             kv_whole = cut is not None and a["wk"].shape[1] == cfg.n_kv_heads
-            out, new_c = L.attention(a, TP.copy_to_model(h, cut), positions,
+            out, new_c = L.attention(a, enter(h, cut), positions,
                                      n_rep=cfg.n_heads // cfg.n_kv_heads, window=spec.window,
                                      rope_theta=cfg.rope_theta, use_rope=cfg.use_rope,
                                      cache=cache, decode=decode,
                                      q_head0=tp.rank * n if kv_whole else None,
                                      seq=seq, q_group=q_group)
-    x = x + TP.reduce_from_model(out, cut)
+    x = x + leave(out, cut)
     if spec.cross_attn:
         # Decode reads the encoder's keys and values from the cache (the
         # dict attention wrote in place, so new_c holds them); prefill
         # computes them from enc_out and stores them in x's dtype.
         c = lp["cross"]
         cut = tp if tp is not None and c["wq"].shape[1] < cfg.n_heads else None
-        h = TP.copy_to_model(L.rms_norm(x, lp["normc"]), cut)
+        h = enter(L.rms_norm(x, lp["normc"]), cut)
         if decode:
             ck, cv = cache["ck"], cache["cv"]
         else:
-            e = TP.copy_to_model(enc_out, cut)
+            e = enc_out if sp is not None else TP.copy_to_model(enc_out, cut)
             ck, cv = L._heads(e, c["wk"]), L._heads(e, c["wv"])
             if new_c is not None:
                 new_c.update(ck=ck.to(x.dtype), cv=cv.to(x.dtype))
-        x = x + TP.reduce_from_model(_cross_attention(c, h, ck, cv, cfg.head_dim), cut)
+        x = x + leave(_cross_attention(c, h, ck, cv, cfg.head_dim), cut)
     if spec.mlp == "none":
         return x, new_c
     h = L.rms_norm(x, lp["norm2"])
+    if sp is not None:      # one gather for the routed and the shared experts
+        h = TP.gather_seq(h, sp)
 
     def dense(mp, width):
         cut = tp if tp is not None and mp["w_gate"].shape[1] < width else None
-        return TP.reduce_from_model(L.mlp_apply(mp, TP.copy_to_model(h, cut)), cut)
+        return leave(L.mlp_apply(mp, h if sp is not None else TP.copy_to_model(h, cut)), cut)
 
     if spec.mlp == "moe":
-        out = _moe(lp["mlp"], h, cfg, mesh)
+        out = _moe(lp["mlp"], h, cfg, mesh, tp, sp)
         if "shared" in lp["mlp"]:
             out = out + dense(lp["mlp"]["shared"], cfg.n_shared * cfg.d_ff_expert)
     else:
@@ -496,18 +520,33 @@ def _ep(cfg: ModelConfig, mesh) -> bool:
 EXPERT_STACKS = ("w_gate", "w_up", "w_down")
 
 
-def _moe(mp, h, cfg: ModelConfig, mesh=None):
-    """The routed experts: the local form, or under a mesh with a
-    ``model`` axis and ``cfg.moe_ep`` the expert-parallel one (the
-    reference's ``shard_map`` over that axis).  Then the ranks of a
-    ``model`` group hold the same tokens (the batch is split over the
-    other axes only); rank i computes experts ``[i·E/ep, (i+1)·E/ep)``
-    over the tokens of every peer.  The result is the local form's, and
-    so is each rank's gradient, as the reference's ``shard_map``
-    transpose gives it: the output's gradient is divided among the ep
-    replicas that each count it, and the gradients of the replicated
-    inputs (the tokens and the router) are summed over the group.  The
-    shared experts stay outside, on every rank.
+def _moe(mp, h, cfg: ModelConfig, mesh=None, tp=None, sp=None):
+    """The routed experts, in the stream's layout (``sp``: ``h`` is the
+    whole sequence gathered, and the output the rank's block of it).
+
+    The local form computes every expert.  Where a plan's ``tp`` holds
+    the stacks as the rank's E/tp slice (the specs cut E over ``model``)
+    without expert parallelism, every rank of the group runs the same
+    dispatch over the same tokens (the same capacity, the same drops),
+    computes the rows of its own experts only (``moe_apply``'s
+    ``expert_range``), and the group sums the partial outputs: the local
+    form's value up to the order of the top-k sum.  The tokens and the
+    router enter through ``copy_to_model`` (their gradients are partial
+    sums over the group; under ``sp`` ``gather_seq`` sums the tokens' and
+    ``launch.steps.partial_grad_paths`` the router's).
+
+    Under a mesh with a ``model`` axis and ``cfg.moe_ep`` the
+    expert-parallel form (the reference's ``shard_map`` over that axis):
+    the ranks of a ``model`` group hold the same tokens (the batch is
+    split over the other axes only); rank i computes experts
+    ``[i·E/ep, (i+1)·E/ep)`` over the tokens of every peer.  The result
+    is the local form's, and so is each rank's gradient, as the
+    reference's ``shard_map`` transpose gives it: the output's gradient
+    is divided among the ep replicas that each read it whole, and the
+    gradients of the replicated inputs (the tokens and the router) are
+    summed over the group.  Under ``sp`` each rank reads only its block
+    of the output, so nothing is divided, and the sums are made as in the
+    cut form.  The shared experts stay outside, on every rank.
 
     A sharded state (:func:`forward`'s ``plan``) stores each expert
     stack as the rank's E/ep slice, as the reference's ``P("model")``
@@ -516,22 +555,31 @@ def _moe(mp, h, cfg: ModelConfig, mesh=None):
     parameters) holds every stack whole; the rank takes its slice, and
     the stack's gradient, of which each rank filled its slice, is summed
     over the group."""
-    from repro_torch.distributed.tensor_parallel import ModelGroup, copy_to_model
+    from repro_torch.distributed import tensor_parallel as TP
     routed = {k: mp[k] for k in ("router", *EXPERT_STACKS)}
+    kw = dict(top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+    n = routed["w_gate"].shape[0]
     if not _ep(cfg, mesh):
-        return L.moe_apply(routed, h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+        if tp is None or n == cfg.n_experts:
+            y = L.moe_apply(routed, h, **kw)
+            return y if sp is None else TP.own_seq_block(y, sp)
+        if sp is None:
+            h = TP.copy_to_model(h, tp)
+            routed["router"] = TP.copy_to_model(routed["router"], tp)
+        y = L.moe_apply(routed, h, expert_range=(tp.rank * n, n), **kw)
+        return TP.reduce_from_model(y, tp) if sp is None else TP.reduce_scatter_seq(y, sp)
     group = mesh.get_group("model")
     ep, i = dist.get_world_size(group), mesh.get_local_rank("model")
-    tp = ModelGroup(group, ep, i)
+    grp = TP.ModelGroup(group, ep, i)
     n = cfg.n_experts // ep
-    h = copy_to_model(h, tp)
-    local = {"router": copy_to_model(routed["router"], tp)}
+    if sp is None:
+        h = TP.copy_to_model(h, grp)
+        routed["router"] = TP.copy_to_model(routed["router"], grp)
     for k in EXPERT_STACKS:
         w = routed[k]
-        local[k] = w if w.shape[0] == n else copy_to_model(w, tp)[i * n:(i + 1) * n]
-    y = L.moe_apply(local, h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
-                    ep_group=group, ep_size=ep)
-    return _ScaleGrad.apply(y, 1.0 / ep)
+        routed[k] = w if w.shape[0] == n else TP.copy_to_model(w, grp)[i * n:(i + 1) * n]
+    y = L.moe_apply(routed, h, ep_group=group, ep_size=ep, **kw)
+    return _ScaleGrad.apply(y, 1.0 / ep) if sp is None else TP.own_seq_block(y, sp)
 
 
 class Sharding(NamedTuple):
@@ -543,31 +591,35 @@ class Sharding(NamedTuple):
     embed_tp: Any       # ``tp`` where the embedding's rows (the vocabulary) are cut, else None
     head_tp: Any        # ``tp`` where the head's columns are cut (the logits the rank's)
     seq: tuple = ()     # per layer, its cache's ``sequence.SeqCut`` or None; () without caches
+    sp: Any = None      # ``tp`` where the stream is cut on its sequence (``seq_parallel``)
 
 
-def sharding(cfg: ModelConfig, mesh, specs, cache_specs=None, s_max=None) -> Sharding:
+def sharding(cfg: ModelConfig, mesh, specs, cache_specs=None, s_max=None,
+             decode: bool = False) -> Sharding:
     """The :class:`Sharding` of ``specs`` (``launch.steps.param_specs``,
     or ``tp_only`` of them) over ``mesh``.  Each leaf is gathered by
     ``tensor_parallel.gather_mode``: over the data axes only where the
-    rank computes with its block over ``model`` (an expert stack of the
-    expert-parallel MoE, its E/ep slice, among them), else whole; a leaf
-    with nothing left to gather (no other axis of more than one rank
-    cuts it) is used as its block and has no entry.  With the caches'
-    ``cache_specs`` (``launch.steps.cache_specs``) each layer's sequence
-    cut of a cache of ``s_max`` positions (``distributed.sequence.seq_cut``
-    of its ``k`` or ``c_kv`` sequence entry; None where the entry names
-    no axis of more than one rank)."""
+    rank computes with its block over ``model`` (an expert stack, its
+    E/tp slice, among them), else whole; a leaf with nothing left to
+    gather (no other axis of more than one rank cuts it) is used as its
+    block and has no entry.  With the caches' ``cache_specs``
+    (``launch.steps.cache_specs``) each layer's sequence cut of a cache
+    of ``s_max`` positions (``distributed.sequence.seq_cut`` of its ``k``
+    or ``c_kv`` sequence entry; None where the entry names no axis of
+    more than one rank).  ``sp`` is the ``model`` group where
+    ``cfg.seq_parallel`` cuts the stream on its sequence: a group of more
+    than one rank, in a train or prefill step (not ``decode``)."""
     from repro_torch.distributed import sequence as SQ
     from repro_torch.distributed import sharded
     from repro_torch.distributed import tensor_parallel as TP
-    ep = _ep(cfg, mesh)
+    tp = TP.model_group(mesh, specs)
+    sp = tp if cfg.seq_parallel and not decode else None
     gathers = {}
     for path, spec in sharded.spec_paths(specs).items():
-        mode = TP.gather_mode(path, spec, specs, mesh, ep)
+        mode = TP.gather_mode(path, spec, specs, mesh, sp is not None)
         keep = ("model",) if mode == "keep" else ()
         if any(a not in keep for axes in sharded.cut_axes(spec, mesh) for a in axes):
             gathers[path] = (spec, mesh, keep, ("model",) if mode == "sum" else ())
-    tp = TP.model_group(mesh, specs)
 
     def vocab(name):
         return tp if tp is not None and TP.cut_over_model(specs[name], mesh) else None
@@ -578,7 +630,7 @@ def sharding(cfg: ModelConfig, mesh, specs, cache_specs=None, s_max=None) -> Sha
         seq = tuple(SQ.seq_cut(SQ.seq_entry(c), mesh, cache_length(spec, s_max))
                     for c, spec in zip(cache_specs, layer_specs(cfg)))
     return Sharding(gathers, holding, tp, vocab("embed"),
-                    vocab("embed" if cfg.tie_embeddings else "lm_head"), seq)
+                    vocab("embed" if cfg.tie_embeddings else "lm_head"), seq, sp)
 
 
 def _gathering(params, plan: Optional[Sharding]):
@@ -642,21 +694,29 @@ def _rematted(fn, remat: str):
     raise ValueError(f"remat must be none, full or dots, not {remat!r}")
 
 
-def _encode(whole, cfg: ModelConfig, frames, cdt, remat="none", tp=None):
+def _encode(whole, cfg: ModelConfig, frames, cdt, remat="none", tp=None, sp=None):
     """The encoder over ``frames`` (B, Te, D): learned positions 0..Te-1,
     dense attention layers run as causal attention with every position 0
     (so the mask passes everywhere: the reference's bidirectional
     encoder), then its final norm.  Each layer is one ``remat`` region.
     ``whole`` gives the parameters (:func:`_gathering`), ``tp`` as in
-    :func:`_apply_layer`."""
+    :func:`_apply_layer`.  ``sp`` (the ``model`` group under
+    ``seq_parallel``): the layers run on the rank's block of the frames,
+    and the output is gathered whole."""
+    from repro_torch.distributed import tensor_parallel as TP
     B, Te, _ = frames.shape
     pos = torch.arange(Te, device=frames.device)
-    e = frames.to(cdt) + _rows(whole("enc/pos_embed"), pos).to(cdt)
+    e = frames.to(cdt)
+    if sp is not None:
+        sp = TP.SeqSplit(sp, Te)
+        e, pos = TP.own_seq_block(e, sp), TP.own_seq_block(pos[None], sp)[0]
+    e = e + _rows(whole("enc/pos_embed"), pos).to(cdt)
     zeros = torch.zeros((B, Te), dtype=torch.int32, device=frames.device)
     for j in range(cfg.n_enc_layers):
         e = _rematted(lambda h, j=j: _apply_layer(whole(f"enc/layers/{j}"), ENC_SPEC, cfg, h,
-                                                  zeros, None, False, tp=tp)[0], remat)(e)
-    return L.rms_norm(e, whole("enc/final_norm"))
+                                                  zeros, None, False, tp=tp, sp=sp)[0], remat)(e)
+    e = L.rms_norm(e, whole("enc/final_norm"))
+    return e if sp is None else TP.gather_seq(e, sp)
 
 
 def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None, positions=None,
@@ -684,6 +744,10 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None, positions=Non
     docstring), the caches hold the rank's heads and channels where
     ``launch.steps.cache_specs`` cuts them, and where the vocabulary is
     cut the logits are the rank's columns (B, S, V/tp), never gathered.
+    Where the plan's ``sp`` cuts the stream on its sequence (train and
+    prefill), the stream is the rank's block from the lookup to the
+    final norm, and the head reads the whole sequence gathered: the
+    logits are those of every position.
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, not {mode!r}")
@@ -703,28 +767,41 @@ def _forward(whole, cfg, tokens, embeds, positions, caches, mode, enc_frames, me
     seq = plan.seq if plan is not None and plan.seq else [None] * len(layer_specs(cfg))
     cdt = _dtype(cfg.compute_dtype)
     decode = mode == "decode"
+    sp = plan.sp if plan is not None and not decode else None
+    embed_tp = plan.embed_tp if plan is not None else None
 
     # The tied embedding is gathered once, for the lookup and the head,
     # so that its two gradients add before any reduction, as they do on a
     # whole leaf.
     embed = whole("embed") if tokens is not None or cfg.tie_embeddings else None
     parts = []
-    if embeds is not None:
-        parts.append(embeds.to(cdt))
+    if embeds is not None:   # under sp with a cut vocabulary, rank 0's part of the sum below
+        parts.append(embeds.to(cdt) if sp is None or embed_tp is None or embed_tp.rank == 0
+                     else embeds.new_zeros(embeds.shape, dtype=cdt))
     if tokens is not None:
-        rows = (_rows(embed, tokens) if plan is None or plan.embed_tp is None
-                else TP.vocab_lookup(embed, tokens, plan.embed_tp))
+        if embed_tp is None:
+            rows = _rows(embed, tokens)
+        elif sp is None:
+            rows = TP.vocab_lookup(embed, tokens, embed_tp)
+        else:
+            rows = TP.vocab_rows(embed, tokens, embed_tp)
         parts.append(rows.to(cdt))
     x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    block_pos = positions
+    if sp is not None:       # the rank's block of the sequence from here to the final norm
+        sp = TP.SeqSplit(sp, S)
+        x = TP.own_seq_block(x, sp) if embed_tp is None else TP.reduce_scatter_seq(x, sp)
+        block_pos = TP.own_seq_block(positions, sp)
     if not cfg.use_rope:
-        x = x + _rows(whole("pos_embed"), positions).to(cdt)
+        x = x + _rows(whole("pos_embed"), block_pos).to(cdt)
     remat = cfg.remat if mode == "train" else "none"
     enc_out = None
     if cfg.kind == "encdec" and not decode:
-        enc_out = _encode(whole, cfg, enc_frames, cdt, remat, tp)
+        enc_out = _encode(whole, cfg, enc_frames, cdt, remat, tp,
+                          None if sp is None else sp.tp)
 
     specs = layer_specs(cfg)
     caches = caches if caches is not None else [None] * len(specs)
@@ -733,7 +810,7 @@ def _forward(whole, cfg, tokens, embeds, positions, caches, mode, enc_frames, me
     def instance(h, span):
         for j in span:
             h, new_caches[j] = _apply_layer(whole(f"layers/{j}"), specs[j], cfg, h, positions,
-                                            caches[j], decode, enc_out, mesh, tp, seq[j])
+                                            caches[j], decode, enc_out, mesh, tp, seq[j], sp)
         return h
 
     # One remat region per instance of a block pattern: the reference's
@@ -747,9 +824,15 @@ def _forward(whole, cfg, tokens, embeds, positions, caches, mode, enc_frames, me
 
     x = L.rms_norm(x, whole("final_norm"))
     head = embed.T if cfg.tie_embeddings else whole("lm_head")
-    if plan is not None:
+    if sp is not None:
+        x = TP.gather_seq(x, sp)
+    elif plan is not None:
         x = TP.copy_to_model(x, plan.head_tp)     # the rank's columns of the logits
     logits = x @ head.to(cdt)
+    if sp is not None and plan.head_tp is None:
+        # every rank reads the whole logits with the same gradient: each
+        # takes its block's part, so the head's gradient is partial too
+        logits = TP.own_seq_grad(logits, sp)
     if mode == "train":
         return logits
     return logits, new_caches

@@ -591,3 +591,79 @@ def test_serving_steps_refuse_caches_of_another_layout(arch, cut_batch, knob, fa
         for step, caches in ((steps[0], whole), (steps[0], short), (steps[1], cut)):
             with pytest.raises(ValueError, match="slots"):
                 step(None, caches, None, None)
+
+
+class Collectives(torch.utils._python_dispatch.TorchDispatchMode):
+    """(kind, input numel, output numel) of every collective."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kind = OC.COLLECTIVES.get(func._schema.name)
+        if kind is not None:
+            k, o, i = kind
+            n_in = sum(t.numel() for t in torch.utils._pytree.tree_leaves(args[i])
+                       if isinstance(t, torch.Tensor))
+            n_out = n_in if o is None else sum(
+                t.numel() for t in torch.utils._pytree.tree_leaves(args[o])
+                if isinstance(t, torch.Tensor))
+            self.seen.append((k, n_in, n_out))
+        return func(*args, **(kwargs or {}))
+
+
+def test_seq_parallel_train_cell_saves_blocks_and_scatters(fake_world):
+    """A shrink(stablelm) train cell of 8 layers over a (1, 4) fake world
+    (every collective over ``model``), remat "dots": with
+    ``seq_parallel`` each remat region saves the rank's block of the
+    sequence, so the census's peak falls below the cell's without it;
+    the stream's collectives are an all-gather before each block and a
+    reduce-scatter after it, where the cell without it all-reduces the
+    whole (B, S, D) stream after each block, forward and backward."""
+    fake_world(4)
+    mesh = TM.make_mesh((1, 4), ("data", "model"), device="cpu")
+    arch = TC.get_arch("stablelm-1.6b")
+    spec = dataclasses.replace(arch, model=TC.shrink(arch.model, blocks=((
+        arch.model.blocks[0][0], 8),)))
+    seq, batch = 256, 2
+    hidden = batch * seq * spec.model.d_model
+    out = {}
+    for sp in (False, True):
+        cell = TS.build_cell(spec, "train_4k", mesh, overrides={"seq_parallel": sp},
+                             shape=(seq, batch, "train"))
+        assert cell.model_cfg.remat == "dots"
+        assert ("block of the sequence" in cell.layout["stream"]) == sp
+        with cell.mode:
+            with OC.op_census(*cell.args) as c, Collectives() as coll:
+                cell.fn(*cell.args)
+        out[sp] = (c.result(), coll.seen)
+    (off, seen_off), (on, seen_on) = out[False], out[True]
+    n = spec.model.n_layers
+    assert on["peak"] < off["peak"]
+    assert sum(s == ("all-reduce", hidden, hidden) for s in seen_off) >= 2 * 2 * n
+    assert not any(k == "all-reduce" and i == hidden for k, i, _ in seen_on)
+    assert sum(s == ("all-gather", hidden // 4, hidden) for s in seen_on) >= 2 * n
+    assert sum(s == ("reduce-scatter", hidden, hidden // 4) for s in seen_on) >= 2 * n
+
+
+def test_moe_without_ep_cell_keeps_expert_stacks_cut_over_model(fake_world):
+    """A batch-1 decode cell of shrink(jamba) over a 2 x 2 fake world
+    (``moe_ep`` off, as the dry run sets it below batch 16): every expert
+    stack the specs cut over ``model`` is gathered over ``data`` only,
+    the rank computing its E/2 experts' rows; the plan keeps them so."""
+    from repro_torch.distributed import sharded
+    from torch_train_worker import gathered_axes
+    fake_world(4)
+    mesh = TM.make_mesh((2, 2), ("data", "model"), device="cpu")
+    cell = TS.build_cell(small("jamba-v0.1-52b"), "long_500k", mesh, shape=(64, 1, "decode"))
+    cfg = cell.model_cfg
+    assert not cfg.moe_ep and cfg.n_experts % 2 == 0
+    stacks = [p for p in sharded.spec_paths(cell.specs)
+              if "/mlp/" in p and p.rsplit("/", 1)[-1] in M.EXPERT_STACKS]
+    assert stacks
+    plan = M.sharding(cfg, mesh, cell.specs)
+    assert all(plan.gathers[p][2] == ("model",) for p in stacks)
+    with cell.mode, gathered_axes(cell.parts["params"]) as axes:
+        cell.fn(*cell.args)
+    assert all(axes[p] == {"data"} for p in stacks), {p: axes.get(p) for p in stacks}

@@ -22,7 +22,8 @@ whole leaves to cut and a checkpoint's path): :func:`sharded_cases`,
 written to ``OUT_DIR/sharded{RANK}.pkl``.
 
 With ``tp`` it runs tensor parallelism over ``model``
-(``distributed.tensor_parallel``; ``test_torch_tensor_parallel.py``) on
+(``distributed.tensor_parallel``; ``test_torch_tensor_parallel.py``),
+with and without ``seq_parallel``, on
 the reference's initial states and batches of ``DATA_PKL``:
 :func:`tp_cases`, written to ``OUT_DIR/tp{RANK}.pkl``.
 
@@ -321,6 +322,8 @@ def run_steps(cfg, ocfg, mesh, state, data, specs=None, steps=range(STEPS)):
         b = {"tokens": torch.as_tensor(data["tokens"][s][rows])}
         if cfg.kind == "encdec":
             b["audio_frames"] = torch.as_tensor(data["frames"][s][rows])
+        if "patch" in data:
+            b["patch_embeds"] = torch.as_tensor(data["patch"][s][rows])
         out.append(float(step(state, b)[1]))
     return out
 
@@ -455,18 +458,49 @@ def sharded_cases(rank, world, data, out_dir):
 #: The (data, model) meshes of the tensor-parallel cases, by world size.
 TP_MESHES = {2: ((1, 2),), 4: ((2, 2), (1, 4))}
 #: name -> (architecture, overrides of its shrink()): the sharded-state
-#: families, granite's single KV head (whole at any tp), and q heads, KV
+#: families, granite's single KV head (whole at any tp), q heads, KV
 #: heads and a vocabulary that do not divide 4 (6 q heads read 3 KV
-#: heads: at tp 2 a rank's three q heads read two KV heads).
+#: heads: at tp 2 a rank's three q heads read two KV heads), the vision
+#: stub's prefix before the tokens (a vocabulary of 250: cut at tp 2,
+#: whole at tp 4), and the two MoE families without expert parallelism
+#: (the expert stacks' E/tp slices, each rank's experts' rows summed over
+#: ``model``).
 TP_CASES = {**{a: (a, {}) for a in FAMILIES}, "granite-20b": ("granite-20b", {}),
-            "h6-kv3-v250": ("stablelm-1.6b", dict(n_heads=6, n_kv_heads=3, vocab_size=250))}
+            "h6-kv3-v250": ("stablelm-1.6b", dict(n_heads=6, n_kv_heads=3, vocab_size=250)),
+            "internvl2-v250": ("internvl2-2b", dict(vocab_size=250)),
+            "jamba-noep": ("jamba-v0.1-52b", dict(moe_ep=False)),
+            "deepseek-noep": ("deepseek-v2-lite-16b", dict(moe_ep=False))}
 #: The serving cases over (1, 2): two prompts, a prefill and four ticks.
 SERVE_ARCHS, SERVE_PROMPT, SERVE_TICKS, SERVE_SMAX = ("stablelm-1.6b", "falcon-mamba-7b"), 12, 4, 32
+#: The cases also run with ``seq_parallel`` (the stream between layers
+#: the rank's block of the sequence): every block cut, replicated
+#: attention and an uncut vocabulary at tp 4, MLA and the expert-parallel
+#: MoE, Mamba, attention and that MoE in one 8-layer region, the
+#: encoder-decoder, and the vision prefix.
+SP_CASES = ("stablelm-1.6b", "h6-kv3-v250", "deepseek-v2-lite-16b", "jamba-v0.1-52b",
+            "whisper-base", "internvl2-v250")
+#: A length that divides neither 2 nor 4 (blocks of 15 and of 8, the
+#: last padded), and the case run with remat "dots" and "full" under
+#: ``seq_parallel``.
+SP_ODD_SEQ, SP_REMAT = 29, "stablelm-1.6b"
+#: The prefill step under ``seq_parallel`` over the meshes without a data
+#: axis: two prompts of SP_PROMPT (odd, so the blocks are padded), the
+#: prefill and SP_TICKS decode ticks, caches of SERVE_SMAX.
+SP_PREFILL, SP_PROMPT, SP_TICKS = ("stablelm-1.6b", "jamba-v0.1-52b"), 13, 2
+#: The MoE without expert parallelism served at batch 1 over the meshes
+#: without a data axis, against the unsharded ``serve``: a prompt of
+#: SEQ_PROMPT and SEQ_TICKS ticks in caches of SEQ_SMAX.
+REPAIR_SERVE = ("jamba-noep", "deepseek-noep")
 
 
-def tp_cfg(name):
+def tp_cfg(name, **extra):
+    """A case's config; its ``moe_ep`` override, if any, after
+    ``family_cfg`` (which turns it on for an MoE)."""
     arch, over = TP_CASES[name]
-    return family_cfg(arch, **over)
+    over = dict(over, **extra)
+    ep = over.pop("moe_ep", None)
+    cfg = family_cfg(arch, **over)
+    return cfg if ep is None else dataclasses.replace(cfg, moe_ep=ep)
 
 
 @contextlib.contextmanager
@@ -494,15 +528,14 @@ def gathered_axes(params):
         sharded.gather_leaf, sharded._gather_dim = leaf, dim
 
 
-def tp_gradients(cfg, mesh, specs, blocks, whole, batch):
+def tp_gradients(cfg, mesh, specs, blocks, want, batch):
     """One step's gradients of the blocks (the compute cut over
-    ``model``) against the whole form's, cut, each as (max |difference|,
-    max |whole|); the leaves whose parts are summed over ``model`` and
-    their gradients without that sum (max |difference| / max |whole|);
-    the axes every leaf was gathered over."""
+    ``model``) against ``want`` (a cut form's), each as (max |difference|,
+    max |want|); the leaves whose parts are summed over ``model`` and
+    their gradients without that sum (max |difference| / max |want|);
+    the axes every leaf was gathered over.  Returns the record and the
+    gradients."""
     pspecs = specs["params"]
-    _, gw = TST.make_loss_and_grads(cfg, mesh)(whole["params"], batch)
-    gw = shard_state(gw, pspecs, mesh)
     with gathered_axes(blocks["params"]) as axes:
         _, gb = TST.make_loss_and_grads(cfg, mesh, pspecs)(blocks["params"], batch)
     real = TST.partial_grad_paths
@@ -512,39 +545,116 @@ def tp_gradients(cfg, mesh, specs, blocks, whole, batch):
     finally:
         TST.partial_grad_paths = real
     fs = sharded.spec_paths(pspecs)
-    partial = real(pspecs, mesh)
-    return {"diff": {p: (float((gb[p] - gw[p]).abs().max()), float(gw[p].abs().max()))
+    partial = real(pspecs, mesh, cfg.seq_parallel)
+    return {"diff": {p: (float((gb[p] - want[p]).abs().max()), float(want[p].abs().max()))
                      for p in gb},
             "partial": partial,
-            "unsummed": {p: rel(gu[p], gw[p]) for p in partial},
+            "unsummed": {p: rel(gu[p], want[p]) for p in partial},
             "cut_over_model": [p for p in fs if any("model" in a for a in
                                                    sharded.cut_axes(fs[p], mesh))],
-            "gathered": {p: sorted(a) for p, a in axes.items()}}
+            "gathered": {p: sorted(a) for p, a in axes.items()}}, gb
+
+
+def first_batch(cfg, mesh, data, seq=SEQ):
+    """The rank's rows of the case's first batch, ``seq`` tokens and one more."""
+    d = mesh.get_local_rank("data")
+    n = mesh.shape[mesh.mesh_dim_names.index("data")]
+    rows = slice(d * BATCH // n, (d + 1) * BATCH // n)
+    first = {"tokens": torch.as_tensor(data["tokens"][0][rows, :seq + 1])}
+    if cfg.kind == "encdec":
+        first["audio_frames"] = torch.as_tensor(data["frames"][0][rows])
+    if "patch" in data:
+        first["patch_embeds"] = torch.as_tensor(data["patch"][0][rows])
+    return first
 
 
 def tp_family(name, mesh, data):
     """One case over one mesh, AdamW at lr 1e-3 from the reference's
     initial state: the state's bytes against ``bytes_under_specs``, the
-    first step's gradients (:func:`tp_gradients`), three steps' losses
-    of the blocks and of the whole form, and the state after them, the
-    blocks gathered against the whole form's (:func:`spread`)."""
+    first step's gradients against the whole form's (:func:`tp_gradients`),
+    three steps' losses of the blocks and of the whole form, and the
+    state after them, the blocks gathered against the whole form's
+    (:func:`spread`).  Returns the record, and the first gradients and
+    the state after the steps (gathered) for :func:`sp_family`."""
     cfg, ocfg = tp_cfg(name), opt_cfg("adamw")
     specs = TST.train_specs(cfg, ocfg, mesh)
     blocks = interop.train_state_from_jax(data["state"], cfg, device="cpu", mesh=mesh)
     whole = interop.train_state_from_jax(data["state"], cfg, device="cpu")
-    d = mesh.get_local_rank("data")
-    n = mesh.shape[mesh.mesh_dim_names.index("data")]
-    rows = slice(d * BATCH // n, (d + 1) * BATCH // n)
-    first = {"tokens": torch.as_tensor(data["tokens"][0][rows])}
-    if cfg.kind == "encdec":
-        first["audio_frames"] = torch.as_tensor(data["frames"][0][rows])
+    first = first_batch(cfg, mesh, data)
+    _, gw = TST.make_loss_and_grads(cfg, mesh)(whole["params"], first)
+    grads, gb = tp_gradients(cfg, mesh, specs, blocks, shard_state(gw, specs["params"], mesh),
+                             first)
     out = {"bytes": block_bytes(blocks),
            "under_specs": TST.bytes_under_specs(TST.state_shapes(cfg, ocfg), specs, mesh),
-           "grads": tp_gradients(cfg, mesh, specs, blocks, whole, first),
+           "grads": grads,
            "blocks": run_steps(cfg, ocfg, mesh, blocks, data, specs),
            "whole": run_steps(cfg, ocfg, mesh, whole, data)}
-    out["state_spread"] = spread(gather_state(blocks, specs, mesh), whole)
+    gathered = gather_state(blocks, specs, mesh)
+    out["state_spread"] = spread(gathered, whole)
+    return out, {"grads": gb, "state": gathered}
+
+
+def sp_family(name, mesh, data, off):
+    """One case with ``seq_parallel`` over one mesh, from the same state
+    as :func:`tp_family` (``off``: its first gradients and its state after
+    the steps, the cut form without ``seq_parallel``): the first
+    gradients against ``off``'s; at SP_ODD_SEQ tokens the loss and the
+    gradients of both forms; for SP_REMAT the gradients under remat
+    "dots" and "full", bit for bit against none; three steps' losses and
+    the state after them against ``off``'s."""
+    cfg, ocfg = tp_cfg(name, seq_parallel=True), opt_cfg("adamw")
+    specs = TST.train_specs(cfg, ocfg, mesh)
+    blocks = interop.train_state_from_jax(data["state"], cfg, device="cpu", mesh=mesh)
+    grads, gs = tp_gradients(cfg, mesh, specs, blocks, off["grads"],
+                             first_batch(cfg, mesh, data))
+    out = {"grads": grads}
+    odd = first_batch(cfg, mesh, data, SP_ODD_SEQ)
+    pspecs = specs["params"]
+    lo, go = TST.make_loss_and_grads(tp_cfg(name), mesh, pspecs)(blocks["params"], odd)
+    ls, gso = TST.make_loss_and_grads(cfg, mesh, pspecs)(blocks["params"], odd)
+    out["odd"] = {"loss": (float(ls), float(lo)),
+                  "diff": {p: (float((gso[p] - go[p]).abs().max()), float(go[p].abs().max()))
+                           for p in go}}
+    if name == SP_REMAT:
+        out["remat_equal"] = {
+            remat: same(TST.make_loss_and_grads(dataclasses.replace(cfg, remat=remat), mesh,
+                                                pspecs)(blocks["params"],
+                                                        first_batch(cfg, mesh, data))[1], gs)
+            for remat in ("dots", "full")}
+    out["losses"] = run_steps(cfg, ocfg, mesh, blocks, data, specs)
+    out["state_spread"] = spread(gather_state(blocks, specs, mesh), off["state"])
     return out
+
+
+def sp_prefill(name, mesh):
+    """Two prompts of SP_PROMPT through the sharded prefill step and
+    SP_TICKS decode ticks with ``seq_parallel`` and without, from the
+    same seeded parameters: both forms' tokens and the largest |difference|
+    of each cache leaf after the prefill (and the largest |value|)."""
+    out = {}
+    for sp in (False, True):
+        cfg = tp_cfg(name, seq_parallel=sp)
+        params = M.init_params(cfg, torch.Generator().manual_seed(3))
+        pspecs = TST.param_specs(params, cfg, mesh)
+        blocks = shard_state(params, pspecs, mesh)
+        caches = TST.cache_blocks(cfg, mesh, 2, SERVE_SMAX, dtype=torch.float32, device="cpu")
+        toks = torch.as_tensor(np.random.default_rng(8).integers(
+            1, cfg.vocab_size, (2, SP_PROMPT + 1)), dtype=torch.long)
+        kw = dict(batch=2, s_max=SERVE_SMAX)
+        nxt, caches = TST.make_prefill_step(cfg, mesh, pspecs, **kw)(blocks, {"tokens": toks},
+                                                                      caches)
+        after = [{k: t.clone() for k, t in c.items()} for c in caches]
+        got, pos = [nxt], torch.full((2,), SP_PROMPT, dtype=torch.int32)
+        tick = TST.make_serve_step(cfg, mesh, pspecs, **kw)
+        for _ in range(SP_TICKS):
+            nxt, caches = tick(blocks, caches, nxt, pos)
+            got.append(nxt)
+            pos = pos + 1
+        out[sp] = {"tokens": torch.cat(got, 1).tolist(), "caches": after}
+    return {"off": out[False]["tokens"], "sp": out[True]["tokens"],
+            "cache_diff": [{k: (float((a[k] - b[k]).abs().max()), float(b[k].abs().max()))
+                            for k in b} for a, b in zip(out[True]["caches"],
+                                                        out[False]["caches"])]}
 
 
 def vocab_ops(mesh):
@@ -613,13 +723,39 @@ def tp_serving():
     return out
 
 
+def repair_serving(name, mesh):
+    """A batch-1 prompt of the MoE without expert parallelism through the
+    sharded prefill step and SEQ_TICKS ticks (each rank's experts) against
+    the unsharded ``serve``'s tokens, with the smallest gap between the
+    two largest logits of the unsharded steps (a near-tie could route or
+    pick otherwise)."""
+    cfg = tp_cfg(name)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(5).integers(1, cfg.vocab_size, (1, SEQ_PROMPT))
+    prompts = prompts.astype(np.int32)
+    want, _ = serve(cfg, M.Model(cfg, device="cpu", params=params), list(prompts), batch=1,
+                    max_new=SEQ_TICKS + 1, s_max=SEQ_SMAX, device="cpu")
+    whole = serve_steps(cfg, params, prompts)[1]
+    top2 = np.sort(whole, -1)[..., -2:]
+    pspecs = TST.param_specs(params, cfg, mesh)
+    got = serve_steps(cfg, shard_state(params, pspecs, mesh), prompts, mesh, pspecs, 1)[0]
+    return {"want": want, "got": got.tolist(), "margin": float((top2[..., 1] - top2[..., 0]).min())}
+
+
 def tp_cases(rank, world, data):
-    out = {"families": {}, "vocab": {}}
+    out = {"families": {}, "vocab": {}, "sp": {}, "sp_prefill": {}, "repair_serving": {}}
     for shape in TP_MESHES[world]:
         mesh = make_mesh(shape, ("data", "model"), device="cpu")
         out["vocab"][shape] = vocab_ops(mesh)
         for name in TP_CASES:
-            out["families"][(name, shape)] = tp_family(name, mesh, data[name])
+            out["families"][(name, shape)], off = tp_family(name, mesh, data[name])
+            if name in SP_CASES:
+                out["sp"][(name, shape)] = sp_family(name, mesh, data[name], off)
+        if shape[0] == 1:
+            for name in SP_PREFILL:
+                out["sp_prefill"][(name, shape)] = sp_prefill(name, mesh)
+            for name in REPAIR_SERVE:
+                out["repair_serving"][(name, shape)] = repair_serving(name, mesh)
     if world == 2:
         out["serving"] = tp_serving()
     return out
