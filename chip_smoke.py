@@ -1894,8 +1894,9 @@ def counted_launches():
                     "b3": qs.counter.launches}
 
 
-def sync():
-    if DEV == "cuda":
+def sync(dev=None):
+    """Wait for the card (``dev``'s, default DEV's); nothing on the CPU."""
+    if torch.device(DEV if dev is None else dev).type == "cuda":
         torch.cuda.synchronize()
 
 
@@ -2569,10 +2570,10 @@ def world_of_one():
         dist.destroy_process_group()
 
 
-def run_counted(fn):
+def run_counted(fn, dev=None):
     """fn() with B1's, B2's and B3's launch counters zeroed just before it
-    and read just after, and its all-gathers counted.  Returns (result,
-    wall s, launches, all-gathers)."""
+    and read just after, and its all-gathers counted (on ``dev``, default
+    DEV).  Returns (result, wall s, launches, all-gathers)."""
     import torch.distributed as dist
     real = dist.all_gather_into_tensor
     gathers = [0]
@@ -2581,13 +2582,13 @@ def run_counted(fn):
         gathers[0] += 1
         return real(*a, **kw)
 
-    sync()
+    sync(dev)
     read = counted_launches()
     dist.all_gather_into_tensor = spy
     try:
         t0 = time.perf_counter()
         r = fn()
-        sync()
+        sync(dev)
         wall = time.perf_counter() - t0
     finally:
         dist.all_gather_into_tensor = real
@@ -4362,23 +4363,21 @@ def phase21_sharded_state(smi, p19a):
 
 
 # ------------------------------------------------------------- slice 15
-def tp_serve_run(cfg, prefill, tick, params, caches, toks, max_new):
+def tp_serve_run(cfg, prefill, tick, params, caches, toks, max_new, dev=None):
     """A prefill of ``toks`` (B, prompt + 1, the training layout) and
-    ``max_new - 1`` decode ticks through the given steps.  Returns (the
-    tokens (B, max_new) on the host, each tick's ms by CUDA events)."""
+    ``max_new - 1`` decode ticks through the given steps on ``dev``
+    (default DEV).  Returns (the tokens (B, max_new) on the host, each
+    tick's ms: CUDA events on the card, the host clock on the CPU)."""
+    dev = torch.device(DEV if dev is None else dev)
     B, P = toks.shape[0], toks.shape[1] - 1
     nxt, caches = prefill(params, {"tokens": toks}, caches)
     out, times = [nxt], []
-    pos = torch.full((B,), P, dtype=torch.int32, device=DEV)
+    pos = torch.full((B,), P, dtype=torch.int32, device=dev)
     for _ in range(max_new - 1):
-        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0.record()
-        nxt, caches = tick(params, caches, nxt, pos)
-        t1.record()
+        (nxt, caches), ms = timed_ms(lambda: tick(params, caches, nxt, pos), dev)
         out.append(nxt)
         pos = pos + 1
-        sync()
-        times.append(t0.elapsed_time(t1))
+        times.append(ms)
     return torch.cat(out, 1).cpu(), times
 
 
@@ -4904,6 +4903,947 @@ def four_cards_seq_rank(out_path):
         dist.destroy_process_group()
 
 
+# ------------------------------------------------------------- slice 18
+# The four-card paths (four_cards): one torchrun launch of
+# four_cards_paths_rank (NCCL, one card per rank) runs the cases below in
+# order, each held against the port's own unsharded path on one card in
+# the same launch.  `sa`: the sharded ladder on phase 4's cell over each
+# of `meshes` (shape, dim names, the dims the chains are cut along: None
+# for all of them), f_best and x_best bit for bit, the history the
+# reference defines for a sharded run (the first shard's best-so-far) and
+# L + 2 all-gathers; V1 and SOS on schwefel(`v1_dim`) with `v1`, and the
+# hybrid of `delta_cfg`, over the first mesh; the wall per level on one
+# card and over the first mesh at n_chains and at `wide` times as many,
+# each beside the device's busy share over its first `profile_levels`
+# levels.  `ep`: `arch` float32 AdamW (train.main's OptConfig) cut to
+# `layers` layers (the dense first one and MoE ones: the 27 layers' state
+# does not fit one card), `steps` steps of `batch` x `seq` tokens, over
+# (1, 4) with moe_ep against one card and against (1, 4) without it (every
+# rank sees every token, so the dispatch is the same).  `tp`: `arch`
+# float32 at full width and depth through the sharded prefill and decode
+# steps over each of `meshes` against the unsharded steps on one card
+# (TP_SERVE's requests and lengths).  `ckpt`: launch/train.py's main over
+# (2, 2) for `steps` steps, and for `save_at` steps with a checkpoint,
+# then resumed over (1, 4), and without a group on one card in
+# four_cards' own process.  `pipe`: the GPipe pipeline of `layers` tanh
+# layers over each of `meshes` (the stages on 'pod'), against the layers
+# in order.  `compress`: compressed_psum and compress_grads_tree over each
+# of `meshes` (shape, dim names, the dims summed), against the dense
+# all_reduce.  tests/test_torch_four_cards.py runs the same function over
+# gloo on the CPU at small sizes.
+FOUR_CARDS_PATHS = dict(
+    sa=dict(dim=MAIN_DIM, cfg=MAIN_CFG, delta_cfg=DELTA_CFG,
+            meshes=(((4,), ("data",), None), ((2, 2), ("data", "model"), None),
+                    ((2, 2), ("data", "model"), ("data",))),
+            wide=4, profile_levels=100, v1_dim=32,
+            v1=dict(T0=100.0, T_min=1.0, rho=0.9, N=100, use_delta_eval=True,
+                    n_chains=V1_CHAINS)),
+    ep=dict(arch="deepseek-v2-lite-16b", shrink=False, layers=4, seq=512, batch=8, steps=12,
+            timed_from=2),
+    tp=dict(arch="stablelm-1.6b", shrink=False, meshes=((1, 4), (2, 2)),
+            **{k: TP_SERVE[k] for k in ("requests", "prompt", "max_new", "s_max")}),
+    ckpt=dict(arch="stablelm-1.6b", shrink=False, seq=512, batch=8, steps=12, save_at=6),
+    pipe=dict(layers=8, d=8, microbatches=4, mb=2,
+              meshes=(((2, 2), ("pod", "data")), ((4,), ("pod",)))),
+    compress=dict(n=32, meshes=(((4,), ("data",), ("data",)),
+                                ((2, 2), ("data", "model"), ("data",)),
+                                ((2, 2), ("data", "model"), ("data", "model")))),
+)
+# The gloo tests' tolerances (tests/test_torch_distributed.py): the
+# pipeline within 1e-5 of the layers in order, a compressed sum within
+# 5% of the dense sum and within 1e-6 of its group's dequantized shards.
+PIPE_TOL, COMPRESS_REL, COMPRESS_ATOL = 1e-5, 0.05, 1e-6
+# tests/test_moe_ep.py:62-63: the expert-parallel MoE's loss and gradients
+# within 1e-5 (relative) of the local form's.
+EP_REL = 1e-5
+# The engine's shards on four cards (four_cards_engine, one process):
+# phase 10's load on ELASTIC_CFG's shards but `n_devices` of them, shard
+# `drain` drained at DRAIN_AT, in turns on the four cards and all on
+# cuda:0; then `cli`, the reference's serve_sa commands (the verify
+# skill's), each with --check.
+ENGINE_FOUR = dict(n_devices=4, drain=3, cli=(
+    ("--devices", "4", "--slots", "2", "--chains-per-slot", "16", "--arrivals", "poisson",
+     "--rate", "1.0", "--requests", "8", "--max-ticks", "400", "--migration-budget", "2",
+     "--drain-at", "6", "--check"),
+    ("--autoscale", "--devices", "1", "--min-shards", "1", "--max-shards", "4", "--slots", "4",
+     "--chains-per-slot", "8", "--requests", "24", "--arrivals", "diurnal", "--rate", "0.2",
+     "--period", "120", "--amplitude", "0.9", "--finish-deadline-factor", "2.0",
+     "--max-ticks", "1200", "--check")))
+
+
+def gather_ranks(obj):
+    """Every rank's ``obj`` (JSON-able), in rank order, on every rank."""
+    import torch.distributed as dist
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def timed_ms(fn, dev):
+    """fn()'s result and its ms: CUDA events on the card, the host clock
+    on the CPU."""
+    if dev.type == "cuda":
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        r = fn()
+        b.record()
+        b.synchronize()
+        return r, a.elapsed_time(b)
+    t0 = time.perf_counter()
+    r = fn()
+    return r, 1e3 * (time.perf_counter() - t0)
+
+
+def device_busy(fn, dev):
+    """fn() under a torch.profiler trace, after a call before the trace
+    and one inside it before the span ``measured`` (a trace that starts
+    cold can lose its first kernels): the union of the intervals of the
+    device ops launched inside the span, NCCL's aside, over the span's
+    length (the busy share: an NCCL kernel also spins while it waits for
+    its peers), and device ms by kind (B1, B2, NCCL, other).  Every rank
+    calls it alike, since fn may hold collectives.  (None, {}) on the
+    CPU."""
+    if dev.type != "cuda":
+        return None, {}
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        with record_function("measured"):
+            fn()
+            torch.cuda.synchronize()
+    raw = list(prof.profiler.kineto_results.events())
+    span = next(e for e in raw if e.name() == "measured")
+    lo, hi = span.start_ns(), span.start_ns() + span.duration_ns()
+    launched = {e.correlation_id() for e in raw if e.device_type() == DeviceType.CPU
+                and e.name() in LAUNCH_CALLS and lo <= e.start_ns() <= hi}
+    ops = sorted((e.start_ns(), min(e.start_ns() + e.duration_ns(), hi), e.name()) for e in raw
+                 if e.device_type() == DeviceType.CUDA and lo <= e.start_ns() < hi
+                 and (e.correlation_id() in launched or "nccl" in e.name().lower()))
+    busy, end, by = 0, lo, collections.Counter()
+    for s, t, name in ops:
+        kind = ("B1" if "sweep" in name else "B2" if "argmin" in name else
+                "NCCL" if "nccl" in name.lower() else "other")
+        by[kind] += (t - s) / 1e6
+        if kind != "NCCL":
+            busy += max(0, t - max(s, end))
+            end = max(end, t)
+    return busy / (hi - lo), dict(by)
+
+
+def first_shard_history(obj, cfg, n_shards, dev):
+    """The history the reference defines for a ladder cut into
+    ``n_shards`` shards, the first shard's best-so-far, from the unsharded
+    ladder level by level: the running min of chains [0, n/R) after each
+    level's exchange."""
+    from repro_torch.core import annealing
+    from repro_torch.core.metropolis import DTYPES
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    x0c = obj.sample_uniform(gen, (cfg.n_chains,), DTYPES[cfg.dtype])
+    per = cfg.n_chains // n_shards
+    state = annealing.init_state(x0c, objective=obj, cfg=cfg)
+    best, out = state.fx[:per].min(), []
+    for lvl, T in enumerate(cfg.ladder().tolist()):
+        state = annealing.level_step(state, lvl, T, objective=obj, cfg=cfg)
+        best = torch.minimum(best, state.fx[:per].min())
+        out.append(best)
+    return torch.stack(out).cpu().numpy()
+
+
+def paths_sa(S, dev):
+    """Case 1 on this rank: see FOUR_CARDS_PATHS."""
+    from repro_torch.core import SAConfig, hybrid_minimize, sa_minimize
+    from repro_torch.launch.mesh import make_mesh, shard_count
+    from repro_torch.objectives import functions as F
+    obj, cfg = F.schwefel(S["dim"]), SAConfig(**S["cfg"])
+    meshes = []
+    for shape, names, axes in S["meshes"]:
+        m = make_mesh(shape, names, device=dev.type)
+        meshes.append((m, axes, f"{shape} over {'/'.join(axes or names)}",
+                       shard_count(m, axes or names)))
+    mesh4, _, label4, n4 = meshes[0]
+    # First calls: the kernels' first launches and NCCL's communicators.
+    one = SAConfig(**{**S["cfg"], "T_min": S["cfg"]["T0"]})
+    sa_minimize(obj, one, device=dev)
+    for m, axes, _, _ in meshes:
+        sa_minimize(obj, one, mesh=m, mesh_axes=axes)
+    ref, _, ref_n, ref_g = run_counted(lambda: sa_minimize(obj, cfg, device=dev), dev)
+    out = {"levels": cfg.n_levels, "f_best": ref.f_best, "unsharded_gathers": ref_g,
+           "meshes": [], "variants": []}
+    hist = {}
+    for m, axes, label, n_sh in meshes:
+        r, wall, n, g = run_counted(lambda: sa_minimize(obj, cfg, mesh=m, mesh_axes=axes), dev)
+        if n_sh not in hist:
+            hist[n_sh] = first_shard_history(obj, cfg, n_sh, dev)
+        out["meshes"].append({
+            "mesh": label, "shards": n_sh, "same": same_bits(r, ref, history=False),
+            "history": r.history_f.tobytes() == hist[n_sh].tobytes(), "gathers": g,
+            "want_gathers": cfg.n_levels + 2, "launches": n, "want_launches": ref_n,
+            "wall_s": wall})
+    P = S["profile_levels"]
+    walls = {}
+    for label, n_chains, kw in (
+            ("one card", cfg.n_chains, dict(device=dev)),
+            ("four cards", cfg.n_chains, dict(mesh=mesh4)),
+            ("one card", S["wide"] * cfg.n_chains, dict(device=dev)),
+            ("four cards", S["wide"] * cfg.n_chains, dict(mesh=mesh4))):
+        c = SAConfig(**{**S["cfg"], "n_chains": n_chains})
+        _, wall, n, _ = run_counted(lambda: sa_minimize(obj, c, **kw), dev)
+        cut = SAConfig(**{**S["cfg"], "n_chains": n_chains,
+                          "T_min": S["cfg"]["T0"] * S["cfg"]["rho"] ** (P - 0.5)})
+        busy, by = device_busy(lambda: sa_minimize(obj, cut, **kw), dev)
+        walls[f"{label}, {n_chains} chains"] = {
+            "ms_per_level": 1e3 * wall / c.n_levels, "busy": busy, "launches": n,
+            "device_ms_per_level": {k: v / cut.n_levels for k, v in by.items()}}
+    out["walls"] = walls
+    objv = F.schwefel(S["v1_dim"])
+    for label, exchange in (("V1 async", "async"), ("SOS", "sos")):
+        c = SAConfig(**S["v1"], exchange=exchange)
+        u, _, un, _ = run_counted(lambda: sa_minimize(objv, c, device=dev), dev)
+        r, wall, n, g = run_counted(lambda: sa_minimize(objv, c, mesh=mesh4), dev)
+        want = None if exchange == "async" else first_shard_history(objv, c, n4, dev)
+        out["variants"].append({
+            "label": f"schwefel({S['v1_dim']}) {label} over {label4}",
+            "same": same_bits(r, u, history=False),
+            "history": (r.history_f is None if want is None else
+                        r.history_f is not None and r.history_f.tobytes() == want.tobytes()),
+            "gathers": g, "want_gathers": 1 if exchange == "async" else c.n_levels + 2,
+            "launches": n, "want_launches": un, "wall_s": wall})
+    c = SAConfig(**S["delta_cfg"])
+    hu, _, hun, _ = run_counted(lambda: hybrid_minimize(obj, c, device=dev), dev)
+    h, wall, n, g = run_counted(lambda: hybrid_minimize(obj, c, mesh=mesh4), dev)
+    out["variants"].append({
+        "label": f"hybrid over {label4}", "nm_f_best": h.nm.f_best,
+        "same": (same_bits(h.sa, hu.sa, history=False) and h.nm.f_best == hu.nm.f_best
+                 and h.x_best.tobytes() == hu.x_best.tobytes()),
+        "history": h.sa.history_f.tobytes() == first_shard_history(obj, c, n4, dev).tobytes(),
+        "gathers": g, "want_gathers": c.n_levels + 2, "launches": n, "want_launches": hun,
+        "wall_s": wall})
+    return out
+
+
+def main_opt(steps):
+    """launch/train.py main's optimizer for a run of ``steps`` steps."""
+    from repro_torch.optim import OptConfig
+    return OptConfig(lr=3e-4, total_steps=max(steps, 100),
+                     warmup_steps=min(50, max(5, steps // 10)))
+
+
+def arch_model(arch, shrunk):
+    """``arch``'s model, shrink()'s form of it with ``shrunk``."""
+    from repro_torch.configs import get_arch, shrink
+    cfg = get_arch(arch).model
+    return shrink(cfg) if shrunk else cfg
+
+
+def train_run(cfg, ocfg, mesh, toks, dev, timed_from):
+    """make_train_step's steps over ``toks`` (steps, batch, seq + 1), the
+    whole batch on every rank (a mesh with one data rank), from
+    build_state's seed 0.  Returns ({the losses, the median host ms of the
+    steps from ``timed_from``, the peak card memory in MiB (None on the
+    CPU), the all_to_all calls}, every MoE dispatch's picks with, per
+    token, the smallest gap between neighbours among the router's k + 1
+    largest probabilities: a near-tie there can route or order the picks
+    otherwise)."""
+    import torch.distributed as dist
+    from repro_torch.launch import steps as TST
+    from repro_torch.launch import train as TT
+    from repro_torch.models import layers as L
+    specs = TST.train_specs(cfg, ocfg, mesh) if mesh is not None else None
+    state = TT.build_state(cfg, ocfg, seed=0, device=dev, mesh=mesh, specs=specs)
+    step = TST.make_train_step(cfg, ocfg, mesh, toks.shape[1], specs=specs)
+    real_a2a, real_dispatch = dist.all_to_all_single, L.moe_dispatch
+    a2a, routes = [0], []
+
+    def count_a2a(*a, **kw):
+        a2a[0] += 1
+        return real_a2a(*a, **kw)
+
+    def dispatch(router, xt, top_k, capacity_factor):
+        out = real_dispatch(router, xt, top_k, capacity_factor)
+        with torch.no_grad():
+            s = (xt.float() @ router).softmax(-1).topk(top_k + 1, -1).values
+            routes.append((out[1].to(torch.int16), (s[:, :-1] - s[:, 1:]).min(-1).values))
+        return out
+
+    dist.all_to_all_single, L.moe_dispatch = count_a2a, dispatch
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, ms = [], []
+    try:
+        for t in toks:
+            t0 = time.perf_counter()
+            state, loss = step(state, {"tokens": torch.as_tensor(t, device=dev)})
+            losses.append(float(loss))
+            ms.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        dist.all_to_all_single, L.moe_dispatch = real_a2a, real_dispatch
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20 if dev.type == "cuda" else None
+    del state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": statistics.median(ms[timed_from:]), "peak_mib": peak,
+            "all_to_all": a2a[0]}, routes
+
+
+def first_parting(a, b, steps):
+    """The first MoE dispatch at which two runs' picks (``train_run``'s
+    routes) part: its step, its index, the tokens that part and the
+    largest of their margins (each token's smaller one of the two runs);
+    None when every dispatch agrees."""
+    for i, ((pa, ma), (pb, mb)) in enumerate(zip(a, b)):
+        if not torch.equal(pa, pb):
+            t = (pa != pb).any(-1)
+            return {"step": i // (len(a) // steps), "dispatch": i, "tokens": int(t.sum()),
+                    "margin": float(torch.minimum(ma[t], mb[t]).max())}
+    return None
+
+
+def ep_layer(cfg, mesh, dev, tokens):
+    """One routed MoE layer of ``cfg`` at full width on seeded (B, S, D)
+    inputs (``tokens`` = (B, S)): ``_moe`` with moe_ep under ``mesh`` (the
+    all_to_all forward and backward) against the local form on the same
+    card and inputs, so the same dispatch: sum(y²) and the gradients of
+    the inputs, the router and the three stacks, each as max |a - b| /
+    max |b|."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    gen = torch.Generator(device=dev).manual_seed(1)
+    init = L.init_moe(gen, cfg.d_model, cfg.d_ff_expert, cfg.n_experts, 0, cfg.d_ff_expert,
+                      torch.float32)
+    x = torch.randn((*tokens, cfg.d_model), generator=gen, device=dev)
+    forms = {"local": lambda p, h: L.moe_apply(p, h, top_k=cfg.top_k,
+                                               capacity_factor=cfg.capacity_factor),
+             "ep": lambda p, h: M._moe(p, h, dataclasses.replace(cfg, moe_ep=True), mesh)}
+    got = {}
+    for name, fn in forms.items():
+        p = {k: init[k].detach().clone().requires_grad_(True)
+             for k in ("router", "w_gate", "w_up", "w_down")}
+        h = x.clone().requires_grad_(True)
+        loss = (fn(p, h) ** 2).sum()
+        got[name] = [loss.detach(), *torch.autograd.grad(loss, [h, *p.values()])]
+    return {k: float((a - b).abs().max() / b.abs().max())
+            for k, a, b in zip(("loss", "x", "router", "w_gate", "w_up", "w_down"),
+                               got["ep"], got["local"])}
+
+
+def paths_ep(E, dev):
+    """Case 3 on this rank: see FOUR_CARDS_PATHS.  Each pair of runs is
+    held at ORDER_TOL on the steps before the first MoE dispatch at which
+    their picks part (the cut compute's rounding can tip a router
+    near-tie, and past it the capacity drops move), and that parting must
+    be a near-tie (ROUTER_NEAR_TIE).  One MoE layer with moe_ep is held
+    against the local form on the same inputs at EP_REL."""
+    from repro_torch.launch.mesh import make_mesh
+    cfg = cut_depth(arch_model(E["arch"], E["shrink"]), E["layers"])
+    ocfg = main_opt(E["steps"])
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                             (E["steps"], E["batch"], E["seq"] + 1))
+    mesh = make_mesh((1, 4), ("data", "model"), device=dev.type)
+    out = {"layers": E["layers"], "experts": cfg.n_experts, "top_k": cfg.top_k,
+           "capacity_factor": cfg.capacity_factor,
+           "layer": ep_layer(cfg, mesh, dev, (E["batch"], E["seq"]))}
+    runs = {}
+    for label, c, m in (("one card", cfg, None),
+                        ("(1, 4) moe_ep", dataclasses.replace(cfg, moe_ep=True), mesh),
+                        ("(1, 4) without moe_ep", cfg, mesh)):
+        out[label], runs[label] = train_run(c, ocfg, m, toks, dev, E["timed_from"])
+    m = torch.stack([t.min() for _, t in runs["one card"]]).cpu()
+    out["margin"] = {"min": float(m.min()), "dispatch": int(m.argmin()), "dispatches": len(m)}
+    out["parting"] = {f"{a} | {b}": first_parting(runs[a], runs[b], E["steps"]) for a, b in (
+        ("one card", "(1, 4) moe_ep"), ("(1, 4) without moe_ep", "(1, 4) moe_ep"),
+        ("one card", "(1, 4) without moe_ep"))}
+    return out
+
+
+def paths_tp(T, dev):
+    """Case 4 on this rank: see FOUR_CARDS_PATHS.  A row whose tokens part
+    from the unsharded ones passes only where the unsharded step's logits
+    put both tokens within near_tie_ok's tolerance of each other."""
+    from repro_torch.distributed import sharded
+    from repro_torch.launch import steps as TST
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    cfg, R = arch_model(T["arch"], T["shrink"]), T["requests"]
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(5))
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        1, cfg.vocab_size, (R, T["prompt"] + 1)), device=dev)
+    seen, real = [], TST._next_token
+
+    def spy(logits, plan):
+        seen.append(logits.detach().float().reshape(logits.shape[0], -1).cpu())
+        return real(logits, plan)
+
+    TST._next_token = spy
+    try:
+        want, ticks = tp_serve_run(cfg, TST.make_prefill_step(cfg), TST.make_serve_step(cfg),
+                                   params, M.init_cache(cfg, R, T["s_max"], torch.float32, dev),
+                                   toks, T["max_new"], dev)
+    finally:
+        TST._next_token = real
+    want = want.tolist()
+    logits = torch.stack(seen)                                # (max_new, R, V)
+    top2 = logits.topk(2, -1).values
+    out = {"unsharded": {"tokens": want, "tick_ms": statistics.median(ticks),
+                         "margin": float((top2[..., 0] - top2[..., 1]).min())}, "meshes": []}
+    kw = dict(batch=R, s_max=T["s_max"])
+    for shape in T["meshes"]:
+        mesh = make_mesh(shape, ("data", "model"), device=dev.type)
+        pspecs = TST.param_specs(params, cfg, mesh)
+        rows = sharded.shard_leaf(torch.arange(R), TST.batch_specs(cfg, mesh, R)["tokens"][:1],
+                                  mesh).tolist()
+        got, ticks = tp_serve_run(cfg, TST.make_prefill_step(cfg, mesh, pspecs, **kw),
+                                  TST.make_serve_step(cfg, mesh, pspecs, **kw),
+                                  sharded.shard_state(params, pspecs, mesh),
+                                  TST.cache_blocks(cfg, mesh, R, T["s_max"], torch.float32, dev),
+                                  toks[rows], T["max_new"], dev)
+        got = got.tolist()
+        parts = []
+        for g, r in zip(got, rows):
+            if g != want[r]:   # the first step where they part, and both logits there
+                i = next(j for j in range(len(g)) if g[j] != want[r][j])
+                a, b = float(logits[i, r, g[i]]), float(logits[i, r, want[r][i]])
+                parts.append({"row": r, "step": i, "got": g[i], "want": want[r][i],
+                              "logits": [a, b], "near_tie": abs(a - b) <= 2 * (
+                                  LLM_ATOL + LLM_RTOL * max(abs(a), abs(b)))})
+        out["meshes"].append({"mesh": list(shape), "rows": rows, "tokens": got,
+                              "tick_ms": statistics.median(ticks),
+                              "parts": parts})
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def shrunk_archs(on):
+    """With ``on``, ``configs.get_arch`` gives each architecture with its
+    model shrink()'s (launch/train.py's ``--arch`` reads it)."""
+    from repro_torch import configs
+    real = configs.get_arch
+    if on:
+        configs.get_arch = lambda a: dataclasses.replace(
+            real(a), model=configs.shrink(real(a).model))
+    try:
+        yield
+    finally:
+        configs.get_arch = real
+
+
+def ckpt_argv(C, dev):
+    return ["--arch", C["arch"], "--seq", str(C["seq"]), "--batch", str(C["batch"]),
+            "--log-every", str(C["steps"]), "--device", dev.type]
+
+
+def restored_blocks(C, dev, ckpt_dir):
+    """The latest checkpoint of ``ckpt_dir`` restored as this rank's
+    blocks over (1, 4) (``CheckpointManager(specs=, mesh=).restore``),
+    each against the rank's block of the saved whole leaf
+    (``sharded.shard_leaf`` of the file), bit for bit."""
+    from repro_torch._tree import flatten
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed import sharded
+    from repro_torch.launch import steps as TST
+    from repro_torch.launch import train as TT
+    from repro_torch.launch.mesh import make_mesh
+    cfg, ocfg = arch_model(C["arch"], C["shrink"]), main_opt(C["steps"])
+    mesh = make_mesh((1, 4), ("data", "model"), device=dev.type)
+    specs = TST.train_specs(cfg, ocfg, mesh)
+    like = TT.build_state(cfg, ocfg, seed=1, device=dev, mesh=mesh, specs=specs)
+    mgr = CheckpointManager(ckpt_dir, specs=specs, mesh=mesh)
+    step = mgr.latest_step()
+    got, extras = mgr.restore(like)
+    got, fs = flatten(got), sharded.spec_paths(specs)
+    d = Path(ckpt_dir) / f"step_{step:09d}"
+    leaves = json.loads((d / "manifest.json").read_text())["leaves"]
+    equal = cut = 0
+    for rec in leaves:
+        whole = torch.from_numpy(np.load(d / f"arr_{rec['index']:06d}.npy"))
+        if rec["dtype"] == "bfloat16":
+            whole = whole.view(torch.bfloat16)
+        want = sharded.shard_leaf(whole, fs[rec["path"]], mesh)
+        equal += torch.equal(got[rec["path"]].detach().cpu(), want)
+        cut += want.numel() < whole.numel()
+    return {"step": step, "data_step": extras["data_step"], "leaves": len(leaves),
+            "equal": equal, "cut": cut}
+
+
+def paths_ckpt(C, dev, ckpt_dir):
+    """Case 5 on this rank: see FOUR_CARDS_PATHS."""
+    import torch.distributed as dist
+    from repro_torch.launch import train as TT
+    argv = ckpt_argv(C, dev)
+    with shrunk_archs(C["shrink"]):
+        whole = TT.main(argv + ["--steps", str(C["steps"]), "--model-parallel", "2"])
+        first = TT.main(argv + ["--steps", str(C["save_at"]), "--model-parallel", "2",
+                                "--ckpt-dir", str(ckpt_dir), "--ckpt-every", str(C["save_at"])])
+        dist.barrier()   # rank 0 alone writes; the others read only once it has published
+        blocks = restored_blocks(C, dev, ckpt_dir)
+        resumed = TT.main(argv + ["--steps", str(C["steps"]), "--model-parallel", "4",
+                                  "--ckpt-dir", str(ckpt_dir), "--resume"])
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"whole": whole, "first": first, "resumed": resumed, "blocks": blocks}
+
+
+def four_cards_resume_one(C, ckpt_dir, device):
+    """Case 5's resume without a process group on one card (or the CPU):
+    launch/train.py's main from the checkpoint of ``ckpt_dir``.  Returns
+    its losses."""
+    import torch.distributed as dist
+    from repro_torch.launch import train as TT
+    check(not dist.is_initialized(), "four cards: the one-card resume needs no process group")
+    with shrunk_archs(C["shrink"]):
+        losses = TT.main(ckpt_argv(C, torch.device(device)) + [
+            "--steps", str(C["steps"]), "--ckpt-dir", str(ckpt_dir), "--resume"])
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return losses
+
+
+def paths_pipe(P, dev):
+    """Case 6's pipeline on this rank: see FOUR_CARDS_PATHS."""
+    from repro_torch.distributed.pipeline import bubble_fraction, make_pipelined_fn
+    from repro_torch.launch.mesh import make_mesh
+    rng = np.random.default_rng(0)
+    ws = torch.as_tensor(rng.normal(size=(P["layers"], P["d"], P["d"])).astype(np.float32) * 0.3,
+                         device=dev)
+    x = torch.as_tensor(rng.normal(size=(P["microbatches"], P["mb"], P["d"])).astype(np.float32),
+                        device=dev)
+
+    def layer_fn(stage_ws, h):
+        for i in range(stage_ws.shape[0]):
+            h = torch.tanh(h @ stage_ws[i])
+        return h
+
+    seq = layer_fn(ws, x)
+    out = []
+    for shape, names in P["meshes"]:
+        mesh = make_mesh(shape, names, device=dev.type)
+        y = make_pipelined_fn(layer_fn, mesh, axis="pod")(ws, x)
+        n = shape[names.index("pod")]
+        out.append({"mesh": f"{shape} over {'/'.join(names)}", "stages": n,
+                    "err": float((y - seq).abs().max()),
+                    "bubble": bubble_fraction(n, P["microbatches"]),
+                    "want_bubble": (n - 1) / (P["microbatches"] + n - 1)})
+    return out
+
+
+def paths_compress(C, dev):
+    """Case 6's compressed sums on this rank: see FOUR_CARDS_PATHS.  Each
+    sum against the dense all_reduce over the same group and against the
+    group's dequantized shards (all-gathered here), each residual against
+    the rank's own quantization error; compress_grads_tree over two calls
+    of a float32 and a bfloat16 leaf, its residuals carried."""
+    import torch.distributed as dist
+    from repro_torch._tree import flatten
+    from repro_torch.distributed.compression import (compress_grads_tree, compressed_psum,
+                                                     init_residuals, quantize_int8)
+    from repro_torch.launch.mesh import axis_group, make_mesh
+    rank = dist.get_rank()
+
+    def dense(t, group):
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    def against(approx, x, group, rows):
+        """(|approx - deq| max, |approx - dense| max / |dense| max, the
+        residual's error) of one compressed sum of x."""
+        q, s = quantize_int8(x)
+        qs = [torch.empty_like(q) for _ in range(dist.get_world_size(group))]
+        ss = [torch.empty_like(s.reshape(1)) for _ in qs]
+        dist.all_gather(qs, q, group=group)
+        dist.all_gather(ss, s.reshape(1), group=group)
+        deq = sum(ss[i].double() * qs[i].double() for i in rows)
+        d = dense(x, group)
+        return (float((approx.double() - deq).abs().max()),
+                float((approx - d).abs().max() / d.abs().max()))
+
+    out = []
+    for shape, names, axes in C["meshes"]:
+        mesh = make_mesh(shape, names, device=dev.type)
+        group, rows = axis_group(mesh, axes)
+        x = torch.as_tensor(np.random.default_rng(10 + rank).normal(size=(C["n"],)) * 3,
+                            dtype=torch.float32, device=dev)
+        approx, resid = compressed_psum(x, mesh, axes)
+        q, s = quantize_int8(x)
+        deq_err, rel = against(approx, x, group, rows)
+        rec = {"mesh": f"{shape} over {'/'.join(axes)}", "deq_err": deq_err, "rel": rel,
+               "resid_err": float((resid - (x - s * q.float())).abs().max()),
+               "resid_nonzero": bool((resid != 0).any()), "tree": []}
+        rng = np.random.default_rng(30 + rank)
+        calls = [{"a": torch.as_tensor(rng.normal(size=(6,)) * 2, dtype=torch.float32, device=dev),
+                  "b": {"c": torch.as_tensor(rng.normal(size=(2, 3)), dtype=torch.bfloat16,
+                                             device=dev)}} for _ in range(2)]
+        carried = init_residuals(calls[0])
+        for g in calls:
+            inputs = {p: t.float() + flatten(carried)[p] for p, t in flatten(g).items()}
+            sums, carried = compress_grads_tree(g, carried, mesh, axes)
+            for p, t in flatten(sums).items():
+                deq_err, rel = against(t, inputs[p], group, rows)
+                q, s = quantize_int8(inputs[p])
+                rec["tree"].append({
+                    "leaf": p, "deq_err": deq_err, "rel": rel,
+                    "dtypes": [str(t.dtype), str(flatten(carried)[p].dtype)],
+                    "resid_err": float((flatten(carried)[p] - (inputs[p] - s * q.float()))
+                                       .abs().max())})
+        out.append(rec)
+    return out
+
+
+def four_cards_paths_rank(out_path, device, sizes=None, init_method=None):
+    """One rank of the four-card paths (FOUR_CARDS_PATHS, or ``sizes``)
+    under ``torchrun``: ``device`` "cuda" binds the rank to its card
+    (LOCAL_RANK) before the NCCL group and any mesh exist; "cpu" runs the
+    same over gloo (tests/test_torch_four_cards.py, with ``init_method`` a
+    ``file://`` rendezvous and RANK and WORLD_SIZE in the environment).
+    The cases run in order; after each one rank 0 rewrites ``out_path``
+    with {case: every rank's record}, so a failed launch keeps what ran.
+    Case 5's checkpoint goes to ``ckpt`` beside ``out_path``."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.kernels import _build
+    P = FOUR_CARDS_PATHS if sizes is None else sizes
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", init_method=init_method,
+                            rank=int(os.environ["RANK"]), world_size=int(os.environ["WORLD_SIZE"]),
+                            timeout=datetime.timedelta(seconds=300))
+    cases = (("sa", paths_sa), ("ep", paths_ep), ("tp", paths_tp),
+             ("ckpt", lambda C, d: paths_ckpt(C, d, Path(out_path).with_name("ckpt"))),
+             ("pipe", paths_pipe), ("compress", paths_compress))
+    rec = {}
+    try:
+        for name, fn in cases:
+            t0 = time.perf_counter()
+            r = fn(P[name], dev)
+            sync(dev)
+            rec[name] = gather_ranks({"device": str(dev), "wall_s": time.perf_counter() - t0,
+                                      "kernel_library_builds_and_loads": _build.builds_and_loads,
+                                      **(r if isinstance(r, dict) else {"runs": r})})
+            if dist.get_rank() == 0:
+                Path(out_path).write_text(json.dumps(rec))
+    finally:
+        dist.destroy_process_group()
+
+
+def check_paths_sa(recs, smi=""):
+    """Case 1's checks on every rank's record (FOUR_CARDS_PATHS)."""
+    for r, rec in enumerate(recs):
+        for m in rec["meshes"] + rec["variants"]:
+            what = m.get("mesh", m.get("label"))
+            check(m["same"], f"four cards sa, rank {r}, {what}: f_best or x_best differ from the "
+                  f"unsharded run on one card")
+            check(m["history"], f"four cards sa, rank {r}, {what}: history_f is not the first "
+                  f"shard's best-so-far")
+            check(m["gathers"] == m["want_gathers"], f"four cards sa, rank {r}, {what}: "
+                  f"{m['gathers']} all-gathers, expected {m['want_gathers']}")
+            check(m["launches"] == m["want_launches"], f"four cards sa, rank {r}, {what}: "
+                  f"launches {m['launches']}, unsharded {m['want_launches']}")
+        check(rec["unsharded_gathers"] == 0, f"four cards sa, rank {r}: the unsharded run "
+              f"gathered")
+    rec = recs[0]
+    log(f"  sa: schwefel f_best {rec['f_best']:.6f}, {rec['levels']} levels; on every rank of "
+        f"{', '.join(m['mesh'] for m in rec['meshes'])}: f_best and x_best bit-equal to the "
+        f"unsharded run on the rank's card, history_f the first shard's best-so-far, "
+        f"{rec['levels'] + 2} all-gathers; B1/B2 launches per rank "
+        f"{[[m['launches'] for m in x['meshes']] for x in recs]}; kernel library builds and "
+        f"loads per rank {[x['kernel_library_builds_and_loads'] for x in recs]}; {smi}")
+    for label, w in rec["walls"].items():
+        busy = "not measured" if w["busy"] is None else f"{100 * w['busy']:.1f}%"
+        log(f"  sa wall per level, {label}: {w['ms_per_level']:.4f} ms (rank 0; ranks "
+            f"{', '.join(format(x['walls'][label]['ms_per_level'], '.4f') for x in recs)}), "
+            f"device busy "
+            f"{busy} of the first levels' span, device ms per level "
+            f"{ {k: round(v, 5) for k, v in w['device_ms_per_level'].items()} }; launches "
+            f"{w['launches']}")
+    for m in rec["variants"]:
+        log(f"  sa {m['label']}: bit-equal to the unsharded run on every rank, "
+            f"{m['gathers']} all-gathers, launches {m['launches']}, wall {m['wall_s']:.3f} s")
+
+
+def check_paths_ep(recs, smi=""):
+    """Case 3's checks: see FOUR_CARDS_PATHS and :func:`paths_ep`."""
+    for r, rec in enumerate(recs):
+        check(all(v <= EP_REL for v in rec["layer"].values()), f"four cards ep, rank {r}: the "
+              f"MoE layer with moe_ep against the local form: {rec['layer']} beyond {EP_REL}")
+        for pair, part in rec["parting"].items():
+            a, b = pair.split(" | ")
+            n = len(rec[a]["losses"]) if part is None else part["step"]
+            check(part is None or part["margin"] <= ROUTER_NEAR_TIE, f"four cards ep, rank "
+                  f"{r}: {pair}: the picks part beyond a near-tie: {part}")
+            check(np.allclose(rec[a]["losses"][:n], rec[b]["losses"][:n], **ORDER_TOL),
+                  f"four cards ep, rank {r}: {pair}: losses {rec[a]['losses'][:n]} against "
+                  f"{rec[b]['losses'][:n]} beyond {ORDER_TOL}, before the picks part ({part})")
+            check(np.all(np.isfinite(rec[a]["losses"] + rec[b]["losses"])),
+                  f"four cards ep, rank {r}: a loss is not finite")
+        check(rec["(1, 4) moe_ep"]["all_to_all"] > 0, f"four cards ep, rank {r}: no all_to_all")
+        check(rec["(1, 4) without moe_ep"]["all_to_all"] == 0 == rec["one card"]["all_to_all"],
+              f"four cards ep, rank {r}: an all_to_all without moe_ep")
+        check(rec["(1, 4) moe_ep"]["losses"] == recs[0]["(1, 4) moe_ep"]["losses"],
+              f"four cards ep: rank {r}'s moe_ep losses differ from rank 0's")
+    rec = recs[0]
+    base = np.asarray(rec["one card"]["losses"])
+    worst = {k: max(x["layer"][k] for x in recs) for k in rec["layer"]}
+    log(f"  ep: {rec['layers']} layers, {rec['experts']} experts, top {rec['top_k']}, capacity "
+        f"factor {rec['capacity_factor']}; one MoE layer with moe_ep against the local form, "
+        f"largest relative difference over the ranks {worst} (limit {EP_REL}); the router's "
+        f"smallest margin in the one-card run (neighbours among the top {rec['top_k'] + 1} "
+        f"probabilities) {rec['margin']['min']:.3e} (dispatch {rec['margin']['dispatch']} of "
+        f"{rec['margin']['dispatches']}); {smi}")
+    for pair in rec["parting"]:
+        log(f"  ep {pair}: the picks part first (per rank) {[x['parting'][pair] for x in recs]}")
+    for label in ("one card", "(1, 4) moe_ep", "(1, 4) without moe_ep"):
+        x = rec[label]
+        rel = np.abs(np.asarray(x["losses"]) - base) / np.abs(base)
+        peaks = [y[label]["peak_mib"] for y in recs]
+        log(f"  ep {label}: losses {', '.join(f'{v:.6f}' for v in x['losses'])}; relative "
+            f"difference from one card by step {', '.join(f'{v:.1e}' for v in rel)}; step "
+            f"{x['step_ms']:.3f} ms (median, host clock; ranks "
+            f"{', '.join(format(y[label]['step_ms'], '.3f') for y in recs)}); peak per rank "
+            f"{', '.join('not measured' if p is None else f'{p:.1f}' for p in peaks)} MiB; "
+            f"all_to_all calls {x['all_to_all']}")
+
+
+def check_paths_tp(recs, smi=""):
+    """Case 4's checks: see FOUR_CARDS_PATHS."""
+    for r, rec in enumerate(recs):
+        for m in rec["meshes"]:
+            check(all(p["near_tie"] for p in m["parts"]),
+                  f"four cards tp, rank {r}, mesh {m['mesh']}: tokens part beyond a near-tie: "
+                  f"{m['parts']}")
+    rec = recs[0]
+    log(f"  tp: unsharded tokens on one card {rec['unsharded']['tokens']}, tick "
+        f"{rec['unsharded']['tick_ms']:.3f} ms (median); the smallest gap between the two "
+        f"largest logits {rec['unsharded']['margin']:.3e}; {smi}")
+    for i, m in enumerate(rec["meshes"]):
+        parts = [x["meshes"][i]["parts"] for x in recs if x["meshes"][i]["parts"]]
+        log(f"  tp mesh {m['mesh']}: rows per rank {[x['meshes'][i]['rows'] for x in recs]}, "
+            f"tokens {f'part at near-ties {parts}' if parts else 'equal'}; tick "
+            f"{', '.join(format(x['meshes'][i]['tick_ms'], '.3f') for x in recs)} ms per rank "
+            f"(median) against {rec['unsharded']['tick_ms']:.3f} on one card")
+
+
+def check_paths_ckpt(recs, one_card=None, smi=""):
+    """Case 5's checks: see FOUR_CARDS_PATHS; ``one_card`` the losses of
+    four_cards_resume_one."""
+    for r, rec in enumerate(recs):
+        whole, n = np.asarray(rec["whole"]), len(rec["first"])
+        b = rec["blocks"]
+        check(b["equal"] == b["leaves"] and b["cut"] > 0 and b["step"] == b["data_step"] == n,
+              f"four cards ckpt, rank {r}: restored blocks {b}")
+        check(np.allclose(rec["first"], whole[:n], **ORDER_TOL),
+              f"four cards ckpt, rank {r}: the run that saved gave {rec['first']}")
+        for label, got in (("(1, 4)", rec["resumed"]), ("one card", one_card)):
+            if got is not None:
+                check(len(got) == len(whole) - n and np.allclose(got, whole[n:], **ORDER_TOL),
+                      f"four cards ckpt, rank {r}: resumed on {label} {got} against the "
+                      f"uninterrupted {whole[n:].tolist()}")
+    rec = recs[0]
+    n = len(rec["first"])
+    log(f"  ckpt: saved over (2, 2) at step {n}; every rank restored its (1, 4) blocks of "
+        f"{rec['blocks']['leaves']} leaves bit for bit ({rec['blocks']['cut']} cut); the "
+        f"uninterrupted losses {', '.join(f'{x:.6f}' for x in rec['whole'])}; {smi}")
+    for label, got in (("(1, 4)", rec["resumed"]), ("one card, no group", one_card)):
+        if got is not None:
+            rel = np.abs(np.asarray(got) - rec["whole"][n:]) / np.abs(rec["whole"][n:])
+            log(f"  ckpt resumed on {label}: {', '.join(f'{x:.6f}' for x in got)}; largest "
+                f"relative difference {rel.max():.3e}")
+
+
+def check_paths_pipe(recs, smi=""):
+    for r, rec in enumerate(recs):
+        for m in rec["runs"]:
+            check(m["err"] < PIPE_TOL and abs(m["bubble"] - m["want_bubble"]) < 1e-12,
+                  f"four cards pipe, rank {r}: {m}")
+    log("  pipe: " + "; ".join(
+        f"{m['mesh']}, {m['stages']} stages: largest |difference| from the layers in order "
+        f"{max(x['runs'][i]['err'] for x in recs):.3e} over the ranks, bubble {m['bubble']:.3f}"
+        for i, m in enumerate(recs[0]["runs"])) + f"; {smi}")
+
+
+def check_paths_compress(recs, smi=""):
+    for r, rec in enumerate(recs):
+        for m in rec["runs"]:
+            for x in [m] + m["tree"]:
+                check(x["deq_err"] <= COMPRESS_ATOL and x["rel"] < COMPRESS_REL
+                      and x["resid_err"] <= COMPRESS_ATOL,
+                      f"four cards compress, rank {r}, {m['mesh']}: {x}")
+            check(m["resid_nonzero"], f"four cards compress, rank {r}: a zero residual")
+            check(all(x["dtypes"] == ["torch.float32"] * 2 for x in m["tree"]),
+                  f"four cards compress, rank {r}: {m['tree']}")
+    log("  compress: " + "; ".join(
+        f"{m['mesh']}: largest relative difference from the dense all_reduce "
+        f"{max(y['rel'] for x in recs for y in [x['runs'][i]] + x['runs'][i]['tree']):.3e}, "
+        f"from the dequantized shards "
+        f"{max(y['deq_err'] for x in recs for y in [x['runs'][i]] + x['runs'][i]['tree']):.1e}"
+        for i, m in enumerate(recs[0]["runs"])) + f"; {smi}")
+
+
+#: Case -> its checks, in FOUR_CARDS_PATHS' order.
+PATH_CHECKS = {"sa": check_paths_sa, "ep": check_paths_ep, "tp": check_paths_tp,
+               "ckpt": check_paths_ckpt, "pipe": check_paths_pipe,
+               "compress": check_paths_compress}
+
+
+def four_cards_paths(env, smi, device="cuda", sizes=None):
+    """The torchrun launch of :func:`four_cards_paths_rank` over the four
+    cards, each case's record checked and logged (those that ran, when it
+    failed), then case 5's resume on one card in this process.  ``device``
+    "cpu" with small ``sizes`` rehearses it over gloo."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as out:
+        path = Path(out) / "paths.json"
+        log(f"four cards: the multi-rank paths (FOUR_CARDS_PATHS: {', '.join(PATH_CHECKS)}) "
+            f"under torchrun, {'NCCL, one card' if device == 'cuda' else 'gloo, one process'} "
+            f"per rank; {smi}")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+             "4", "--no-python", sys.executable, "-c",
+             f"import chip_smoke as cs; cs.four_cards_paths_rank({str(path)!r}, {device!r}, "
+             f"{sizes!r})"],
+            env=env, cwd=ROOT, capture_output=True, text=True, timeout=1200)
+        rec = json.loads(path.read_text()) if path.exists() else {}
+        log(f"  launch wall {time.perf_counter() - t0:.1f} s; case walls (rank 0) "
+            f"{ {k: round(v[0]['wall_s'], 1) for k, v in rec.items()} }")
+        for name, fn in PATH_CHECKS.items():
+            if name in rec and name != "ckpt":
+                fn(rec[name], smi)
+        check(proc.returncode == 0 and rec.keys() == PATH_CHECKS.keys(),
+              f"four cards: the paths' launch exited {proc.returncode} after "
+              f"{list(rec)}: {proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        t0 = time.perf_counter()
+        one = four_cards_resume_one((sizes or FOUR_CARDS_PATHS)["ckpt"], Path(out) / "ckpt",
+                                    device)
+        log(f"  the one-card resume: {time.perf_counter() - t0:.1f} s")
+        check_paths_ckpt(rec["ckpt"], one, smi)
+
+
+@contextlib.contextmanager
+def launches_by_card():
+    """B1's and B3's launches counted by (kernel, device) while inside."""
+    from repro_torch.kernels import metropolis_sweep as ms
+    from repro_torch.kernels import qap_sweep as qs
+    counts = collections.Counter()
+    real = {ms: ms._launch, qs: qs._launch}
+
+    def counted(mod, key):
+        def launch(x, *a, **kw):
+            counts[f"{key} {x.device}"] += 1
+            return real[mod](x, *a, **kw)
+        return launch
+
+    ms._launch, qs._launch = counted(ms, "b1"), counted(qs, "b3")
+    try:
+        yield counts
+    finally:
+        ms._launch, qs._launch = real[ms], real[qs]
+
+
+def four_cards_engine(smi, device="cuda"):
+    """Case 2 (ENGINE_FOUR), in this process: phase 10's load on four
+    shards, on the four cards and all on cuda:0 in turns (four, one, one,
+    four), every run's champions equal bit for bit, every completed
+    request against its standalone replay, no request lost, shard
+    ``drain`` retired, migrations, B1's and B3's launches on every card;
+    then the reference's serve_sa commands with --check on the cards.
+    ``device`` "cpu" rehearses it (both fleets on the CPU)."""
+    import io
+    from repro_torch.service import (ArrivalProcess, EngineConfig, SAServeEngine,
+                                     SchedulerConfig, serve_sa)
+    on_card = torch.device(device).type == "cuda"
+    n = ENGINE_FOUR["n_devices"]
+    fleets = {"four cards": device, "all on cuda:0": "cuda:0" if on_card else device}
+    reqs = elastic_requests()
+    cfgs = {k: EngineConfig(**{**ELASTIC_CFG, "n_devices": n}, device=d,
+                            scheduler=SchedulerConfig(**ELASTIC_SCHED)) for k, d in fleets.items()}
+    log(f"four cards: the engine's shards, phase 10's load ({len(reqs)} requests, bursty "
+        f"{ELASTIC_ARRIVALS}) on {n} shards of {ELASTIC_CFG['n_slots']} x "
+        f"{ELASTIC_CFG['chains_per_slot']}, drain({ENGINE_FOUR['drain']}) at tick {DRAIN_AT}, "
+        f"on the four cards and all on cuda:0 in turns; {smi}")
+
+    def run(label, reqs, drain=True):
+        engine = SAServeEngine(cfgs[label])
+        devices = [str(s.device) for s in engine.shards]
+        if drain:
+            engine.schedule_op(DRAIN_AT, lambda: engine.drain(ENGINE_FOUR["drain"]))
+        with launches_by_card() as per:
+            for i in range(torch.cuda.device_count() if on_card else 0):
+                torch.cuda.synchronize(i)
+            t0 = time.perf_counter()
+            results = engine.run_stream(ArrivalProcess.bursty(reqs, **ELASTIC_ARRIVALS))
+            for i in range(torch.cuda.device_count() if on_card else 0):
+                torch.cuda.synchronize(i)
+            wall = time.perf_counter() - t0
+        return engine, devices, results, wall, dict(per)
+
+    for label in fleets:   # first launches on every card
+        run(label, reqs[:8], drain=False)
+    runs = [(label, run(label, reqs)) for label in
+            ("four cards", "all on cuda:0", "all on cuda:0", "four cards")]
+    ref = {r.req_id: r for r in runs[0][1][2]}
+    for label, (engine, devices, results, wall, per) in runs:
+        st = engine.stats()
+        got = {r.req_id: r for r in results}
+        check(len(got) == len(results) == len(reqs) and st["completed"] == len(reqs),
+              f"four cards engine, {label}: a request was lost, finished twice or not completed")
+        check(all(got[i].f_best == r.f_best and np.array_equal(got[i].x_best, r.x_best)
+                  for i, r in ref.items()), f"four cards engine, {label}: champions differ")
+        check(ENGINE_FOUR["drain"] in [i for i, _ in engine.retired_shards]
+              and st["migrations"] > 0, f"four cards engine, {label}: retired "
+              f"{engine.retired_shards}, {st['migrations']} migrations")
+        want = ([f"cuda:{i}" for i in range(n)] if label == "four cards" else ["cuda:0"] * n) \
+            if on_card else [device] * n
+        check(devices == want, f"four cards engine, {label}: shards on {devices}")
+        cards = sorted({k.split()[1] for k in per})
+        check(not on_card or cards == sorted(set(want)) and all(
+            per.get(f"{k} {c}", 0) > 0 for k in ("b1", "b3") for c in cards),
+            f"four cards engine, {label}: launches {per}")
+        log(f"  {label}: wall {wall:.3f} s, {len(results) / wall:.2f} requests/s, "
+            f"{engine.tick_count} ticks, {st['migrations']} migrations, {st['preemptions']} "
+            f"preemptions, retired {engine.retired_shards}; shards on {devices}; launches by "
+            f"card {dict(sorted(per.items()))}")
+    for label in fleets:
+        walls = [r[3] for lab, r in runs if lab == label]
+        log(f"  {label}: {len(reqs) / statistics.median(walls):.2f} requests/s (median wall "
+            f"{statistics.median(walls):.3f} s of {len(walls)})")
+    from repro_torch.service.serve_sa import replay_check
+    t0 = time.perf_counter()
+    reqs_by = {r.req_id: r for r in reqs}
+    for rid, res in ref.items():
+        check(replay_check(reqs_by[rid], res, cfgs["four cards"]),
+              f"four cards engine: req {rid} differs from its standalone replay")
+    log(f"  all {len(ref)} champions of the four-card run bit-exact against run_standalone "
+        f"({time.perf_counter() - t0:.1f} s)")
+    for argv in ENGINE_FOUR["cli"]:
+        argv = [*argv, "--json"] + ([] if on_card else ["--device", device])
+        buf = io.StringIO()
+        with launches_by_card() as per, contextlib.redirect_stdout(buf):
+            t0 = time.perf_counter()
+            rc = serve_sa.main(argv)
+            wall = time.perf_counter() - t0
+        doc = json.loads(buf.getvalue())
+        c, st = doc["check"], doc["stats"]
+        check(rc == 0 and c["bit_exact"] == c["served"] and not c["unserved_req_ids"],
+              f"four cards engine: serve_sa {' '.join(argv)} exited {rc}: {c}")
+        cards = sorted({k.split()[1] for k in per})
+        check(not on_card or len(cards) > 1, f"four cards engine: serve_sa on {cards} only")
+        auto = doc.get("autoscaler")
+        log(f"  serve_sa {' '.join(argv)}: {c['bit_exact']}/{c['served']} champions bit-exact "
+            f"against standalone; {st['completed']} completed in {st['ticks']} ticks, "
+            f"{st['requests_per_s']:.2f} requests/s, {st['migrations']} migrations, "
+            f"{st['shards_retired']} shards retired"
+            + (f", {len(auto['decisions'])} fleet changes" if auto else "")
+            + f"; launches by card {dict(sorted(per.items()))}; {wall:.1f} s with the check")
+
+
 def four_cards() -> int:
     """The four-card record (FOUR_CARDS), run on its own:
     ``python -c "import chip_smoke as cs; raise SystemExit(cs.four_cards())"``.
@@ -4918,9 +5858,11 @@ def four_cards() -> int:
     steps'.  Then FOUR_CARDS' cell with seq_parallel at each
     ``SEQ_PAR["four_cards_mp"]`` (:func:`four_cards_sp_rank`): its losses
     against the --model-parallel 1 run's at ORDER_TOL, its step and peak
-    beside the same mesh's run without it.  Returns 0 when every check
-    held."""
-    import json
+    beside the same mesh's run without it.  Then the multi-rank paths
+    (:func:`four_cards_paths`, FOUR_CARDS_PATHS) and the serving engine's
+    shards on the four cards (:func:`four_cards_engine`, ENGINE_FOUR).
+    The kernel library is built here first, so no rank builds it.
+    Returns 0 when every check held."""
     import tempfile
     F = FOUR_CARDS
     if torch.cuda.device_count() < 4:
@@ -4931,6 +5873,10 @@ def four_cards() -> int:
     smi = "; ".join(smi.splitlines())
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     runs = {}
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    lib = _build.build()    # here, so the ranks of every launch load it and none builds
+    log(f"four cards: kernel library {lib.name} ready in {time.perf_counter() - t0:.1f} s")
 
     def train_argv(mp):
         return ["--arch", F["arch"], "--seq", str(F["seq"]), "--batch", str(F["batch"]),
@@ -5032,6 +5978,8 @@ def four_cards() -> int:
                     f"{time.perf_counter() - t0:.1f} s")
                 check(np.allclose(got, base, **ORDER_TOL), f"four cards: seq_parallel at "
                       f"--model-parallel {mp} losses {got.tolist()} against {base.tolist()}")
+        four_cards_paths(dict(env, PYTHONPATH=f"{ROOT}{os.pathsep}{ROOT / 'src'}"), smi)
+        four_cards_engine(smi)
     except SmokeFailure as e:
         log(f"FAILED: {e}")
         return 1

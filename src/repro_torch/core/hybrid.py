@@ -40,6 +40,8 @@ def hybrid_minimize(objective: Objective, sa_config: SAConfig,
                     mesh_axes=None) -> HybridResult:
     sa_res = sa_minimize(objective, sa_config, device=device, mesh=mesh,
                          mesh_axes=mesh_axes)
+    if device is None and mesh is not None:   # as sa_minimize: the mesh's device
+        device = mesh.device_type
     nm_res = nelder_mead(objective, sa_res.x_best, max_iters=nm_max_iters,
                          fatol=nm_fatol, xatol=nm_xatol, device=device)
     return HybridResult(sa=sa_res, nm=nm_res)
