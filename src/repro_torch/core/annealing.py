@@ -46,6 +46,7 @@ from repro_torch.core.metropolis import DTYPES
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import check_mesh, shard_count, shard_index
 from repro_torch.objectives.base import Objective
+from repro_torch.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,18 +154,20 @@ def level_step(state: LadderState, lvl: int, T: float, *,
                shard: Optional[exch.Shard] = None) -> LadderState:
     """One temperature level: sweep of length N, exchange, best-so-far.
     With ``shard`` the chains are this rank's slice and the exchange runs
-    over the shard's mesh dims."""
-    x, fx = _sweep(state, lvl, T, objective, cfg,
-                   shard.chain_base if shard else 0)
-    if cfg.exchange != "async" and lvl % cfg.exchange_period == 0:
-        x, fx = exch.EXCHANGES[cfg.exchange](x, fx, T, seed=cfg.seed, lvl=lvl,
-                                             shard=shard)
-    xb, fb = exch.local_champion(x, fx)
-    better = fb < state.best_f
-    best_x = torch.where(better, xb, state.best_x)
-    best_f = torch.where(better, fb, state.best_f)
-    if state.hist is not None:
-        state.hist[lvl] = best_f
+    over the shard's mesh dims.  The level is the span ``sa.level``
+    while a profiler records (``repro_torch/spans.py``)."""
+    with span("sa.level"):
+        x, fx = _sweep(state, lvl, T, objective, cfg,
+                       shard.chain_base if shard else 0)
+        if cfg.exchange != "async" and lvl % cfg.exchange_period == 0:
+            x, fx = exch.EXCHANGES[cfg.exchange](x, fx, T, seed=cfg.seed,
+                                                 lvl=lvl, shard=shard)
+        xb, fb = exch.local_champion(x, fx)
+        better = fb < state.best_f
+        best_x = torch.where(better, xb, state.best_x)
+        best_f = torch.where(better, fb, state.best_f)
+        if state.hist is not None:
+            state.hist[lvl] = best_f
     return LadderState(x, fx, best_x, best_f, state.hist)
 
 

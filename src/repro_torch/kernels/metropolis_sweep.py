@@ -19,6 +19,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 from repro_torch.kernels import rng
+from repro_torch.spans import span
 
 VARIANTS = {"delta": 0, "full": 1}
 
@@ -185,7 +186,10 @@ def metropolis_sweep_plain(x, T, seed, step0, *, kid, n_steps: int,
 def _launch(x, T, seed, step0, kid, n_steps, blk, variant, chain_base, live,
             t_chain, out):
     dev = x.device
-    x = x.contiguous()
+    if not x.is_contiguous():
+        # Under V2 the broadcast champion: one copy, the span's only launch.
+        with span("sa.pack"):
+            x = x.contiguous()
     chains, dim = x.shape
     x_out = torch.empty_like(x) if out is None else out
     if x_out.shape != x.shape or x_out.dtype != x.dtype \

@@ -22,6 +22,10 @@ structured events.  The counterpart of ``repro.service.telemetry``.
   port compiles nothing at run time, so its metric is
   ``sa_kernel_builds_total`` in place of ``sa_jax_compile_events_total``.
   Every other metric keeps the reference's name and help string.
+* ``repro_torch/spans.py``: the port's span vocabulary on the profiler's
+  clock (``sa.level``, ``sa.pack``), ranges that open only while a torch
+  profiler records.  The ladder and the kernels use it without importing
+  this package; the tick's phases stay :class:`PhaseTimer`'s.
 
 All of this is host-side observation: turning telemetry on touches no
 state on the card, no RNG stream and no admission decision, so every
