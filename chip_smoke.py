@@ -1075,8 +1075,8 @@ def phase3_main_path():
 
 def sa_device_share(obj, cfg_kw, wall_per_level, b1_kernel, levels=100, **run_kw):
     """The SA ladder of ``cfg_kw`` cut to its first ``levels`` levels under a
-    torch.profiler trace: device time per level by kernel (B1 is the
-    kernel named ``b1_kernel``; NCCL's kernels are the sharded ladder's
+    torch.profiler trace: device time per level by kernel (B1 is every
+    kernel whose name holds ``b1_kernel``; NCCL's kernels are the sharded ladder's
     all-gathers), against the wall time per level of the unprofiled run.
     ``run_kw`` goes to ``sa_minimize`` (``mesh=``).  Returns the busy
     share, or None when no trace was complete (``profile_calls``), and
@@ -1108,21 +1108,45 @@ def sa_device_share(obj, cfg_kw, wall_per_level, b1_kernel, levels=100, **run_kw
 
 def phase4_main_path():
     """The F0_g row as the reference's Table 10 bench runs it: sa_minimize
-    with the default full variant, every level."""
+    with the default full variant, every level.  Each level after the
+    first sweeps the champion broadcast over the chains, one shared row
+    (``counter.shared_start``); three of those inputs, and the last one
+    broadcast over 2^20 chains, are held to the plain version."""
     from repro_torch.core import SAConfig, sa_minimize
     from repro_torch.kernels import metropolis_sweep as ms
+    from repro_torch.kernels import ops
     from repro_torch.objectives import functions as F
     cfg = SAConfig(**MAIN_CFG)
     obj = F.schwefel(MAIN_DIM)
     log(f"phase 4: main path sa_minimize(schwefel({MAIN_DIM}), {MAIN_CFG}), full "
         f"variant, {cfg.n_levels} levels")
-    torch.cuda.synchronize()
-    read = counted_launches()
-    t0 = time.perf_counter()
-    r = sa_minimize(obj, cfg)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    got = read()
+    keep_levels = (1, cfg.n_levels // 2, cfg.n_levels - 1)
+    kept = []
+    real_sweep = ops.metropolis_sweep
+
+    def spy_sweep(x, T, seed, step0, **kw):
+        out = real_sweep(x, T, seed, step0, **kw)
+        if step0 // kw["n_steps"] in keep_levels:
+            check(x.stride(0) == 0, f"level {step0 // kw['n_steps']}: input not one row")
+            kept.append((x[0].clone().expand(x.shape), T, seed, step0, out))
+        return out
+
+    ops.metropolis_sweep = spy_sweep
+    try:
+        torch.cuda.synchronize()
+        read = counted_launches()
+        ms.counter.shared_start = 0
+        t0 = time.perf_counter()
+        r = sa_minimize(obj, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read()
+        shared = ms.counter.shared_start
+    finally:
+        ops.metropolis_sweep = real_sweep
+    log(f"  shared starts {shared} of {got['b1']} B1 launches")
+    check(shared == cfg.n_levels - 1,
+          f"phase 4: {shared} shared starts, expected {cfg.n_levels - 1}")
     launches = got["b1"]
     err = abs(r.f_best - SCHWEFEL_F_OPT)
     rate = cfg.n_evals / wall
@@ -1139,7 +1163,29 @@ def phase4_main_path():
     f_x = float(obj(torch.from_numpy(r.x_best).to(DEV)))
     check(abs(f_x - r.f_best) <= 1e-4 * abs(f_x), "phase 4 (x, f) not coherent")
     check(err < 0.5 * abs(SCHWEFEL_F_OPT), f"phase 4: SA error {err}")
-    busy, _ = sa_device_share(obj, MAIN_CFG, wall / cfg.n_levels, "sweep_full_kernel")
+    busy, _ = sa_device_share(obj, MAIN_CFG, wall / cfg.n_levels, "sweep_full")
+    from repro_torch.kernels.metropolis_sweep import (metropolis_sweep_kernel,
+                                                      metropolis_sweep_plain)
+    x_last = kept[-1][0][0]
+    kept.append((x_last.expand(1 << 20, MAIN_DIM),) + kept[-1][1:4] + (None,))
+    check([k[3] // cfg.N for k in kept] == list(keep_levels) + [keep_levels[-1]],
+          f"phase 4: kept levels {[k[3] // cfg.N for k in kept]}")
+    for x_in, T, seed, step0, out_main in kept:
+        n = x_in.shape[0]
+        log(f"  shared start vs plain version, level {step0 // cfg.N}, {n} chains")
+
+        def run(k, x_in=x_in, T=T, seed=seed, step0=step0, out_main=out_main):
+            kw = dict(kid=0, n_steps=k, blk=256, variant="full")
+            launches = ms.counter.shared_start
+            out_k = (out_main if k == cfg.N and out_main is not None else
+                     metropolis_sweep_kernel(x_in, T, seed, step0, **kw))
+            check(out_main is not None and k == cfg.N
+                  or ms.counter.shared_start == launches + 1, "not a shared start")
+            return out_k, metropolis_sweep_plain(x_in, T, seed, step0, **kw)
+        ctl = dict(kid=np.zeros(n, np.int64), T=np.full(n, T), seed=np.full(n, seed),
+                   step0=np.full(n, step0), cidx=np.arange(n))
+        compare_sweep(f"level {step0 // cfg.N} shared, {n} chains", x_in, run, ctl,
+                      cfg.N, "full")
     return got, dict(wall_s=wall, rate=rate, f_best=r.f_best, busy=busy)
 
 
@@ -2653,10 +2699,10 @@ def phase15a_sharded(smi, p3):
         walls[label].append(run[1])
     log("  unsharded, profiled:")
     _, plain_ops = sa_device_share(obj, MAIN_CFG, min(walls["unsharded"]) / L,
-                                   "sweep_full_kernel")
+                                   "sweep_full")
     log("  over the (1,) mesh, profiled:")
     _, mesh_ops = sa_device_share(obj, MAIN_CFG, min(walls["(1,) over data"]) / L,
-                                  "sweep_full_kernel", mesh=mesh1)
+                                  "sweep_full", mesh=mesh1)
     extra = {k: v - plain_ops.get(k, 0.0) for k, v in mesh_ops.items()
              if v - plain_ops.get(k, 0.0) > 1e-6}
     log("  device ms per level added by the mesh, by op: "

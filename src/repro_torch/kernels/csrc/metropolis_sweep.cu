@@ -71,10 +71,44 @@
 // What is left: the rows' load and their evaluation run one after the
 // other within a CTA, and the walk (one warp of eight) leaves the SM to
 // the other CTAs.
+// The shared start (sweep_full_shared_kernel): under V2 every chain starts
+// a level from one row, the champion, and the host passes that row alone.
+// Evaluating it per chain would repeat the same dim terms for every chain
+// (5.4e8 a level at 2^20 chains of 512), and packing it per chain would
+// write and read back 2 GiB.  Instead:
+//   - a grid of resident CTAs (four an SM at dim 512) takes groups of 16
+//     chains from a counter, one group ahead, so that a CTA that starts
+//     late or runs slow takes fewer; each CTA reads the row once (2 KB,
+//     from L2) and one warp evaluates it once, in the order above, into a
+//     term cache and a butterfly of the champion;
+//   - a group's rows start from shared-memory copies of those, so their
+//     caches, trees and f are the bits their own evaluation gives, and the
+//     staging and the walk are the packed kernel's;
+//   - warp 0 walks while the seven other warps stage the next chunk (two
+//     chunks of at most 16 steps in flight, in the shared memory that one
+//     chunk of 32 takes in the packed kernel; 33 steps walk as three of
+//     11).  In a group's last chunk they also set up the next group and
+//     write its x_out rows, the row in 16-byte stores (4-byte where rows
+//     are not 16-byte aligned): late enough that the walk's 4-byte stores
+//     into those rows still find them in L2 (a group earlier, the rows had
+//     left L2 and those stores cost 0.46 ms at 2^20 chains).
+// What bounds it on the H100: the walks.  A step is a serial chain of
+// shared-memory loads, 21 adds, two divides and an exponential, about 810
+// cycles with one CTA on an SM, and shared memory holds the caches of 64
+// walking chains an SM: 1.7 ms of the 2.46 a launch at 2^20 x 512, N 33.
+// Writing x_out (2 GiB there: 0.64 ms at 3.35 TB/s, a write that V2's own
+// count in perfbench/costs/b1_full.py, holding the champion once, leaves
+// out) and the staging run beside the walks.  What is left: the walk's
+// latency and the 2 KB a chain of term cache that caps the walkers; rows
+// kept as the champion and their changes would need neither the cache
+// copies nor the x_out write.
 // Rows whose cache does not fit in shared memory (dim above about 48k, or
 // 24k with two caches) take sweep_full_wide_kernel, a warp per chain that
-// re-evaluates every term in the same order: the same bits, slower.
+// re-evaluates every term in the same order: the same bits, slower.  A
+// shared row whose caches do not fit beside the rows' (dim above about
+// 17k) is packed by the host and takes one of those two.
 #include <cuda_runtime.h>
+#include <algorithm>
 #include <cstdint>
 
 #include "objective_math.cuh"
@@ -491,18 +525,45 @@ constexpr int FULL_ROWS = 16;        // most chains per CTA: one walking lane ea
 constexpr int FULL_THREADS = 256;
 constexpr int FULL_WARPS = FULL_THREADS / 32;
 constexpr int FULL_STAGE = 32;       // steps staged per chunk
+constexpr int SHARED_STAGE = 16;     // the same, two chunks in flight (shared start)
 constexpr int TREE_NODES = 62;       // 32 lane partials, then 16, 8, 4 and 2 sums
+
+// One staged chunk of S steps, per step and row: the draws and the
+// proposal's terms.
+template <int S>
+struct FullStage {
+    int d[S][FULL_ROWS];
+    float newval[S][FULL_ROWS], uacc[S][FULL_ROWS];
+    float na[S][FULL_ROWS], nb[S][FULL_ROWS];
+};
+
+// The butterfly of accumulators a and b, node-major so that the walking
+// lanes (one row each) hit distinct banks.
+typedef float FullTree[2][TREE_NODES][FULL_ROWS];
 
 struct FullShared {
     ChainSetup cs[FULL_ROWS];
     float f[FULL_ROWS];
-    // The butterfly of accumulators a and b, node-major so that the
-    // walking lanes (one row each) hit distinct banks.
-    float tree[2][TREE_NODES][FULL_ROWS];
-    // One staged chunk, per step and row: the draws and the proposal's terms.
-    int d[FULL_STAGE][FULL_ROWS];
-    float newval[FULL_STAGE][FULL_ROWS], uacc[FULL_STAGE][FULL_ROWS];
-    float na[FULL_STAGE][FULL_ROWS], nb[FULL_STAGE][FULL_ROWS];
+    FullTree tree;
+    FullStage<FULL_STAGE> st;
+};
+
+// The champion of a shared start: the kid its terms were taken for (the
+// CTA's first chain's), its value and its butterfly.
+struct ChampShared {
+    int kid;
+    float f;
+    float tree[2][TREE_NODES][1];
+};
+
+// The shared start's CTA: two groups, their setups, and two chunks in flight.
+struct SharedStart {
+    int group[2];
+    ChainSetup cs[2][FULL_ROWS];
+    float f[FULL_ROWS];
+    FullTree tree;
+    FullStage<SHARED_STAGE> st[2];
+    ChampShared ch;
 };
 
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
@@ -516,8 +577,9 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // The butterfly of a warp's lane partials v, leaving its nodes in
 // tree[.][r] and returning the total (the same in every lane).
-__device__ __forceinline__ float tree_build(float (*tree)[FULL_ROWS], int r,
-                                            int lane, float v, bool prod) {
+template <int R>
+__device__ __forceinline__ float tree_build(float (*tree)[R], int r, int lane,
+                                            float v, bool prod) {
     tree[lane][r] = v;
     int base = 32;
 #pragma unroll
@@ -560,39 +622,68 @@ __device__ __forceinline__ void tree_store(float (*tree)[FULL_ROWS], int r,
     }
 }
 
-// All threads stage steps [c0, c0 + cnt) of the CTA's live rows.
-__device__ __forceinline__ void full_stage(FullShared& sh, int rows, int dim,
-                                           int c0, int cnt) {
-    for (int it = static_cast<int>(threadIdx.x); it < cnt * FULL_ROWS;
-         it += FULL_THREADS) {
+// A warp evaluates row x: lane l folds the terms of coordinates l, l + 32,
+// ... in order, keeping them in the caches ta_c and tb_c (ta_c may be x
+// itself), then the butterfly leaves its nodes in slot r of tree.  With
+// xo, x is copied there on the way.  Returns f, the same in every lane.
+template <int R>
+__device__ __forceinline__ float eval_row(int kid, const float* x, float* xo,
+                                          float* ta_c, float* tb_c,
+                                          float (*tree)[TREE_NODES][R], int r,
+                                          int lane, int dim) {
+    float a = 0.0f, b = b_init(kid);
+    for (int j = lane; j < dim; j += 32) {
+        const float xj = x[j];
+        if (xo) xo[j] = xj;
+        float ta, tb;
+        full_terms(kid, xj, j, ta, tb);
+        ta_c[j] = ta;
+        a += ta;
+        if (has_b(kid)) {
+            tb_c[j] = tb;
+            b = fold_b(kid, b, tb);
+        }
+    }
+    a = tree_build(tree[0], r, lane, a, false);
+    if (has_b(kid)) b = tree_build(tree[1], r, lane, b, kid == KID_GRIEWANK);
+    return full_finish(kid, a, b, dim);
+}
+
+// Threads t of nt stage steps [c0, c0 + cnt) of the live rows of cs.
+template <int S>
+__device__ __forceinline__ void full_stage(const ChainSetup* cs, FullStage<S>& st,
+                                           int rows, int dim, int c0, int cnt,
+                                           int t, int nt) {
+    for (int it = t; it < cnt * FULL_ROWS; it += nt) {
         const int s = it / FULL_ROWS, r = it % FULL_ROWS;
-        if (r >= rows || !sh.cs[r].live) continue;
+        if (r >= rows || !cs[r].live) continue;
         int d;
         float newval, uacc, ta, tb;
-        propose(sh.cs[r], c0 + s, dim, d, newval, uacc);
-        full_terms(sh.cs[r].kid, newval, d, ta, tb);
-        sh.d[s][r] = d;
-        sh.newval[s][r] = newval;
-        sh.uacc[s][r] = uacc;
-        sh.na[s][r] = ta;
-        sh.nb[s][r] = tb;
+        propose(cs[r], c0 + s, dim, d, newval, uacc);
+        full_terms(cs[r].kid, newval, d, ta, tb);
+        st.d[s][r] = d;
+        st.newval[s][r] = newval;
+        st.uacc[s][r] = uacc;
+        st.na[s][r] = ta;
+        st.nb[s][r] = tb;
     }
 }
 
 // Lane r walks a staged chunk of row r: re-fold the changed lane partial
 // from the cached terms, then the tree, then the accept test.  An accepted
 // step writes its terms and its path into the caches and its value to x.
-template <int KID>
-__device__ __forceinline__ void full_walk_kid(FullShared& sh, float* ca,
+template <int KID, int S>
+__device__ __forceinline__ void full_walk_kid(const FullStage<S>& st,
+                                              FullTree& tree, float* ca,
                                               float* cb, int r, int cnt,
                                               float T, int dim, float* xrow,
                                               float& fx) {
     constexpr bool B = KID == KID_ACKLEY || KID == KID_GRIEWANK;
     constexpr bool PROD = KID == KID_GRIEWANK;
     for (int s = 0; s < cnt; ++s) {
-        const int d = sh.d[s][r];
-        const float na = sh.na[s][r], nb = B ? sh.nb[s][r] : 0.0f;
-        const float u = sh.uacc[s][r];
+        const int d = st.d[s][r];
+        const float na = st.na[s][r], nb = B ? st.nb[s][r] : 0.0f;
+        const float u = st.uacc[s][r];
         const int o = d & 31, k = d >> 5, terms = (dim - o + 31) >> 5;
         float a = 0.0f, b = PROD ? 1.0f : 0.0f;
         // Unrolled so that the cached terms' loads are issued together;
@@ -606,43 +697,45 @@ __device__ __forceinline__ void full_walk_kid(FullShared& sh, float* ca,
             }
         }
         float pa[5], pb[5];
-        const float A = tree_path<false>(sh.tree[0], r, o, a, pa);
-        const float Bt = B ? tree_path<PROD>(sh.tree[1], r, o, b, pb) : 0.0f;
+        const float A = tree_path<false>(tree[0], r, o, a, pa);
+        const float Bt = B ? tree_path<PROD>(tree[1], r, o, b, pb) : 0.0f;
         const float f1 = full_finish(KID, A, Bt, dim);
         if (accept(u, fx, f1, T)) {
             ca[d] = na;
-            tree_store(sh.tree[0], r, o, pa);
+            tree_store(tree[0], r, o, pa);
             if (B) {
                 cb[d] = nb;
-                tree_store(sh.tree[1], r, o, pb);
+                tree_store(tree[1], r, o, pb);
             }
-            xrow[d] = sh.newval[s][r];
+            xrow[d] = st.newval[s][r];
             fx = f1;
         }
     }
 }
 
-__device__ __forceinline__ void full_walk(int kid, FullShared& sh, float* ca,
-                                          float* cb, int r, int cnt, float T,
-                                          int dim, float* xrow, float& fx) {
+template <int S>
+__device__ __forceinline__ void full_walk(int kid, const FullStage<S>& st,
+                                          FullTree& tree, float* ca, float* cb,
+                                          int r, int cnt, float T, int dim,
+                                          float* xrow, float& fx) {
     switch (kid) {
         case KID_RASTRIGIN:
-            full_walk_kid<KID_RASTRIGIN>(sh, ca, cb, r, cnt, T, dim, xrow, fx);
+            full_walk_kid<KID_RASTRIGIN>(st, tree, ca, cb, r, cnt, T, dim, xrow, fx);
             break;
         case KID_ACKLEY:
-            full_walk_kid<KID_ACKLEY>(sh, ca, cb, r, cnt, T, dim, xrow, fx);
+            full_walk_kid<KID_ACKLEY>(st, tree, ca, cb, r, cnt, T, dim, xrow, fx);
             break;
         case KID_GRIEWANK:
-            full_walk_kid<KID_GRIEWANK>(sh, ca, cb, r, cnt, T, dim, xrow, fx);
+            full_walk_kid<KID_GRIEWANK>(st, tree, ca, cb, r, cnt, T, dim, xrow, fx);
             break;
         case KID_EXPONENTIAL:
-            full_walk_kid<KID_EXPONENTIAL>(sh, ca, cb, r, cnt, T, dim, xrow, fx);
+            full_walk_kid<KID_EXPONENTIAL>(st, tree, ca, cb, r, cnt, T, dim, xrow, fx);
             break;
         case KID_SALOMON:
-            full_walk_kid<KID_SALOMON>(sh, ca, cb, r, cnt, T, dim, xrow, fx);
+            full_walk_kid<KID_SALOMON>(st, tree, ca, cb, r, cnt, T, dim, xrow, fx);
             break;
         default:
-            full_walk_kid<KID_SCHWEFEL>(sh, ca, cb, r, cnt, T, dim, xrow, fx);
+            full_walk_kid<KID_SCHWEFEL>(st, tree, ca, cb, r, cnt, T, dim, xrow, fx);
             break;
     }
 }
@@ -678,33 +771,20 @@ sweep_full_kernel(const float* __restrict__ x_in, float* x_out,
     }
     cp_async_commit();
     __syncthreads();
-    full_stage(sh, rows, dim, 0, min(FULL_STAGE, n_steps));
+    full_stage(sh.cs, sh.st, rows, dim, 0, min(FULL_STAGE, n_steps), threadIdx.x,
+               FULL_THREADS);
     cp_async_wait_all();
     __syncthreads();
 
-    // A warp per row: x to x_out, the terms into the caches in place, lane
-    // l folding coordinates l, l + 32, ... in order, then the butterfly.
+    // A warp per row: x to x_out, the terms into the caches in place.
     for (int r = warp; r < rows; r += FULL_WARPS) {
-        const int kid = sh.cs[r].kid;
         float* xa = cache_a + static_cast<size_t>(r) * dim;
-        float* xb = two_caches ? cache_b + static_cast<size_t>(r) * dim : nullptr;
-        float* xo = x_out + static_cast<size_t>(first + r) * dim;
-        float a = 0.0f, b = b_init(kid);
-        for (int j = lane; j < dim; j += 32) {
-            const float xj = xa[j];
-            xo[j] = xj;
-            float ta, tb;
-            full_terms(kid, xj, j, ta, tb);
-            xa[j] = ta;
-            a += ta;
-            if (has_b(kid)) {
-                xb[j] = tb;
-                b = fold_b(kid, b, tb);
-            }
-        }
-        a = tree_build(sh.tree[0], r, lane, a, false);
-        if (has_b(kid)) b = tree_build(sh.tree[1], r, lane, b, kid == KID_GRIEWANK);
-        if (lane == 0) sh.f[r] = full_finish(kid, a, b, dim);
+        const float f = eval_row(sh.cs[r].kid, xa,
+                                 x_out + static_cast<size_t>(first + r) * dim, xa,
+                                 two_caches ? cache_b + static_cast<size_t>(r) * dim
+                                            : nullptr,
+                                 sh.tree, r, lane, dim);
+        if (lane == 0) sh.f[r] = f;
     }
     __syncthreads();
 
@@ -715,17 +795,204 @@ sweep_full_kernel(const float* __restrict__ x_in, float* x_out,
     for (int c0 = 0; c0 < n_steps; c0 += FULL_STAGE) {
         const int cnt = min(FULL_STAGE, n_steps - c0);
         if (c0 > 0) {
-            full_stage(sh, rows, dim, c0, cnt);
+            full_stage(sh.cs, sh.st, rows, dim, c0, cnt, threadIdx.x, FULL_THREADS);
             __syncthreads();
         }
         if (walks)
-            full_walk(sh.cs[lane].kid, sh, cache_a + static_cast<size_t>(lane) * dim,
+            full_walk(sh.cs[lane].kid, sh.st, sh.tree,
+                      cache_a + static_cast<size_t>(lane) * dim,
                       two_caches ? cache_b + static_cast<size_t>(lane) * dim : nullptr,
                       lane, cnt, sh.cs[lane].T, dim,
                       x_out + static_cast<size_t>(first + lane) * dim, fx);
         __syncthreads();
     }
     if (warp == 0 && lane < rows) f_out[first + lane] = fx;
+}
+
+// Rows [first, first + rows) of x_out set to the row xr (shared memory) by
+// threads t of nt, in 16-byte stores where x_out's rows are 16-byte aligned.
+__device__ __forceinline__ void write_rows(float* x_out, const float* xr,
+                                           int first, int rows, int dim, int t,
+                                           int nt) {
+    float* dst = x_out + static_cast<size_t>(first) * dim;
+    if ((dim & 3) == 0 && (reinterpret_cast<uintptr_t>(x_out) & 15u) == 0) {
+        const int nq = dim >> 2;
+        const float4* src = reinterpret_cast<const float4*>(xr);
+        float4* d4 = reinterpret_cast<float4*>(dst);
+        for (int e = t; e < rows * nq; e += nt) d4[e] = src[e % nq];
+    } else {
+        for (int e = t; e < rows * dim; e += nt) dst[e] = xr[e % dim];
+    }
+}
+
+// A barrier of the warps other than warp 0.
+__device__ __forceinline__ void sync_stagers() {
+    asm volatile("bar.sync 1, %0;\n" ::"n"(FULL_THREADS - 32) : "memory");
+}
+
+// Every chain starts from the one row x_row (under V2, the champion).  The
+// CTA stays resident and takes groups of rpc consecutive chains, first
+// group blockIdx.x, then those tickets[0] hands out (gridDim.x on), each
+// walked in chunks of SHARED_STAGE steps.  It reads the row once, and warp
+// 0 evaluates it once, for the kid of the CTA's first chain, into the
+// champion's caches and butterfly; a group's rows of that kid start from
+// shared-memory copies of them, the bits each row's own evaluation gives,
+// and rows of another kid evaluate the row themselves.  While warp 0 walks
+// a chunk, the other seven warps stage the next one and, in a group's last
+// chunk, take the next group's ticket, set it up and write its rows to
+// x_out.  The CTA that takes the last ticket past the end (tickets[1]
+// counts them) sets both counters back to zero for the next launch.
+// Dynamic shared memory holds the rows' caches as sweep_full_kernel's,
+// then the row, its a-terms and, with two_caches, its b-terms.
+__global__ void __launch_bounds__(FULL_THREADS, 4)
+sweep_full_shared_kernel(const float* __restrict__ x_row, float* x_out,
+                         float* __restrict__ f_out, SweepControls c, int chains,
+                         int dim, int blk, int n_steps, int rpc, int two_caches,
+                         unsigned int* tickets) {
+    extern __shared__ float4 cache4[];
+    __shared__ SharedStart sh;
+    const size_t cached = static_cast<size_t>(rpc) * dim;
+    float* cache_a = reinterpret_cast<float*>(cache4);
+    float* cache_b = two_caches ? cache_a + cached : nullptr;
+    float* xr = cache_a + cached * (two_caches ? 2 : 1);
+    float* ra = xr + dim;
+    float* rb = two_caches ? ra + dim : nullptr;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int t = threadIdx.x - 32, nt = FULL_THREADS - 32;  // the stagers
+    const int groups = (chains + rpc - 1) / rpc;
+    // Chunks of equal length (33 steps: three of 11), so that the last,
+    // which hides the next group's set-up, is as long as the others.
+    const int chunks = max(1, (n_steps + SHARED_STAGE - 1) / SHARED_STAGE);
+    const int len = (n_steps + chunks - 1) / chunks;
+
+    // The row, in 16-byte pieces where it is 16-byte aligned (a champion
+    // gathered over cards follows its value: 4 bytes).
+    if ((dim & 3) == 0 && (reinterpret_cast<uintptr_t>(x_row) & 15u) == 0) {
+        for (int q = threadIdx.x; q < dim / 4; q += FULL_THREADS)
+            cp_async16(xr + 4 * q, x_row + 4 * q);
+    } else {
+        for (int e = threadIdx.x; e < dim; e += FULL_THREADS)
+            cp_async4(xr + e, x_row + e);
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+
+    // Warp 0 evaluates the row; the others set up the first group, write
+    // its rows and stage its first chunk.
+    if (warp == 0) {
+        const int kid = c.kid ? c.kid[blockIdx.x * rpc / blk] : c.kid_s;
+        const float f = eval_row(kid, xr, nullptr, ra, rb, sh.ch.tree, 0, lane, dim);
+        if (lane == 0) {
+            sh.ch.kid = kid;
+            sh.ch.f = f;
+        }
+    } else {
+        const int first = blockIdx.x * rpc, rows = min(rpc, chains - first);
+        if (t == 0) sh.group[0] = blockIdx.x;
+        if (t < rows) sh.cs[0][t] = setup(c, first + t, blk);
+        write_rows(x_out, xr, first, rows, dim, t, nt);
+        sync_stagers();
+        full_stage(sh.cs[0], sh.st[0], rows, dim, 0, min(len, n_steps), t, nt);
+    }
+
+    float fx = 0.0f;
+    int first = 0, rows = 0;
+    for (int j = 0;; ++j) {
+        const int i = j / chunks, k = j - i * chunks;  // group ordinal, chunk
+        const int b = i & 1;
+        const ChainSetup* cs = sh.cs[b];
+        __syncthreads();  // chunk j staged; the walk of chunk j - 1 done
+        if (k == 0) {
+            const int g = sh.group[b];
+            if (g >= groups) break;
+            first = g * rpc;
+            rows = min(rpc, chains - first);
+            // Rows of the champion's kid: its caches, tree and value copied.
+            const int ck = sh.ch.kid;
+            const bool cb = has_b(ck);
+            if ((dim & 3) == 0) {
+                const int nq = dim >> 2;
+                const float4 *a4 = reinterpret_cast<const float4*>(ra),
+                             *b4 = reinterpret_cast<const float4*>(rb);
+                for (int e = threadIdx.x; e < rows * nq; e += FULL_THREADS) {
+                    const int r = e / nq, q = e - r * nq;
+                    if (cs[r].kid != ck) continue;
+                    reinterpret_cast<float4*>(cache_a + r * static_cast<size_t>(dim))[q] = a4[q];
+                    if (cb)
+                        reinterpret_cast<float4*>(cache_b + r * static_cast<size_t>(dim))[q] = b4[q];
+                }
+            } else {
+                for (int e = threadIdx.x; e < rows * dim; e += FULL_THREADS) {
+                    const int r = e / dim, q = e - r * dim;
+                    if (cs[r].kid != ck) continue;
+                    cache_a[r * static_cast<size_t>(dim) + q] = ra[q];
+                    if (cb) cache_b[r * static_cast<size_t>(dim) + q] = rb[q];
+                }
+            }
+            for (int e = threadIdx.x; e < TREE_NODES * FULL_ROWS; e += FULL_THREADS) {
+                const int n = e / FULL_ROWS, r = e % FULL_ROWS;
+                if (r >= rows || cs[r].kid != ck) continue;
+                sh.tree[0][n][r] = sh.ch.tree[0][n][0];
+                if (cb) sh.tree[1][n][r] = sh.ch.tree[1][n][0];
+                if (n == 0) sh.f[r] = sh.ch.f;
+            }
+            // Rows of another kid (a per-block kid array) evaluate the row.
+            for (int r = warp; r < rows; r += FULL_WARPS) {
+                const int kid = cs[r].kid;
+                if (kid == ck) continue;
+                const float f = eval_row(kid, xr, nullptr,
+                                         cache_a + r * static_cast<size_t>(dim),
+                                         two_caches ? cache_b + r * static_cast<size_t>(dim)
+                                                    : nullptr,
+                                         sh.tree, r, lane, dim);
+                if (lane == 0) sh.f[r] = f;
+            }
+            __syncthreads();
+            if (warp == 0 && lane < rows) fx = sh.f[lane];
+        }
+        const int c0 = k * len;
+        if (warp == 0) {
+            if (lane < rows && cs[lane].live)
+                full_walk(cs[lane].kid, sh.st[j & 1], sh.tree,
+                          cache_a + lane * static_cast<size_t>(dim),
+                          two_caches ? cache_b + lane * static_cast<size_t>(dim) : nullptr,
+                          lane, max(0, min(len, n_steps - c0)), cs[lane].T, dim,
+                          x_out + (first + lane) * static_cast<size_t>(dim), fx);
+            if (k == chunks - 1 && lane < rows) f_out[first + lane] = fx;
+        } else if (k + 1 < chunks) {
+            full_stage(cs, sh.st[(j + 1) & 1], rows, dim, c0 + len,
+                       min(len, n_steps - c0 - len), t, nt);
+        } else {
+            // The next group: its ticket, its set-up (in the buffer of the
+            // group before this one), its rows, written late so that they
+            // are still in L2 when its walk changes them, and its first
+            // chunk.
+            if (t == 0) {
+                const int g = gridDim.x + static_cast<int>(atomicAdd(tickets, 1u));
+                sh.group[b ^ 1] = g;
+                if (g >= groups) {
+                    // This CTA's last ticket; the last CTA to take one
+                    // leaves the counters as it found them.
+                    __threadfence();
+                    if (atomicAdd(tickets + 1, 1u) == gridDim.x - 1) {
+                        atomicExch(tickets, 0u);
+                        atomicExch(tickets + 1, 0u);
+                    }
+                }
+            }
+            sync_stagers();
+            const int fn = sh.group[b ^ 1] * rpc;
+            if (fn < chains) {
+                const int rn = min(rpc, chains - fn);
+                if (t < rn) sh.cs[b ^ 1][t] = setup(c, fn + t, blk);
+                write_rows(x_out, xr, fn, rn, dim, t, nt);
+                sync_stagers();
+                full_stage(sh.cs[b ^ 1], sh.st[(j + 1) & 1], rn, dim, 0,
+                           min(len, n_steps), t, nt);
+            }
+        }
+    }
 }
 
 // Rows whose term cache does not fit in shared memory: a warp per chain
@@ -779,14 +1046,57 @@ __global__ void sweep_full_wide_kernel(const float* __restrict__ x_in,
 constexpr size_t SMEM_BLOCK_MAX = 232448;
 constexpr size_t FULL_CACHE_BUDGET = 32 * 1024;
 
+// CTAs of a kernel resident on the card at once, per device, for the
+// dynamic shared memory last asked (an occupancy query costs microseconds).
+// The kernel asks for the largest shared-memory carveout first: four CTAs
+// of the shared start fill it, and a persistent grid sized for a smaller
+// one runs a quarter slower.
+struct Resident {
+    static constexpr int MAX_DEVICES = SmemOptIn::MAX_DEVICES;
+    size_t dynamic[MAX_DEVICES] = {};
+    int ctas[MAX_DEVICES] = {};
+
+    template <typename Kernel>
+    cudaError_t get(Kernel kernel, int threads, size_t bytes, int& out) {
+        int dev = 0;
+        cudaError_t e = cudaGetDevice(&dev);
+        if (e != cudaSuccess) return e;
+        if (dev < MAX_DEVICES && ctas[dev] > 0 && dynamic[dev] == bytes) {
+            out = ctas[dev];
+            return cudaSuccess;
+        }
+        int per_sm = 0, sms = 0;
+        e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+        if (e == cudaSuccess)
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes);
+        if (e == cudaSuccess)
+            e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (e != cudaSuccess) return e;
+        out = (per_sm > 0 ? per_sm : 1) * sms;
+        if (dev < MAX_DEVICES) {
+            dynamic[dev] = bytes;
+            ctas[dev] = out;
+        }
+        return cudaSuccess;
+    }
+};
+
 }  // namespace sa
+
+// x_in holds the chains' rows one after the other, or, with tickets (the
+// full variant only), the one row every chain starts from; tickets is then
+// two counters, zero on entry and left zero (one per stream: a launch takes
+// its groups from them).  A shared row too wide for the shared kernel
+// returns SA_SHARED_ROW_UNFIT and launches nothing.
+constexpr int SA_SHARED_ROW_UNFIT = -1;
 
 extern "C" int sa_metropolis_sweep(
     const float* x_in, float* x_out, float* f_out, const int* kid, int kid_s,
     const uint32_t* seed, uint32_t seed_s, const uint32_t* step0,
     uint32_t step0_s, const float* T, float T_s, const uint32_t* chain_base,
     const int* live, const float* t_chain, int chains, int dim, int blk,
-    int n_steps, int variant, void* stream) {
+    int n_steps, int variant, unsigned int* tickets, void* stream) {
     const sa::SweepControls c{kid, kid_s, seed, seed_s, step0, step0_s,
                               T, T_s, chain_base, live, t_chain};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -806,7 +1116,26 @@ extern "C" int sa_metropolis_sweep(
         int rpc = sa::FULL_ROWS;
         while (rpc > 1 && rpc * row_bytes > sa::FULL_CACHE_BUDGET) rpc >>= 1;
         const size_t shmem = rpc * row_bytes;
-        if (shmem + sizeof(sa::FullShared) <= sa::SMEM_BLOCK_MAX) {
+        // A shared row adds itself and its caches; where they do not fit
+        // beside the rows' caches the host packs the rows and calls again.
+        const size_t shared_shmem = shmem + static_cast<size_t>(dim) * 4 * (two ? 3 : 2);
+        if (tickets && shared_shmem + sizeof(sa::SharedStart) > sa::SMEM_BLOCK_MAX)
+            return SA_SHARED_ROW_UNFIT;
+        if (tickets) {
+            static sa::SmemOptIn opt_in;
+            static sa::Resident resident;
+            cudaError_t e = opt_in.allow(sa::sweep_full_shared_kernel,
+                                         shared_shmem + sizeof(sa::SharedStart),
+                                         shared_shmem);
+            int grid = 0;
+            if (e == cudaSuccess)
+                e = resident.get(sa::sweep_full_shared_kernel, sa::FULL_THREADS,
+                                 shared_shmem, grid);
+            if (e != cudaSuccess) return static_cast<int>(e);
+            grid = std::min(grid, (chains + rpc - 1) / rpc);
+            sa::sweep_full_shared_kernel<<<grid, sa::FULL_THREADS, shared_shmem, st>>>(
+                x_in, x_out, f_out, c, chains, dim, blk, n_steps, rpc, two, tickets);
+        } else if (shmem + sizeof(sa::FullShared) <= sa::SMEM_BLOCK_MAX) {
             static sa::SmemOptIn opt_in;
             const cudaError_t e = opt_in.allow(sa::sweep_full_kernel,
                                                shmem + sizeof(sa::FullShared), shmem);

@@ -11,6 +11,20 @@ For a CUDA tensor the wrapper launches the kernel; for a CPU tensor it
 expands the per-block controls to per-chain columns and runs the plain
 version, ``ref.metropolis_sweep_ref``.  One library serves every objective
 and every ``(dim, n_steps, blk, variant)``: they are runtime arguments.
+
+Under V2 every chain starts a level from the champion, and the input is
+that one row broadcast over the chains.  The ``full`` kernel takes it as
+one row (:func:`shared_row`, the shared start): a resident CTA reads it
+once and evaluates it once, then seeds each chain's term caches from that
+copy and writes the row to each chain's ``x_out``.  The bits are those of
+the same sweep on the packed rows.  On the H100 the walks bound it (a
+serial step of about 810 cycles, 64 chains walking an SM); writing
+``x_out``, 2 GiB at 2^20 chains of 512 that V2's count of what it needs
+leaves out, and staging the draws run beside them.  CTAs take their groups
+of chains from a counter, so a CTA that starts late takes fewer.  Other
+strided inputs, and a shared row too wide for the shared kernel (its
+caches beside the chains', dim above about 17k), are packed first, inside
+the span ``sa.pack``.
 """
 from __future__ import annotations
 
@@ -25,10 +39,13 @@ VARIANTS = {"delta": 0, "full": 1}
 
 
 class _Count:
-    """Kernel launches on the card."""
+    """Kernel launches on the card; ``shared_start`` counts those that read
+    one row shared by every chain (:func:`shared_row`) instead of a packed
+    copy."""
 
     def __init__(self):
         self.launches = 0
+        self.shared_start = 0
 
 
 counter = _Count()
@@ -183,15 +200,45 @@ def metropolis_sweep_plain(x, T, seed, step0, *, kid, n_steps: int,
     return xo[:chains], fo[:chains]
 
 
+def shared_row(x, variant):
+    """The one row every chain of ``x`` starts from, or None.
+
+    A row broadcast over the chains (stride 0 down them, 1 along the row:
+    under V2 ``exchange_sync``'s ``expand_as`` of the champion) is one row,
+    and the ``full`` kernel takes it as such: it reads and evaluates it
+    once per CTA instead of once per chain, and nothing is packed (unless
+    the row is too wide for that kernel).  Any other input, and any input
+    of ``delta``, is swept row by row."""
+    if variant == "full" and x.ndim == 2 and x.shape[0] > 0 \
+            and x.stride(0) == 0 and x.stride(1) == 1:
+        return x[0]
+    return None
+
+
+# sa_metropolis_sweep's answer for a shared row too wide for the shared
+# kernel: nothing launched, the rows are to be packed.
+_SHARED_ROW_UNFIT = -1
+# The shared kernel's two group counters, one pair per (card, stream): zero
+# between launches, and launches on one stream run one after another.
+_tickets = {}
+
+
+def _pack(x):
+    """The rows of a strided input, contiguous: one copy, the span's only
+    launch."""
+    with span("sa.pack"):
+        return x.contiguous()
+
+
 def _launch(x, T, seed, step0, kid, n_steps, blk, variant, chain_base, live,
             t_chain, out):
     dev = x.device
-    if not x.is_contiguous():
-        # Under V2 the broadcast champion: one copy, the span's only launch.
-        with span("sa.pack"):
-            x = x.contiguous()
+    row = shared_row(x, variant)
+    if row is None and not x.is_contiguous():
+        x = _pack(x)
     chains, dim = x.shape
-    x_out = torch.empty_like(x) if out is None else out
+    x_out = torch.empty((chains, dim), dtype=x.dtype, device=dev) \
+        if out is None else out
     if x_out.shape != x.shape or x_out.dtype != x.dtype \
             or x_out.device != dev or not x_out.is_contiguous():
         raise ValueError("out must be a contiguous float32 tensor shaped "
@@ -209,16 +256,30 @@ def _launch(x, T, seed, step0, kid, n_steps, blk, variant, chain_base, live,
         t = t.reshape(-1).contiguous()
         t_chain_p = t.data_ptr()
         keep.append(t)
+    controls = (*arg(kid, torch.int32), *arg(seed, torch.int64),
+                *arg(step0, torch.int64), *arg(T, torch.float32),
+                arg(chain_base, torch.int64, by_value=False)[0],
+                arg(live, torch.int32, by_value=False)[0], t_chain_p)
     lib = _build.lib()
     with torch.cuda.device(dev):
-        rc = lib.sa_metropolis_sweep(
-            x.data_ptr(), x_out.data_ptr(), f_out.data_ptr(),
-            *arg(kid, torch.int32), *arg(seed, torch.int64),
-            *arg(step0, torch.int64), *arg(T, torch.float32),
-            arg(chain_base, torch.int64, by_value=False)[0],
-            arg(live, torch.int32, by_value=False)[0],
-            t_chain_p, chains, dim, blk, n_steps, VARIANTS[variant],
-            torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def sweep(x, tickets):
+            return lib.sa_metropolis_sweep(
+                x.data_ptr(), x_out.data_ptr(), f_out.data_ptr(), *controls,
+                chains, dim, blk, n_steps, VARIANTS[variant], tickets, stream)
+
+        if row is None:
+            rc = sweep(x, None)
+        else:
+            key = (dev.index, stream)
+            if key not in _tickets:
+                _tickets[key] = torch.zeros(2, dtype=torch.int32, device=dev)
+            rc = sweep(x, _tickets[key].data_ptr())
+            if rc == _SHARED_ROW_UNFIT:
+                row = None
+                rc = sweep(_pack(x), None)
     _build.check(rc, "metropolis_sweep")
     counter.launches += 1
+    counter.shared_start += row is not None
     return x_out, f_out

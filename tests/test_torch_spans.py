@@ -1,9 +1,10 @@
 """The port's profiler spans (``repro_torch/spans.py``): off, a span is the
 shared no-op and opens no range; under a torch profiler the ladder opens
 one ``sa.level`` range a level, as host events of the trace the benchmark
-reads, and the solve's results do not change.  The card case counts the
-``sa.pack`` ranges around the V2 adoption copy and finds no range among
-the device events."""
+reads, and the solve's results do not change.  The card case finds no
+``sa.pack`` range under V2's full sweep, which takes the champion as one
+shared row, one a level after the first under V2's delta sweep, which
+packs it, and no range among the device events."""
 import dataclasses
 
 import numpy as np
@@ -100,16 +101,25 @@ def card():
 
 
 def test_cuda_v2_packs_every_level_after_the_first_v1_none(card):
+    """Only the delta variant packs the V2 champion, once in each level
+    after the first; the full variant reads it as one row and packs
+    nothing, and V1 has nothing to pack."""
     acts = (ProfilerActivity.CPU, ProfilerActivity.CUDA)
     cfg, r2, host = _profiled("sync", card, acts, n_chains=4096)
-    levels, packs = _named(host, "sa.level"), _named(host, "sa.pack")
-    assert len(levels) == cfg.n_levels and len(packs) == cfg.n_levels - 1
-    # Level 0 sweeps the contiguous starts; each later level packs once.
-    assert all(any(s <= p and q <= e for s, e in levels) for p, q in packs)
-    assert not any(levels[0][0] <= p <= levels[0][1] for p, _ in packs)
-    _, r1, host = _profiled("async", card, acts, n_chains=4096)
     assert len(_named(host, "sa.level")) == cfg.n_levels
     assert _named(host, "sa.pack") == []
     _, plain = _solve("sync", card, n_chains=4096)
     assert r2.f_best == plain.f_best
     np.testing.assert_array_equal(r2.history_f, plain.history_f)
+    _, rd, host = _profiled("sync", card, acts, n_chains=4096, use_delta_eval=True)
+    levels, packs = _named(host, "sa.level"), _named(host, "sa.pack")
+    assert len(levels) == cfg.n_levels and len(packs) == cfg.n_levels - 1
+    # Level 0 sweeps the contiguous starts; each later level packs once.
+    assert all(any(s <= p and q <= e for s, e in levels) for p, q in packs)
+    assert not any(levels[0][0] <= p <= levels[0][1] for p, _ in packs)
+    _, plain = _solve("sync", card, n_chains=4096, use_delta_eval=True)
+    assert rd.f_best == plain.f_best
+    np.testing.assert_array_equal(rd.history_f, plain.history_f)
+    _, r1, host = _profiled("async", card, acts, n_chains=4096)
+    assert len(_named(host, "sa.level")) == cfg.n_levels
+    assert _named(host, "sa.pack") == []

@@ -1,6 +1,8 @@
 """Plain version of kernel B1 (repro_torch.kernels.ref and the CPU path of
 metropolis_sweep_kernel) vs the JAX package's oracle and its Pallas kernel
-in interpret mode, under the parity contract of torch_parity.py."""
+in interpret mode, under the parity contract of torch_parity.py; the
+route of a shared start (one row broadcast over the chains) and, on a
+card, its bits against the same sweep of the packed rows."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +17,8 @@ from repro.kernels.metropolis_sweep import metropolis_sweep_pallas
 from repro_torch.kernels import objective_math as tom
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.metropolis_sweep import metropolis_sweep_kernel
+from repro_torch.kernels import metropolis_sweep as tms
+from repro_torch.kernels.metropolis_sweep import metropolis_sweep_kernel, shared_row
 
 from torch_parity import assert_sweep_parity
 
@@ -246,3 +249,158 @@ def test_proposal_matches_xla_fused_multiply_add(kid):
     lo_t, _, width = tom.box_f32(kid)
     port = tref.proposal(lo_t, width, torch.from_numpy(u)).numpy()
     np.testing.assert_array_equal(port, xla)
+
+
+def _row(dim, kid=0, seed=0):
+    return torch.from_numpy(_x([kid], dim=dim, seed=seed)[0])
+
+
+@pytest.mark.parametrize("make,variant,taken", [
+    (lambda r: r.expand(CHAINS, DIM), "full", True),
+    (lambda r: r.expand(1, DIM), "full", False),
+    (lambda r: r.expand(CHAINS, DIM), "delta", False),
+    (lambda r: r.expand(0, DIM), "full", False),
+    (lambda r: r.expand(CHAINS, DIM).contiguous(), "full", False),
+    (lambda r: torch.stack([r] * CHAINS, 1).t(), "full", False),
+    (lambda r: r.repeat(CHAINS, 2)[:, ::2], "full", False),
+    (lambda r: torch.stack([r] * CHAINS)[:, :DIM // 2], "full", False),
+    (lambda r: r.repeat(2)[::2].expand(CHAINS, DIM), "full", False),
+], ids=["broadcast", "one-chain-is-contiguous", "delta", "no-chains", "contiguous",
+        "transposed", "strided-row", "column-slice", "stride-0-of-a-strided-row"])
+def test_shared_row_routing(make, variant, taken):
+    """Only a row broadcast over the chains (stride 0 down them, unit
+    stride along the row) under ``full`` is swept as one shared row."""
+    x = make(_row(DIM, seed=3))
+    row = shared_row(x, variant)
+    if not taken:
+        assert row is None
+        return
+    assert row.shape == (DIM,) and row.data_ptr() == x.data_ptr()
+    assert torch.equal(row, x[-1])
+
+
+@pytest.mark.parametrize("kid,dim,n_steps,blk,based", [
+    (0, DIM, STEPS, 16, False),
+    (1, 30, 33, 8, True),
+    (2, DIM, 40, 16, False),
+    (3, 30, STEPS, 8, True),
+    ("array", DIM, STEPS, 8, True),
+    (5, 5, 3, 4, False),
+])
+def test_plain_sweep_of_a_shared_row_equals_its_copy(kid, dim, n_steps, blk, based):
+    """On the CPU the plain version sweeps a broadcast row as it sweeps
+    the same rows packed, and launches nothing."""
+    kk = np.arange(CHAINS // blk) % 6 if kid == "array" else kid
+    x = _row(dim, kid=0 if kid == "array" else kid, seed=dim).expand(CHAINS, dim)
+    kw = dict(kid=kk, n_steps=n_steps, blk=blk, variant="full",
+              chain_base=(1000 + blk * np.arange(CHAINS // blk)) if based else None)
+    launches, shared = tms.counter.launches, tms.counter.shared_start
+    xs, fs = metropolis_sweep_kernel(x, 3.0, 9, 2**31 - 4, **kw)
+    xp, fp = metropolis_sweep_kernel(x.contiguous(), 3.0, 9, 2**31 - 4, **kw)
+    assert torch.equal(xs, xp) and torch.equal(fs, fp)
+    assert not torch.equal(xs, x)
+    assert (tms.counter.launches, tms.counter.shared_start) == (launches, shared)
+
+
+@pytest.fixture
+def card():
+    """Decided here, not at import: kernel B1 runs only on a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("kid,dim,n_steps,offset,chains,blk,based", [
+    pytest.param(0, 512, 33, 0, 16392, 8, False, id="schwefel-512-many-groups-a-cta"),
+    pytest.param(0, 512, 33, 1, 4096, 256, True, id="schwefel-512-row-at-4-bytes"),
+    pytest.param(1, 30, 70, 0, 1000, 8, False, id="rastrigin-30-70-steps"),
+    pytest.param(2, 512, 33, 1, 1000, 8, True, id="ackley-512-row-at-4-bytes"),
+    pytest.param(3, 30, 33, 1, 1000, 8, False, id="griewank-30-row-at-4-bytes"),
+    pytest.param("array", 512, 70, 0, 960, 12, True, id="per-block-kid-array"),
+    pytest.param(0, 512, 0, 0, 1000, 8, False, id="no-steps"),
+    pytest.param(5, 64, 17, 0, 24, 8, False, id="salomon-a-partial-group"),
+    pytest.param(0, 12000, 8, 0, 64, 64, False, id="one-chain-a-group"),
+    pytest.param(0, 30000, 8, 0, 64, 64, False, id="row-too-wide-to-share"),
+    pytest.param(0, 60000, 8, 1, 64, 64, False, id="wide-kernel"),
+])
+def test_cuda_shared_start_bits_equal_packed(card, kid, dim, n_steps, offset,
+                                             chains, blk, based):
+    """B1 full on ``row.expand(chains, dim)`` (one row, not packed) gives
+    the bits of B1 full on the packed rows: x_out and f_out, for every
+    kid, rows that are not 16-byte aligned, several chunks of steps, a
+    chain base and a chain count that is not a multiple of the rows a
+    CTA takes; and both are held to the plain version on CPU copies under
+    the parity contract.  Only the shared launch counts as a shared start,
+    and a row whose caches do not fit beside the chains' (above about 17k
+    wide) is packed and counts none."""
+    gen = torch.Generator(device=card).manual_seed(1234 + dim + chains)
+    lo, hi = jom.BOX[0 if kid == "array" else kid]
+    buf = lo + (hi - lo) * torch.rand(dim + 1, generator=gen, device=card)
+    x = buf[offset:offset + dim].expand(chains, dim)
+    n_blocks = chains // blk
+    kids = (torch.tensor([(7 * i) % 6 for i in range(n_blocks)], dtype=torch.int32,
+                         device=card) if kid == "array" else kid)
+    base = (1 << 20) + blk * torch.arange(n_blocks, device=card) if based else None
+    kw = dict(kid=kids, n_steps=n_steps, blk=blk, variant="full", chain_base=base)
+    step0 = 3 * n_steps
+    shares = int(dim < 17000)
+    launches, shared = tms.counter.launches, tms.counter.shared_start
+    xs, fs = metropolis_sweep_kernel(x, 5.0, 7, step0, **kw)
+    assert tms.counter.shared_start == shared + shares
+    xp, fp = metropolis_sweep_kernel(x.contiguous(), 5.0, 7, step0, **kw)
+    torch.cuda.synchronize()
+    assert (tms.counter.launches, tms.counter.shared_start) == (launches + 2,
+                                                                shared + shares)
+    assert torch.equal(_bits(xs), _bits(xp)) and torch.equal(_bits(fs), _bits(fp))
+    assert n_steps == 0 or not torch.equal(xs, x)
+
+    kw_cpu = dict(kw, kid=kids.cpu() if torch.is_tensor(kids) else kids,
+                  chain_base=None if base is None else base.cpu())
+    x_cpu = x.cpu()
+    kid_rows = np.repeat(kids.cpu().numpy(), blk) if torch.is_tensor(kids) \
+        else _rows(kid, chains)
+    cidx = (np.repeat(base.cpu().numpy(), blk) + np.tile(np.arange(blk), n_blocks)
+            if based else np.arange(chains))
+
+    def shared_sweep(k):
+        got = metropolis_sweep_kernel(x, 5.0, 7, step0, **dict(kw, n_steps=k))
+        return tuple(a.cpu().numpy() for a in got)
+
+    def plain(k):
+        got = tms.metropolis_sweep_plain(x_cpu, 5.0, 7, step0, **dict(kw_cpu, n_steps=k))
+        return tuple(a.numpy() for a in got)
+
+    assert_sweep_parity(x_cpu.numpy(), shared_sweep, plain, kid=kid_rows,
+                        T=_rows(5.0, chains), seed=_rows(7, chains),
+                        step0=_rows(step0, chains), cidx=cidx, variant="full",
+                        n_steps=n_steps)
+
+
+@pytest.mark.parametrize("exchange,delta", [("sync", False), ("sync", True),
+                                            ("async", False), ("sos", False)])
+def test_cuda_shared_starts_a_solve(card, exchange, delta):
+    """A V2 full solve of L levels sweeps L - 1 shared starts (level 0
+    samples distinct starts); V1, SOS and the delta variant none."""
+    from repro_torch.core import SAConfig, sa_minimize
+    from repro_torch.objectives import functions as TF
+    cfg = SAConfig(T0=50.0, T_min=50.0 * 0.8 ** 6.5, rho=0.8, N=8, n_chains=4096,
+                   seed=5, exchange=exchange, use_delta_eval=delta)
+    launches, shared = tms.counter.launches, tms.counter.shared_start
+    sa_minimize(TF.schwefel(8), cfg, device=card)
+    assert tms.counter.launches - launches == cfg.n_levels
+    want = cfg.n_levels - 1 if (exchange, delta) == ("sync", False) else 0
+    assert tms.counter.shared_start - shared == want
+
+
+def test_cuda_serving_slots_are_not_shared_starts(card):
+    x = torch.from_numpy(_x([0] * 4 * 64, dim=16)).to(card)
+    shared = tms.counter.shared_start
+    tops.metropolis_sweep_slots(x, np.array([0, 1, 2, 3], np.int32), 2.0, 3, 0,
+                                np.array([0, 64, 128, 192], np.uint32),
+                                n_steps=4, blk=64, variant="full", device=card)
+    torch.cuda.synchronize()
+    assert tms.counter.shared_start == shared
